@@ -1,0 +1,88 @@
+"""Symmetric INT8 quantization for embedding databases.
+
+Port of `repro.core.quantization`. For an INT8 code v in [-128, 127]:
+
+    msb(v) = v >> 4        (arithmetic shift, range [-8, 7]  -> "INT4")
+    lsb(v) = v & 0xF       (range [0, 15], unsigned nibble)
+    v      = msb(v) * 16 + lsb(v)
+
+`torch.round`, like `jnp.round`, rounds half to even, so codes are
+bit-identical to the reference for the same float32 input.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+
+INT8_MAX = 127
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizedDB:
+    """An INT8-quantized embedding database.
+
+    values: (N, D) int8 quantized embeddings.
+    scale: () or (N,) float32 dequant scale (x ~= values * scale).
+    norms_sq: (N,) int32 integer squared L2 norms of the INT8 codes (fits
+        int32 for D <= 2**31 / 128**2 = 131072 dims).
+    """
+
+    values: torch.Tensor
+    scale: torch.Tensor
+    norms_sq: torch.Tensor
+
+    @property
+    def num_docs(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.values.shape[1]
+
+
+def quantize_int8(x: torch.Tensor, *, per_vector: bool = False
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric INT8 quantization. Returns (codes int8, scale f32)."""
+    x = x.to(torch.float32)
+    if per_vector:
+        amax = x.abs().amax(dim=-1, keepdim=True)
+    else:
+        amax = x.abs().amax()
+    scale = torch.clamp(amax, min=1e-12) / INT8_MAX
+    # Elementwise division by a broadcast tensor: a scalar divisor may be
+    # turned into a multiply by its reciprocal, which rounds differently.
+    codes = torch.clamp(torch.round(x / scale.expand_as(x)),
+                        -INT8_MAX - 1, INT8_MAX).to(torch.int8)
+    return codes, scale.squeeze(-1) if per_vector else scale
+
+
+def quantize_int8_fixed(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """Symmetric INT8 quantization with a fixed, caller-supplied scale."""
+    x = x.to(torch.float32)
+    s = torch.full_like(x, np.float32(scale))
+    return torch.clamp(torch.round(x / s), -INT8_MAX - 1,
+                       INT8_MAX).to(torch.int8)
+
+
+def msb_nibble(codes_int8: torch.Tensor) -> torch.Tensor:
+    """Most-significant nibble of INT8 codes: arithmetic >> 4, in [-8, 7]."""
+    return codes_int8.to(torch.int8) >> 4
+
+
+def lsb_nibble(codes_int8: torch.Tensor) -> torch.Tensor:
+    """Least-significant nibble in [0, 15], returned as int8."""
+    return codes_int8.to(torch.int8) & 0xF
+
+
+def build_database(embeddings, *, per_vector: bool = False,
+                   device: str | torch.device | None = None) -> QuantizedDB:
+    """Offline phase: quantize a float embedding matrix (a tensor or a
+    numpy array) into a QuantizedDB on `device`."""
+    x = torch.as_tensor(embeddings).to(resolve_device(device))
+    codes, scale = quantize_int8(x, per_vector=per_vector)
+    norms_sq = (codes.to(torch.int32) ** 2).sum(dim=-1, dtype=torch.int32)
+    return QuantizedDB(values=codes, scale=scale, norms_sq=norms_sq)

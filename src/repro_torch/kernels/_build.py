@@ -1,0 +1,116 @@
+"""Build, load and launch the hand-written CUDA kernels.
+
+Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
+for sm_90a into its own shared library under the package's own `build/`
+directory, named by a hash of the source and the flags, so a changed
+source rebuilds and an unchanged one is reused. Libraries are loaded with
+ctypes (pointers and the stream as ``c_void_p``). `build` starts one
+`nvcc` per missing library, all at once, and waits for them.
+
+A failed build or launch raises; nothing falls back to another path.
+`LAUNCHES` counts, per kernel, the launches that went through `launch`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Callable
+
+import torch
+
+_SRC = Path(__file__).resolve().parents[1] / "csrc"
+_BUILD = Path(__file__).resolve().parents[1] / "build"
+SOURCES = ("stage1_int4", "stage2_int8")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES: dict[str, int] = {"stage1_plane": 0, "stage1_rows": 0,
+                            "stage2_exact": 0}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[str, Callable[..., int]] = {}
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = (_SRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return _BUILD / f"{name}-{digest[:16]}.so"
+
+
+def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
+    """Compile every named source whose library is missing, one `nvcc`
+    process each, all started together. Returns each compiled source's
+    compiler output (register and shared-memory use per kernel)."""
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, out, tmp, proc))
+    logs = {}
+    failed = []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def function(name: str, symbol: str, argtypes: list) -> Callable[..., int]:
+    """The C launch function `symbol` of library `name`, built on first
+    use, with its argument types declared and an int (cudaError_t)
+    result."""
+    key = f"{name}:{symbol}"
+    fn = _fns.get(key)
+    if fn is None:
+        lib = _libs.get(name)
+        if lib is None:
+            build((name,))
+            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[key] = fn
+    return fn
+
+
+def launch(counter: str, fn: Callable[..., int], *args,
+           device: torch.device) -> None:
+    """Call a C launch function on `device`'s current stream and count
+    the launch; raises if the launch was refused."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"kernel {counter} failed to launch: CUDA error "
+                           f"{err}")
+    LAUNCHES[counter] += 1

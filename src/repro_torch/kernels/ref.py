@@ -1,0 +1,59 @@
+"""Plain PyTorch versions of the three ported kernels.
+
+Each computes exactly what its CUDA kernel computes, mirroring
+`repro.kernels.ref`, from the same packed-query operands. The products run
+in float64, which is exact for these integer sums. The wrappers use these
+for CPU tensors; the tests and `chip_smoke.py` hold the kernels to them.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _sext4(nib: torch.Tensor) -> torch.Tensor:
+    """4-bit two's-complement nibble in uint8 -> float64 in [-8, 7]."""
+    n = nib.to(torch.float64)
+    return torch.where(n >= 8, n - 16, n)
+
+
+def unpack_even_odd_signed(plane: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., D//2) packed uint8 -> signed nibbles of (even dims, odd dims)."""
+    return _sext4(plane & 0xF), _sext4((plane >> 4) & 0xF)
+
+
+def unpack_even_odd_unsigned(plane: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    return (plane & 0xF).to(torch.float64), \
+        ((plane >> 4) & 0xF).to(torch.float64)
+
+
+def stage1_scores_batched_ref(q_panel: torch.Tensor,
+                              msb_plane: torch.Tensor) -> torch.Tensor:
+    """The plane kernel: q_panel (2, B, D//2) int8 [even; odd] MSB-nibble
+    panels, msb_plane (N, D//2) uint8 -> (B, N) int32."""
+    even, odd = unpack_even_odd_signed(msb_plane)
+    q = q_panel.to(torch.float64)
+    return (q[0] @ even.T + q[1] @ odd.T).to(torch.int32)
+
+
+def stage1_rows_batched_ref(q_eo: torch.Tensor,
+                            msb_rows: torch.Tensor) -> torch.Tensor:
+    """The rows kernel: q_eo (B, 2, D//2) int8, msb_rows (B, W, D//2)
+    uint8 -> (B, W) int32, each lane against its own rows."""
+    even, odd = unpack_even_odd_signed(msb_rows)
+    q = q_eo.to(torch.float64)
+    return (torch.bmm(even, q[:, 0, :, None])
+            + torch.bmm(odd, q[:, 1, :, None]))[..., 0].to(torch.int32)
+
+
+def stage2_scores_batched_ref(q_eo8: torch.Tensor, msb_rows: torch.Tensor,
+                              lsb_rows: torch.Tensor) -> torch.Tensor:
+    """The exact kernel: q_eo8 (B, 2, D//2) int8 full query values,
+    msb/lsb_rows (B, C, D//2) uint8 -> (B, C) int32 exact INT8 scores."""
+    me, mo = unpack_even_odd_signed(msb_rows)
+    le, lo = unpack_even_odd_unsigned(lsb_rows)
+    q = q_eo8.to(torch.float64)
+    return (torch.bmm(me * 16 + le, q[:, 0, :, None])
+            + torch.bmm(mo * 16 + lo, q[:, 1, :, None]))[..., 0].to(
+                torch.int32)

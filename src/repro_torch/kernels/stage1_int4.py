@@ -1,0 +1,105 @@
+"""Stage-1 MSB-nibble (INT4) scoring: wrappers of the CUDA kernels in
+`csrc/stage1_int4.cu`.
+
+`stage1_int4_batched` replaces the reference's
+`stage1_int4_batched_pallas` (one scan of a shared plane for the whole
+batch), `stage1_int4_rows` its `stage1_int4_rows_pallas` (per-lane row
+blocks). A tensor on the CPU goes to the plain version in `ref`; a CUDA
+tensor launches the kernel or raises. The kernels mask their own ragged
+edge, so no operand is padded.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+_PLANE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+_ROWS_ARGS = _PLANE_ARGS
+
+# The plane kernel keeps 32 query lanes' panels (2 * 32 * D/2 bytes) in
+# shared memory and reads rows in 64-byte chunks.
+PLANE_MAX_D2 = 512
+MAX_GRID_Y = 65535
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {t.device}")
+    return False
+
+
+def stage1_int4_batched(q_panel: torch.Tensor,
+                        msb_plane: torch.Tensor) -> torch.Tensor:
+    """q_panel (2, B, D//2) int8 signed MSB nibbles [even dims; odd dims],
+    msb_plane (N, D//2) uint8 -> (B, N) int32."""
+    if _on_cpu(msb_plane):
+        return ref.stage1_scores_batched_ref(q_panel, msb_plane)
+    dev = msb_plane.device
+    _check("q_panel", q_panel, torch.int8, 3, dev)
+    _check("msb_plane", msb_plane, torch.uint8, 2, dev)
+    n, d2 = msb_plane.shape
+    b = q_panel.shape[1]
+    if q_panel.shape != (2, b, d2):
+        raise ValueError(f"q_panel shape {tuple(q_panel.shape)} does not "
+                         f"match the plane's {d2} bytes per row")
+    if d2 % 64 or d2 > PLANE_MAX_D2:
+        raise ValueError(f"the plane kernel takes D/2 a multiple of 64 up "
+                         f"to {PLANE_MAX_D2}, got {d2}")
+    if -(-b // 32) > MAX_GRID_Y:
+        raise ValueError(f"batch {b} exceeds the kernel's grid")
+    out = torch.empty((b, n), dtype=torch.int32, device=dev)
+    if out.numel():
+        fn = _build.function("stage1_int4", "stage1_plane_launch",
+                             _PLANE_ARGS)
+        _build.launch("stage1_plane", fn, q_panel.data_ptr(),
+                      msb_plane.data_ptr(), out.data_ptr(), b, n, d2,
+                      device=dev)
+    return out
+
+
+def stage1_int4_rows(q_eo: torch.Tensor,
+                     msb_rows: torch.Tensor) -> torch.Tensor:
+    """q_eo (B, 2, D//2) int8 per-lane [even; odd] nibble panels,
+    msb_rows (B, W, D//2) uint8 -> (B, W) int32."""
+    if _on_cpu(msb_rows):
+        return ref.stage1_rows_batched_ref(q_eo, msb_rows)
+    dev = msb_rows.device
+    _check("q_eo", q_eo, torch.int8, 3, dev)
+    _check("msb_rows", msb_rows, torch.uint8, 3, dev)
+    b, w, d2 = msb_rows.shape
+    if q_eo.shape != (b, 2, d2):
+        raise ValueError(f"q_eo shape {tuple(q_eo.shape)} does not match "
+                         f"rows of shape {tuple(msb_rows.shape)}")
+    if d2 % 16:
+        raise ValueError(f"the rows kernel takes D/2 a multiple of 16, "
+                         f"got {d2}")
+    if b > MAX_GRID_Y:
+        raise ValueError(f"batch {b} exceeds the kernel's grid")
+    out = torch.empty((b, w), dtype=torch.int32, device=dev)
+    if out.numel():
+        fn = _build.function("stage1_int4", "stage1_rows_launch", _ROWS_ARGS)
+        _build.launch("stage1_rows", fn, q_eo.data_ptr(),
+                      msb_rows.data_ptr(), out.data_ptr(), b, w, d2,
+                      device=dev)
+    return out
