@@ -1,8 +1,9 @@
 """State carried across from the JAX package: numpy leaves -> the port.
 
-The reference's `QuantizedDB` and `BitPlanarDB` are pytrees of arrays; a
-caller turns their leaves into numpy (``np.asarray``) and hands them here
-to get the port's objects on a chosen device. This module imports no JAX.
+The reference's `QuantizedDB`, `BitPlanarDB` and `ClusterCodebook` are
+pytrees of arrays; a caller turns their leaves into numpy (``np.asarray``)
+and hands them here to get the port's objects on a chosen device. This
+module imports no JAX.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.bitplanar import BitPlanarDB
+from repro_torch.core.clustering import ClusterCodebook
 from repro_torch.core.quantization import QuantizedDB
 
 
@@ -42,6 +44,20 @@ def bitplanar_db(msb_plane, lsb_plane, norms_sq, scale, sign_plane=None, *,
         scale=_tensor(scale, np.float32, "scale", dev),
         sign_plane=(None if sign_plane is None else
                     _tensor(sign_plane, np.uint8, "sign_plane", dev)))
+
+
+def cluster_codebook(codes, msb_plane, norms_sq, *,
+                     device=None) -> ClusterCodebook:
+    """The reference `ClusterCodebook`'s leaves: codes (K, D) int8,
+    msb_plane (K, D//2) uint8, norms_sq (K,) int32. The reference's numpy
+    `labels` and `block_table` need no conversion: the cluster entry
+    points take them as they are."""
+    dev = resolve_device(device)
+    return ClusterCodebook(codes=_tensor(codes, np.int8, "codes", dev),
+                           msb_plane=_tensor(msb_plane, np.uint8,
+                                             "msb_plane", dev),
+                           norms_sq=_tensor(norms_sq, np.int32, "norms_sq",
+                                            dev))
 
 
 def query_codes(codes, *, device=None) -> torch.Tensor:

@@ -1,14 +1,17 @@
 """Batch-native retrieval engine: one staged cascade behind every variant.
 
-Port of the two-stage part of `repro.core.engine`, layered as:
+Port of `repro.core.engine` (the two-stage and cluster-pruned cascades),
+layered as:
 
   policy   — which rows each batch lane may touch, as data: `PlainPolicy`
              (every row), `MaskedPolicy` (rows whose arena owner matches
              the lane's tenant), `WindowedPolicy` (a per-lane contiguous
-             arena window).
-  schedule — the cascade `(ApproxScan, ExactRescore)`: a batched INT4 scan
-             of the MSB plane with a per-lane top-C, then a batched INT8
-             gather, exact rescore and metric rerank.
+             arena window), `ClusterPolicy` (rows in the lane's
+             top-`nprobe` clusters of an INT8 centroid codebook).
+  schedule — the cascade: `(ApproxScan, ExactRescore)`, a batched INT4
+             scan with a per-lane top-C and then a batched INT8 gather,
+             exact rescore and metric rerank; the cluster policy prepends
+             `CentroidPrune` and, with `prescreen_c0`, `SignPrescreen`.
   backend  — the batched stage primitives, chosen by
              `RetrievalConfig.backend`: "torch" (plain PyTorch) or "cuda"
              (the kernel wrappers of `repro_torch.kernels.ops`). Both are
@@ -69,7 +72,31 @@ class WindowedPolicy:
     window: int
 
 
-Policy = PlainPolicy | MaskedPolicy | WindowedPolicy
+@dataclasses.dataclass(frozen=True)
+class ClusterPolicy:
+    """Centroid prune: lane i scans only its top-`nprobe` clusters' row
+    blocks (and, within them, only rows it owns).
+
+    `cluster_blocks` lists, per cluster, the ids of the `block_rows`-row
+    blocks holding its rows (-1 padding): (K, MB) shared by every lane, or
+    (B, K, MB) per lane (lane i's table lists only blocks holding its
+    tenant's rows, so foreign clusters read as empty and are never
+    probed). owner/tenant_ids mask exactly like MaskedPolicy
+    (single-corpus callers pass zeros for both). `nprobe` must be <= K and
+    the expanded view must hold at least cfg.k rows.
+    """
+
+    owner: torch.Tensor            # (N,) int32
+    tenant_ids: torch.Tensor       # (B,) int32
+    labels: torch.Tensor           # (N,) int32 row -> cluster (-1 free)
+    centroid_msb: torch.Tensor     # (K, D//2) uint8 packed centroid nibbles
+    centroid_norms: torch.Tensor   # (K,) int32 centroid squared norms
+    cluster_blocks: torch.Tensor   # (K, MB) or (B, K, MB) int32, -1 padded
+    nprobe: int
+    block_rows: int
+
+
+Policy = PlainPolicy | MaskedPolicy | WindowedPolicy | ClusterPolicy
 
 
 # ---------------------------------------------------------------------------
@@ -80,14 +107,27 @@ Policy = PlainPolicy | MaskedPolicy | WindowedPolicy
 class StageFns:
     """The cascade's batched primitives for one backend.
 
-    plane: stage-1 shared-plane scan   (B, D) x (N, D/2)    -> (B, N)
-    rows:  stage-1 per-lane rows       (B, D) x (B, W, D/2) -> (B, W)
-    exact: stage-2 INT8 rescore        (B, D) x 2 (B, C, D/2) -> (B, C)
+    plane:    stage-1 shared-plane scan   (B, D) x (N, D/2)    -> (B, N)
+    rows:     stage-1 per-lane rows       (B, D) x (B, W, D/2) -> (B, W)
+    gather:   stage-1 per-lane block gather (B, D) x plane + (B, J) ids
+              -> (B, J * block_rows); rows past N score 0
+    gather_resident: the gather over a plane of whole blocks whose every
+              id is live (no zero-row convention)
+    centroid: stage-0 codebook scoring, the plane scan over (K, D/2)
+    exact:    stage-2 INT8 rescore        (B, D) x 2 (B, C, D/2) -> (B, C)
+    sign_gather / sign_gather_resident: the sign prescreen's block gathers
+              over the packed (N, D/8) sign plane; zero bytes score
+              sum(q_sign)
     """
 
     plane: Callable
     rows: Callable
+    gather: Callable
+    gather_resident: Callable
+    centroid: Callable
     exact: Callable
+    sign_gather: Callable
+    sign_gather_resident: Callable
 
 
 def stage_fns(backend: str) -> StageFns:
@@ -96,17 +136,40 @@ def stage_fns(backend: str) -> StageFns:
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
     if backend == "cuda":
-        return StageFns(plane=kops.stage1_scores_batched,
-                        rows=kops.stage1_scores_rows,
-                        exact=kops.stage2_scores_batched)
-    if backend == "torch":
         return StageFns(
-            plane=lambda q_msb, plane: ref.stage1_scores_batched_ref(
-                kops.pack_query_panel(q_msb), plane),
+            plane=kops.stage1_scores_batched,
+            rows=kops.stage1_scores_rows,
+            gather=kops.stage1_scores_gather,
+            gather_resident=kops.stage1_scores_gather_resident,
+            centroid=kops.centroid_scores_batched,
+            exact=kops.stage2_scores_batched,
+            sign_gather=kops.stage0_sign_scores_gather,
+            sign_gather_resident=kops.stage0_sign_scores_gather_resident)
+    if backend == "torch":
+        def plane(q_msb, plane):
+            return ref.stage1_scores_batched_ref(kops.pack_query_panel(q_msb),
+                                                 plane)
+
+        def gather_with(plain):
+            return lambda q_msb, plane, ids, *, block_rows: plain(
+                kops.pack_queries_even_odd(q_msb), plane, ids, block_rows)
+
+        def sign_gather_with(plain):
+            return lambda q_sign, plane, ids, *, block_rows: plain(
+                q_sign, plane, ids, block_rows)
+
+        return StageFns(
+            plane=plane,
             rows=lambda q_msb, rows: ref.stage1_rows_batched_ref(
                 kops.pack_queries_even_odd(q_msb), rows),
+            gather=gather_with(ref.stage1_gather_batched_ref),
+            gather_resident=gather_with(ref.stage1_gather_resident_ref),
+            centroid=plane,
             exact=lambda q, msb, lsb: ref.stage2_scores_batched_ref(
-                kops.pack_queries_even_odd(q), msb, lsb))
+                kops.pack_queries_even_odd(q), msb, lsb),
+            sign_gather=sign_gather_with(ref.stage0_sign_gather_ref),
+            sign_gather_resident=sign_gather_with(
+                ref.stage0_sign_gather_resident_ref))
     raise ValueError(f"unknown backend {backend!r}: 'torch' or 'cuda'")
 
 
@@ -136,23 +199,38 @@ def _membership(owner: torch.Tensor, tenant_ids: torch.Tensor) -> torch.Tensor:
     return (owner == tenant_ids[:, None]) & (tenant_ids >= 0)[:, None]
 
 
+def probe_rows(policy: ClusterPolicy) -> int:
+    """Per-lane row count of the cluster policy's gathered view."""
+    return (min(policy.nprobe, policy.centroid_msb.shape[0])
+            * policy.cluster_blocks.shape[-1] * policy.block_rows)
+
+
 @dataclasses.dataclass
 class _CascadeState:
     """What the stages refine: which rows are still alive.
 
-    rows: (B, C) global candidate row ids after ApproxScan.
+    rows: (B, R) global row ids of the current view (-1 holes), or None
+        while the view is implicit (plane / window); (B, C) candidates
+        after ApproxScan.
     member: visibility mask aligned with `rows` (None = all visible).
+    block_ids: (B, J) clamped block ids backing `rows` when the view is a
+        block gather (the gather kernels' table).
+    top_clusters: (B, nprobe) cluster ids selected by a centroid prune.
     result: the final RetrievalResult, set by the terminal stage.
     """
 
     rows: torch.Tensor | None = None
     member: torch.Tensor | None = None
+    block_ids: torch.Tensor | None = None
+    top_clusters: torch.Tensor | None = None
     result: RetrievalResult | None = None
 
 
 @dataclasses.dataclass
 class _CascadeCtx:
-    """Per-launch invariants every stage reads."""
+    """Per-launch invariants every stage reads. q_sign is the (B, D) +-1
+    sign view of the query codes (0 maps to +1), set only when the
+    cascade runs the sign prescreen."""
 
     query_codes: torch.Tensor
     q_msb: torch.Tensor
@@ -160,6 +238,107 @@ class _CascadeCtx:
     policy: Policy
     cfg: RetrievalConfig
     fns: StageFns
+    q_sign: torch.Tensor | None = None
+
+
+def select_clusters(q_msb: torch.Tensor, policy: ClusterPolicy,
+                    cfg: RetrievalConfig, fns: StageFns) -> torch.Tensor:
+    """Score the K centroids and keep each lane's top-`nprobe` valid
+    clusters (a cluster with no blocks for the lane, first block id -1,
+    spends no probe). Returns (B, nprobe) int32 cluster ids in rank
+    order, ties toward the lower id."""
+    nprobe = min(policy.nprobe, policy.centroid_msb.shape[0])
+    scores = fns.centroid(q_msb, policy.centroid_msb)            # (B, K)
+    table = policy.cluster_blocks
+    valid = (table[:, 0] >= 0)[None, :] if table.ndim == 2 \
+        else table[:, :, 0] >= 0
+    if cfg.metric == "cosine":
+        key = similarity.cosine_key_f32(scores, policy.centroid_norms)
+        key = key.masked_fill(~valid, float("-inf"))
+    else:
+        key = scores.masked_fill(~valid, INT32_MIN)
+    _, top = similarity.stable_topk(key, nprobe)
+    return top.to(torch.int32)
+
+
+def expand_cluster_view(policy: ClusterPolicy, top_clusters: torch.Tensor,
+                        num_docs: int
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Expand the selected clusters' blocks into an explicit per-lane row
+    view: (rows (B, R) int32 with -1 holes, member (B, R) bool,
+    clamped_block_ids (B, J) int32)."""
+    table = policy.cluster_blocks
+    top = top_clusters.long()
+    if table.ndim == 2:
+        blocks = table[top]                                      # (B, P, MB)
+    else:
+        blocks = torch.gather(
+            table, 1, top[:, :, None].expand(-1, -1, table.shape[2]))
+    b, _, max_blocks = blocks.shape
+    blocks = blocks.reshape(b, -1)                               # (B, J)
+    br = policy.block_rows
+    clamped = torch.clamp(blocks, min=0)
+    # Row ids come from the expansion the gather primitives use, so the
+    # bookkeeping matches what stage 1 reads.
+    rows = bitplanar.expand_block_rows(clamped, br)
+    hole = torch.repeat_interleave(blocks < 0, br, dim=1) | (rows >= num_docs)
+    rows = rows.masked_fill(hole, -1)
+    safe = torch.clamp(rows, min=0).long()
+    # A block at a cluster boundary is listed under both clusters; a row
+    # is kept only through its own cluster's entry, so no row appears
+    # twice in the view.
+    owning = top.repeat_interleave(max_blocks * br, dim=1)       # (B, R)
+    member = (~hole & _membership(policy.owner[safe], policy.tenant_ids)
+              & (policy.labels[safe] == owning))
+    return rows, member, clamped
+
+
+@dataclasses.dataclass(frozen=True)
+class CentroidPrune:
+    """Stage 0: score the K centroids, keep the top-`nprobe` clusters'
+    blocks, and expand them into an explicit per-lane row view."""
+
+    nprobe: int
+
+    def run(self, state: _CascadeState, ctx: _CascadeCtx) -> _CascadeState:
+        top_clusters = select_clusters(ctx.q_msb, ctx.policy, ctx.cfg,
+                                       ctx.fns)
+        rows, member, clamped = expand_cluster_view(ctx.policy, top_clusters,
+                                                    ctx.db.num_docs)
+        return dataclasses.replace(state, rows=rows, member=member,
+                                   block_ids=clamped,
+                                   top_clusters=top_clusters)
+
+
+@dataclasses.dataclass(frozen=True)
+class SignPrescreen:
+    """Stage 0.5: 1-bit sign-agreement prescreen of the pruned view.
+
+    Reads only the packed sign plane (D/8 bytes per row) over the
+    prune's gathered view and keeps each lane's top-`c0` members. Ties
+    (sign scores are small integers) go to the lower view position, and
+    the survivors are re-sorted into view order, so at c0 >= the view the
+    cascade is bit-identical to the prescreen-off schedule. Non-members
+    score INT32_MIN, so a lane with >= k live members never loses one to
+    a masked row."""
+
+    c0: int
+
+    def run(self, state: _CascadeState, ctx: _CascadeCtx) -> _CascadeState:
+        c0 = ctx.cfg.prescreen_budget(state.rows.shape[1])
+        sign_plane = ctx.db.sign_plane
+        if sign_plane is None:
+            # Derived per call from the nibble plane, as the reference
+            # does; a DB built with its sign plane skips this.
+            sign_plane = bitplanar.sign_plane_from_msb(ctx.db.msb_plane)
+        scores = ctx.fns.sign_gather(ctx.q_sign, sign_plane, state.block_ids,
+                                     block_rows=ctx.policy.block_rows)
+        key0 = scores.masked_fill(~state.member, INT32_MIN)
+        _, sel = similarity.stable_topk(key0, c0)
+        sel, _ = torch.sort(sel, dim=1)      # survivors keep view order
+        return dataclasses.replace(
+            state, rows=torch.gather(state.rows, 1, sel),
+            member=torch.gather(state.member, 1, sel), block_ids=None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,7 +349,8 @@ class ApproxScan:
     def run(self, state: _CascadeState, ctx: _CascadeCtx) -> _CascadeState:
         db, policy, cfg = ctx.db, ctx.policy, ctx.cfg
         n = db.num_docs
-        member = None
+        member = state.member
+        view_rows = state.rows          # view-local -> global row id map
         base = None
         if isinstance(policy, WindowedPolicy):
             if policy.window < cfg.k:
@@ -188,6 +368,26 @@ class ApproxScan:
                                  policy.tenant_ids)
             scores = ctx.fns.rows(ctx.q_msb, msb_view)         # (B, W) int32
             base = starts[:, None]
+        elif view_rows is not None:
+            # Gathered view (the centroid prune's output): read only the
+            # selected blocks.
+            r = view_rows.shape[1]
+            if r < cfg.k:
+                raise ValueError(f"gathered view holds {r} rows < k="
+                                 f"{cfg.k}: raise nprobe or block_rows")
+            c = _candidate_budget(cfg, n, r)
+            safe = torch.clamp(view_rows, min=0).long()
+            if state.block_ids is not None:
+                scores = ctx.fns.gather(ctx.q_msb, db.msb_plane,
+                                        state.block_ids,
+                                        block_rows=policy.block_rows)
+            else:
+                # Prescreened view: survivors are global row ids; holes
+                # clamp to row 0 and ride the member mask (their raw
+                # score differs from the block gather's zero row, their
+                # masked key does not).
+                scores = ctx.fns.rows(ctx.q_msb, db.msb_plane[safe])
+            norms = db.norms_sq[safe]
         else:
             c = _candidate_budget(cfg, n, None)
             scores = ctx.fns.plane(ctx.q_msb, db.msb_plane)    # (B, N) int32
@@ -206,11 +406,17 @@ class ApproxScan:
             key1 = (scores if member is None
                     else scores.masked_fill(~member, INT32_MIN))
         _, cand_local = similarity.stable_topk(key1, c)        # (B, C) view
-        cand = (cand_local if base is None else cand_local + base)
+        if view_rows is not None:
+            cand = torch.gather(view_rows, 1, cand_local)
+        elif base is not None:
+            cand = cand_local + base
+        else:
+            cand = cand_local
         cand = cand.to(torch.int32)
         cand_member = (None if member is None
                        else torch.gather(member, 1, cand_local))
-        return dataclasses.replace(state, rows=cand, member=cand_member)
+        return dataclasses.replace(state, rows=cand, member=cand_member,
+                                   block_ids=None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,21 +458,39 @@ class ExactRescore:
         return dataclasses.replace(state, result=result)
 
 
-def cascade_stages(policy: Policy, cfg: RetrievalConfig) -> tuple:
-    """The stage specs one launch runs: the paper's two-stage cascade."""
-    if not isinstance(policy, (PlainPolicy, MaskedPolicy, WindowedPolicy)):
+_PLAN_KINDS = {PlainPolicy: "plain", MaskedPolicy: "masked",
+               WindowedPolicy: "windowed", ClusterPolicy: "cluster"}
+
+
+def _check_ported(policy) -> None:
+    if type(policy) not in _PLAN_KINDS:
         raise TypeError(f"policy {type(policy).__name__} is not ported")
+
+
+def cascade_stages(policy: Policy, cfg: RetrievalConfig) -> tuple:
+    """The stage specs one launch runs: the paper's two-stage cascade;
+    the cluster policy prepends the centroid prune and, with
+    `prescreen_c0`, the sign prescreen."""
+    _check_ported(policy)
+    if isinstance(policy, ClusterPolicy):
+        head: tuple = (CentroidPrune(policy.nprobe),)
+        if cfg.prescreen_c0 is not None:
+            head += (SignPrescreen(cfg.prescreen_c0),)
+        return head + (ApproxScan(), ExactRescore())
     return (ApproxScan(), ExactRescore())
 
 
 def _run_cascade(query_codes: torch.Tensor, db: bitplanar.BitPlanarDB,
                  policy: Policy, cfg: RetrievalConfig) -> _CascadeState:
+    stages = cascade_stages(policy, cfg)
+    q_sign = (bitplanar.sign_pm1(query_codes)
+              if any(isinstance(s, SignPrescreen) for s in stages) else None)
     ctx = _CascadeCtx(query_codes=query_codes,
                       q_msb=quantization.msb_nibble(query_codes),
                       db=db, policy=policy, cfg=cfg,
-                      fns=stage_fns(cfg.backend))
+                      fns=stage_fns(cfg.backend), q_sign=q_sign)
     state = _CascadeState()
-    for stage in cascade_stages(policy, cfg):
+    for stage in stages:
         state = stage.run(state, ctx)
     return state
 
@@ -435,7 +659,11 @@ class RetrievalEngine:
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
 
-    def _check(self, *tensors: torch.Tensor) -> None:
+    def _check(self, query_codes: torch.Tensor, db: bitplanar.BitPlanarDB,
+               policy: Policy) -> None:
+        tensors = [query_codes, db.msb_plane, db.lsb_plane, db.norms_sq]
+        tensors += [v for v in vars(policy).values()
+                    if isinstance(v, torch.Tensor)]
         for t in tensors:
             if t.device.type != self.device.type:
                 raise ValueError(f"engine runs on {self.device}, got a "
@@ -444,8 +672,17 @@ class RetrievalEngine:
     def retrieve(self, query_codes: torch.Tensor, db: bitplanar.BitPlanarDB,
                  policy: Policy = PlainPolicy()) -> RetrievalResult:
         """Batched retrieval: (B, D) int8 queries -> batched result."""
-        self._check(query_codes, db.msb_plane, db.lsb_plane, db.norms_sq)
-        return retrieve_batched(query_codes, db, policy, self.cfg)
+        return self.retrieve_with_clusters(query_codes, db, policy)[0]
+
+    def retrieve_with_clusters(self, query_codes: torch.Tensor,
+                               db: bitplanar.BitPlanarDB, policy: Policy
+                               ) -> tuple[RetrievalResult,
+                                          torch.Tensor | None]:
+        """Batched retrieval plus the prune's (B, nprobe) int32 cluster
+        selection (None for policies without a prune stage)."""
+        self._check(query_codes, db, policy)
+        state = _run_cascade(query_codes, db, policy, self.cfg)
+        return state.result, state.top_clusters
 
     def retrieve_single(self, query_codes: torch.Tensor,
                         db: bitplanar.BitPlanarDB,
@@ -456,8 +693,12 @@ class RetrievalEngine:
     def plan_for(self, db: bitplanar.BitPlanarDB, batch: int,
                  policy: Policy = PlainPolicy()) -> SchedulePlan:
         """The analytic SchedulePlan for one launch against `db`."""
-        kind = {PlainPolicy: "plain", MaskedPolicy: "masked",
-                WindowedPolicy: "windowed"}[type(policy)]
+        _check_ported(policy)
         window = policy.window if isinstance(policy, WindowedPolicy) else None
+        num_clusters = view_rows = None
+        if isinstance(policy, ClusterPolicy):
+            num_clusters = policy.centroid_msb.shape[0]
+            view_rows = probe_rows(policy)
         return plan(self.cfg, num_docs=db.num_docs, dim=db.dim, batch=batch,
-                    kind=kind, window=window)
+                    kind=_PLAN_KINDS[type(policy)], window=window,
+                    num_clusters=num_clusters, view_rows=view_rows)

@@ -20,6 +20,7 @@ import dataclasses
 import math
 from typing import Literal
 
+import numpy as np
 import torch
 
 from repro_torch.core import bitplanar, quantization, similarity
@@ -32,8 +33,9 @@ class RetrievalConfig:
     max_candidates: int = 50
     candidate_frac: float = 0.2
     backend: Literal["torch", "cuda"] = "cuda"
-    # Stage-0 sign-plane prescreen budget of the cluster-pruned cascade
-    # (not ported yet; `plan` prices it). None disables the stage.
+    # Stage-0 sign-plane prescreen budget of the cluster-pruned cascade:
+    # a 1-bit scan keeps the top-C0 rows of each lane's probed view
+    # (clamped to [k, view rows]) before the INT4 scan. None disables it.
     prescreen_c0: int | None = None
 
     def num_candidates(self, num_docs: int) -> int:
@@ -140,6 +142,50 @@ def windowed_retrieve_masked(query_codes: torch.Tensor,
                                     starts=starts, window=window)
     return _engine.RetrievalEngine(cfg, device).retrieve(query_codes, db,
                                                          policy)
+
+
+def cluster_pruned_retrieve(query_codes: torch.Tensor,
+                            db: bitplanar.BitPlanarDB, codebook,
+                            cluster_blocks, labels, cfg: RetrievalConfig, *,
+                            nprobe: int, block_rows: int,
+                            owner: torch.Tensor | None = None,
+                            tenant_ids: torch.Tensor | None = None,
+                            device=None) -> RetrievalResult:
+    """The cluster-pruned cascade over one DB: (B, D) int8 queries.
+
+    Stage 0 scores the `codebook`'s K centroids
+    (`repro_torch.core.clustering.ClusterCodebook`) and keeps each lane's
+    top-`nprobe` clusters; stage 1 reads only those clusters' row blocks
+    (`cluster_blocks` from `clustering.block_table`, (K, MB) or per lane
+    (B, K, MB); `labels` maps each row to its cluster, so a row is seen
+    only through its own cluster's entry); stage 2 rescores exactly.
+    `cluster_blocks` and `labels` may be numpy (they are put on the
+    engine's device). Single-corpus callers omit owner/tenant_ids (every
+    gathered row is visible); arena callers pass both."""
+    eng = _engine.RetrievalEngine(cfg, device)
+    b, n = query_codes.shape[0], db.num_docs
+    if (owner is None) != (tenant_ids is None):
+        raise ValueError("owner and tenant_ids must be passed together "
+                         "(segment masking needs both) or both omitted "
+                         "(single corpus: every row visible)")
+    if owner is None:
+        owner = torch.zeros((n,), dtype=torch.int32, device=eng.device)
+        tenant_ids = torch.zeros((b,), dtype=torch.int32, device=eng.device)
+    policy = _engine.ClusterPolicy(
+        owner=owner, tenant_ids=tenant_ids.to(torch.int32),
+        labels=_int32_on(labels, eng.device),
+        centroid_msb=codebook.msb_plane, centroid_norms=codebook.norms_sq,
+        cluster_blocks=_int32_on(cluster_blocks, eng.device),
+        nprobe=nprobe, block_rows=block_rows)
+    return eng.retrieve(query_codes, db, policy)
+
+
+def _int32_on(x, device: torch.device) -> torch.Tensor:
+    """An int32 tensor: a tensor keeps its device (the engine checks it),
+    numpy input is put on `device`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int32)
+    return torch.from_numpy(np.array(x, np.int32, copy=True)).to(device)
 
 
 # Bottom import: engine imports the config/result types above.

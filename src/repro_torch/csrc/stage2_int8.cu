@@ -8,7 +8,9 @@
 // original byte is (msb_nibble << 4) | lsb_nibble, so for plane words m and
 // l the even-dim word is ((m & 0x0F0F0F0F) << 4) | (l & 0x0F0F0F0F) and the
 // odd-dim word is (m & 0xF0F0F0F0) | ((l >> 4) & 0x0F0F0F0F); each goes
-// through __dp4a with the query's even or odd int8 word.
+// through __dp4a with the query's even or odd int8 word. Every D with
+// D % 8 == 0 is served (D/2 bytes a whole number of words per row); the
+// warp's strided word loop masks the last partial round itself.
 //
 // What bounds it on an H100 at B = 32, C = 50, D = 512: it reads
 // 2 * B * C * D/2 = 800 KiB of gathered rows, under a microsecond of
@@ -27,7 +29,7 @@ namespace {
 constexpr int kThreads = 256;  // 8 rows (warps) per block
 
 // q_eo8 (B, 2, D2) int8; msb/lsb (B, C, D2) uint8; out (B, C) int32.
-// D2 % 4 == 0.
+// D2 % 4 == 0, any length.
 __global__ void __launch_bounds__(kThreads)
 exact_kernel(const int8_t* __restrict__ q_eo8,
              const uint8_t* __restrict__ msb,

@@ -24,12 +24,13 @@ import torch
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[1] / "build"
-SOURCES = ("stage1_int4", "stage2_int8")
+SOURCES = ("stage1_int4", "stage2_int8", "stage0_sign")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: dict[str, int] = {"stage1_plane": 0, "stage1_rows": 0,
-                            "stage2_exact": 0}
+                            "stage2_exact": 0, "stage1_gather": 0,
+                            "stage0_sign_gather": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, Callable[..., int]] = {}

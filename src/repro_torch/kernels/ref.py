@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three ported kernels.
+"""Plain PyTorch versions of the ported kernels.
 
 Each computes exactly what its CUDA kernel computes, mirroring
 `repro.kernels.ref`, from the same packed-query operands. The products run
@@ -8,6 +8,9 @@ for CPU tensors; the tests and `chip_smoke.py` hold the kernels to them.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.bitplanar import (expand_block_rows, gather_blocks,
+                                        unpack_sign_pm1)
 
 
 def _sext4(nib: torch.Tensor) -> torch.Tensor:
@@ -45,6 +48,54 @@ def stage1_rows_batched_ref(q_eo: torch.Tensor,
     q = q_eo.to(torch.float64)
     return (torch.bmm(even, q[:, 0, :, None])
             + torch.bmm(odd, q[:, 1, :, None]))[..., 0].to(torch.int32)
+
+
+def stage1_gather_batched_ref(q_eo: torch.Tensor, msb_plane: torch.Tensor,
+                              block_ids: torch.Tensor,
+                              block_rows: int) -> torch.Tensor:
+    """The gather kernel: q_eo (B, 2, D//2), msb_plane (N, D//2), block_ids
+    (B, J) int32 clamped block ids -> (B, J * block_rows) int32; rows past
+    the plane's end read as zero rows and score 0 (`gather_blocks`)."""
+    gathered, _ = gather_blocks(msb_plane, block_ids, block_rows)
+    return stage1_rows_batched_ref(q_eo, gathered)
+
+
+def stage1_gather_resident_ref(q_eo: torch.Tensor, plane: torch.Tensor,
+                               block_ids: torch.Tensor,
+                               block_rows: int) -> torch.Tensor:
+    """The gather kernel over a resident plane whose every block id is
+    live: a pure gather and score, no zero-row convention."""
+    rows = expand_block_rows(block_ids, block_rows)
+    return stage1_rows_batched_ref(q_eo, plane[rows.long()])
+
+
+def _sign_dot(q_sign: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(B, D) int8 signs x (B, R, D//8) packed sign rows -> (B, R) int32."""
+    docs = unpack_sign_pm1(rows).to(torch.float64)
+    return torch.bmm(docs, q_sign.to(torch.float64)[:, :, None])[..., 0].to(
+        torch.int32)
+
+
+def stage0_sign_gather_ref(q_sign: torch.Tensor, sign_plane: torch.Tensor,
+                           block_ids: torch.Tensor,
+                           block_rows: int) -> torch.Tensor:
+    """The sign gather kernel: q_sign (B, D) int8 in {+1, -1}, sign_plane
+    (N, D//8) uint8, block_ids (B, J) int32 clamped block ids ->
+    (B, J * block_rows) int32 ``sum_k q_sign[k] * sign(d_k)``. Rows past
+    the plane's end gather zero bytes, all +1, scoring ``sum_k
+    q_sign[k]``."""
+    gathered, _ = gather_blocks(sign_plane, block_ids, block_rows)
+    return _sign_dot(q_sign, gathered)
+
+
+def stage0_sign_gather_resident_ref(q_sign: torch.Tensor,
+                                    sign_plane: torch.Tensor,
+                                    block_ids: torch.Tensor,
+                                    block_rows: int) -> torch.Tensor:
+    """The sign gather over a resident sign plane whose every block id is
+    live: no zero-byte convention."""
+    rows = expand_block_rows(block_ids, block_rows)
+    return _sign_dot(q_sign, sign_plane[rows.long()])
 
 
 def stage2_scores_batched_ref(q_eo8: torch.Tensor, msb_rows: torch.Tensor,

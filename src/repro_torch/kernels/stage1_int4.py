@@ -7,6 +7,9 @@ batch), `stage1_int4_rows` its `stage1_int4_rows_pallas` (per-lane row
 blocks). A tensor on the CPU goes to the plain version in `ref`; a CUDA
 tensor launches the kernel or raises. The kernels mask their own ragged
 edge, so no operand is padded.
+
+Widths: every D with D % 8 == 0, up to what one thread block's shared
+memory holds (`check_width`).
 """
 from __future__ import annotations
 
@@ -20,9 +23,8 @@ _PLANE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 _ROWS_ARGS = _PLANE_ARGS
 
-# The plane kernel keeps 32 query lanes' panels (2 * 32 * D/2 bytes) in
-# shared memory and reads rows in 64-byte chunks.
-PLANE_MAX_D2 = 512
+# Dynamic shared memory one Hopper thread block may opt into (227 KiB).
+SMEM_BYTES = 232448
 MAX_GRID_Y = 65535
 
 
@@ -49,6 +51,27 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
+def check_width(kernel: str, d: int, smem_bytes: int) -> None:
+    """The two width limits every kernel shares: D % 8 == 0 (a row of D/2
+    nibble bytes, or D/8 sign bytes, is whole 32-bit words or whole bytes),
+    and the `smem_bytes` of query panels the kernel keeps for this D must
+    fit in one thread block's shared memory."""
+    if d % 8:
+        raise ValueError(f"the {kernel} kernel takes D a multiple of 8 "
+                         f"(rows of whole words), got D = {d}")
+    if smem_bytes > SMEM_BYTES:
+        raise ValueError(f"D = {d} is above what one thread block of the "
+                         f"{kernel} kernel can hold: its query panels need "
+                         f"{smem_bytes} bytes of the {SMEM_BYTES} bytes of "
+                         "shared memory")
+
+
+def _plane_panel_bytes(d2: int) -> int:
+    """Shared memory of one lane's panels in the plane kernel (the smallest
+    lane tile): [even; odd] words padded to 64-byte chunks."""
+    return 2 * -(-d2 // 64) * 64
+
+
 def stage1_int4_batched(q_panel: torch.Tensor,
                         msb_plane: torch.Tensor) -> torch.Tensor:
     """q_panel (2, B, D//2) int8 signed MSB nibbles [even dims; odd dims],
@@ -63,10 +86,8 @@ def stage1_int4_batched(q_panel: torch.Tensor,
     if q_panel.shape != (2, b, d2):
         raise ValueError(f"q_panel shape {tuple(q_panel.shape)} does not "
                          f"match the plane's {d2} bytes per row")
-    if d2 % 64 or d2 > PLANE_MAX_D2:
-        raise ValueError(f"the plane kernel takes D/2 a multiple of 64 up "
-                         f"to {PLANE_MAX_D2}, got {d2}")
-    if -(-b // 32) > MAX_GRID_Y:
+    check_width("plane", 2 * d2, _plane_panel_bytes(d2))
+    if b > MAX_GRID_Y:
         raise ValueError(f"batch {b} exceeds the kernel's grid")
     out = torch.empty((b, n), dtype=torch.int32, device=dev)
     if out.numel():
@@ -91,9 +112,7 @@ def stage1_int4_rows(q_eo: torch.Tensor,
     if q_eo.shape != (b, 2, d2):
         raise ValueError(f"q_eo shape {tuple(q_eo.shape)} does not match "
                          f"rows of shape {tuple(msb_rows.shape)}")
-    if d2 % 16:
-        raise ValueError(f"the rows kernel takes D/2 a multiple of 16, "
-                         f"got {d2}")
+    check_width("rows", 2 * d2, 2 * d2)
     if b > MAX_GRID_Y:
         raise ValueError(f"batch {b} exceeds the kernel's grid")
     out = torch.empty((b, w), dtype=torch.int32, device=dev)

@@ -1,7 +1,8 @@
 """Stage-2 exact INT8 rescore: wrapper of the CUDA kernel in
 `csrc/stage2_int8.cu`, which replaces the reference's
 `stage2_int8_batched_pallas`. A tensor on the CPU goes to the plain
-version in `ref`; a CUDA tensor launches the kernel or raises.
+version in `ref`; a CUDA tensor launches the kernel or raises. It takes
+every D with D % 8 == 0 (it keeps nothing in shared memory).
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.stage1_int4 import _check, _on_cpu
+from repro_torch.kernels.stage1_int4 import _check, _on_cpu, check_width
 
 _EXACT_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -32,9 +33,7 @@ def stage2_int8_batched(q_eo8: torch.Tensor, msb_rows: torch.Tensor,
         raise ValueError(f"shapes q {tuple(q_eo8.shape)}, msb "
                          f"{tuple(msb_rows.shape)}, lsb "
                          f"{tuple(lsb_rows.shape)} do not match")
-    if d2 % 4:
-        raise ValueError(f"the exact kernel takes D/2 a multiple of 4, "
-                         f"got {d2}")
+    check_width("exact", 2 * d2, 0)
     if b * c >= 2 ** 31:
         raise ValueError(f"{b} x {c} candidate rows exceed the kernel's grid")
     out = torch.empty((b, c), dtype=torch.int32, device=dev)

@@ -1,7 +1,8 @@
-"""The three ported kernels' plain versions against the reference Pallas
-kernels (run with interpret=True on the CPU, as tests/test_kernels.py
-does), bit-exact at small ragged shapes; the wrappers' output contract;
-and the build helper. The kernels themselves run in test_torch_cuda.py."""
+"""The ported kernels' plain versions against the reference Pallas kernels
+(run with interpret=True on the CPU, as tests/test_kernels.py does),
+bit-exact at small ragged shapes; the wrappers' output contract and width
+limits; and the build helper. The kernels themselves run in
+test_torch_cuda.py."""
 from pathlib import Path
 
 import pytest
@@ -11,13 +12,21 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp
 import numpy as np
 
+from repro.core import BitPlanarDB as JBitPlanarDB
+from repro.core import bitplanar as jbitplanar
+from repro.core import build_database as j_build
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.stage0_sign import stage0_sign_gather_pallas
+from repro.kernels.stage1_gather import stage1_int4_gather_pallas
 from repro.kernels.stage1_int4 import (stage1_int4_batched_pallas,
                                        stage1_int4_rows_pallas)
 from repro.kernels.stage2_int8 import stage2_int8_batched_pallas
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.stage1_int4 import (stage1_int4_batched,
+from repro_torch.kernels.stage0_sign import stage0_sign_gather
+from repro_torch.kernels.stage1_gather import stage1_int4_gather
+from repro_torch.kernels.stage1_int4 import (SMEM_BYTES, _plane_panel_bytes,
+                                             check_width, stage1_int4_batched,
                                              stage1_int4_rows)
 from repro_torch.kernels.stage2_int8 import stage2_int8_batched
 
@@ -124,6 +133,13 @@ def test_wrappers_trim_to_the_callers_shape_and_take_empty_inputs():
         rows = torch.zeros((3, n, 32), dtype=torch.uint8)
         assert ops.stage1_scores_rows(q, rows).shape == (3, n)
         assert ops.stage2_scores_batched(q, rows, rows).shape == (3, n)
+        if n:
+            ids = torch.zeros((3, 2), dtype=torch.int32)
+            assert ops.stage1_scores_gather(
+                q, plane, ids, block_rows=5).shape == (3, 10)
+            assert ops.stage0_sign_scores_gather(
+                ops.pack_query_signs(q), plane[:, :8], ids,
+                block_rows=5).shape == (3, 10)
 
 
 def test_wrappers_raise_for_devices_without_a_kernel():
@@ -135,6 +151,25 @@ def test_wrappers_raise_for_devices_without_a_kernel():
         stage1_int4_rows(panel.reshape(1, 2, 32), plane[None])
     with pytest.raises(ValueError, match="no kernel"):
         stage2_int8_batched(panel.reshape(1, 2, 32), plane[None], plane[None])
+    ids = torch.zeros((1, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        stage1_int4_gather(panel.reshape(1, 2, 32), plane, ids, block_rows=2)
+    with pytest.raises(ValueError, match="no kernel"):
+        stage0_sign_gather(panel.reshape(1, 64), plane[:, :8], ids,
+                           block_rows=2)
+
+
+def test_width_limits_name_themselves():
+    """Every D % 8 == 0 up to past 8192 passes the kernels' width checks;
+    the two limits left raise with messages that name them."""
+    for d in (8, 40, 64, 200, 1536, 8192, 65536):
+        check_width("plane", d, _plane_panel_bytes(d // 2))
+        check_width("rows", d, d)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        check_width("plane", 36, _plane_panel_bytes(18))
+    too_wide = 2 * (SMEM_BYTES // 2 + 64)
+    with pytest.raises(ValueError, match="above what one thread block"):
+        check_width("plane", too_wide, _plane_panel_bytes(too_wide // 2))
 
 
 def test_build_is_keyed_by_source_and_raises_without_nvcc(monkeypatch,
@@ -158,4 +193,140 @@ def test_launch_counters_reset_and_do_not_count_the_plain_path():
     q = torch.zeros((2, 64), dtype=torch.int8)
     ops.stage1_scores_batched(q, torch.zeros((9, 32), dtype=torch.uint8))
     assert ops.launch_counts() == {"stage1_plane": 0, "stage1_rows": 0,
-                                   "stage2_exact": 0}
+                                   "stage2_exact": 0, "stage1_gather": 0,
+                                   "stage0_sign_gather": 0}
+
+
+# ---------------------------------------------------------------------------
+# The two new kernels' plain versions against the Pallas kernels
+# ---------------------------------------------------------------------------
+
+# (B, BR, D, N): N is never a block multiple, so the last block reads past
+# N; D = 8 and 40 are not multiples of 32 (sign rows of 1 and 5 bytes).
+GATHER_SHAPES = [(1, 8, 8, 61), (3, 32, 40, 250), (8, 64, 256, 300),
+                 (3, 8, 256, 77)]
+
+
+def _gather_case(b, br, d, n, seed):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-128, 128, (n, d)).astype(np.int8)
+    q = rng.integers(-128, 128, (b, d)).astype(np.int8)
+    q[:, 0] = 0                         # a zero code reads as +1
+    nb = -(-n // br)
+    ids = rng.integers(0, nb, (b, 5)).astype(np.int32)
+    ids[:, -1] = nb - 1                 # every lane reaches the last block
+    return codes, q, ids
+
+
+@pytest.mark.parametrize("b,br,d,n", GATHER_SHAPES)
+def test_gather_plain_matches_pallas(b, br, d, n):
+    codes, q, ids = _gather_case(b, br, d, n, seed=b * d + n)
+    jdb = JBitPlanarDB.from_quantized(j_build(jnp.asarray(
+        codes.astype(np.float32))))
+    msb = np.asarray(jdb.msb_plane)
+    q_msb = np.asarray(jnp.asarray(q) >> 4)
+    # the Pallas kernel on the zero-padded plane (what the reference
+    # wrapper hands it), against the port on the unpadded one
+    padded = np.concatenate([msb, np.zeros((-n % br, d // 2), np.uint8)])
+    q_eo = np.asarray(jops.pack_queries_even_odd(jnp.asarray(q_msb)))
+    want = np.asarray(stage1_int4_gather_pallas(
+        jnp.asarray(q_eo), jnp.asarray(padded), jnp.asarray(ids),
+        block_rows=br, interpret=True))
+    got = ops.stage1_scores_gather(_t(q_msb), _t(msb), _t(ids),
+                                   block_rows=br)
+    assert got.dtype == torch.int32 and got.shape == (b, 5 * br)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        stage1_int4_gather(_t(q_eo), _t(msb), _t(ids),
+                           block_rows=br).numpy(), want)
+    np.testing.assert_array_equal(
+        ref.stage1_gather_batched_ref(_t(q_eo), _t(msb), _t(ids),
+                                      br).numpy(),
+        np.asarray(jref.stage1_gather_batched_ref(
+            jnp.asarray(q_eo), jnp.asarray(msb), jnp.asarray(ids), br)))
+
+
+@pytest.mark.parametrize("b,br,d,n", GATHER_SHAPES)
+def test_sign_gather_plain_matches_pallas(b, br, d, n):
+    codes, q, ids = _gather_case(b, br, d, n, seed=b * d + n + 1)
+    sign = np.asarray(jbitplanar.pack_sign_plane(jnp.asarray(codes)))
+    q_sign = np.asarray(jops.pack_query_signs(jnp.asarray(q)))
+    np.testing.assert_array_equal(ops.pack_query_signs(_t(q)).numpy(),
+                                  q_sign)
+    padded = np.concatenate([sign, np.zeros((-n % br, d // 8), np.uint8)])
+    want = np.asarray(stage0_sign_gather_pallas(
+        jnp.asarray(q_sign), jnp.asarray(padded), jnp.asarray(ids),
+        block_rows=br, interpret=True))
+    got = ops.stage0_sign_scores_gather(_t(q_sign), _t(sign), _t(ids),
+                                        block_rows=br)
+    assert got.dtype == torch.int32 and got.shape == (b, 5 * br)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        stage0_sign_gather(_t(q_sign), _t(sign), _t(ids),
+                           block_rows=br).numpy(), want)
+    # rows past N score sum(q_sign); every score is the +-1 dot, which is
+    # what the kernel's D - 2 * popc(qbits ^ dbits) computes
+    rows = ids[:, :, None] * br + np.arange(br)
+    past = (rows >= n).reshape(b, -1)
+    assert past.any()
+    np.testing.assert_array_equal(
+        got.numpy()[past],
+        np.broadcast_to(q_sign.sum(1, dtype=np.int64)[:, None],
+                        past.shape)[past])
+    sq = np.where(q < 0, -1, 1).astype(np.int64)
+    sd = np.where(codes < 0, -1, 1).astype(np.int64)
+    live = rows.reshape(b, -1)
+    for i in range(b):
+        ok = live[i] < n
+        np.testing.assert_array_equal(got.numpy()[i][ok],
+                                      sd[live[i][ok]] @ sq[i])
+
+
+@pytest.mark.parametrize("n,d,b,j,br", [(256, 256, 4, 6, 32),
+                                        (512, 128, 8, 4, 64),
+                                        (128, 512, 2, 8, 32)])
+def test_resident_gathers_over_two_regions_match_reference(n, d, b, j, br):
+    """The resident wrappers over a combined [plane | slab] array whose
+    slab blocks mirror plane blocks: scores equal the reference resident
+    wrappers' and the plain-plane gather's (the layout of
+    tests/test_kernels.py's two-region cases)."""
+    rng = np.random.default_rng(n + b)
+    codes = rng.integers(-128, 128, (n, d)).astype(np.int8)
+    jdb = JBitPlanarDB.from_quantized(j_build(jnp.asarray(
+        codes.astype(np.float32))))
+    q = rng.integers(-128, 128, (b, d)).astype(np.int8)
+    q_msb = np.asarray(jnp.asarray(q) >> 4)
+    q_sign = np.asarray(jops.pack_query_signs(jnp.asarray(q)))
+    ids = rng.integers(0, n // br, (b, j)).astype(np.int32)
+    hot = np.unique(ids)[: max(1, len(np.unique(ids)) // 2)]
+    remap = {int(pb): n // br + s for s, pb in enumerate(hot)}
+    sids = np.vectorize(lambda x: remap.get(int(x), int(x)))(ids).astype(
+        np.int32)
+    src = (hot[:, None] * br + np.arange(br)).reshape(-1)
+    for plane, stage, jstage, jplain, q_op in (
+            (np.asarray(jdb.msb_plane), ops.stage1_scores_gather_resident,
+             jops.stage1_scores_gather_resident, ops.stage1_scores_gather,
+             q_msb),
+            (np.asarray(jdb.sign_plane),
+             ops.stage0_sign_scores_gather_resident,
+             jops.stage0_sign_scores_gather_resident,
+             ops.stage0_sign_scores_gather, q_sign)):
+        slab = np.concatenate([plane, plane[src]])
+        got = stage(_t(q_op), _t(slab), _t(sids), block_rows=br)
+        want = jstage(jnp.asarray(q_op), jnp.asarray(slab),
+                      jnp.asarray(sids), block_rows=br)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(
+            got.numpy(), jplain(_t(q_op), _t(plane), _t(ids),
+                                block_rows=br).numpy())
+
+
+def test_resident_wrappers_reject_a_partial_plane():
+    ids = torch.zeros((2, 2), dtype=torch.int32)
+    q = torch.zeros((2, 128), dtype=torch.int8)
+    with pytest.raises(ValueError, match="block multiple"):
+        ops.stage1_scores_gather_resident(
+            q, torch.zeros((96, 64), dtype=torch.uint8), ids, block_rows=64)
+    with pytest.raises(ValueError, match="block multiple"):
+        ops.stage0_sign_scores_gather_resident(
+            q, torch.zeros((96, 16), dtype=torch.uint8), ids, block_rows=64)
