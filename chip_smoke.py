@@ -12,9 +12,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
                user) built on the card: 256 MiB MSB plane, 256 MiB LSB.
   4. kernels — each kernel against its plain PyTorch version on the card,
                bit-exact, at the main paths' shapes and at ragged shapes
-               (every width D % 8 == 0 from 8 to 8192 for the plane, rows
-               and exact kernels); times from CUDA events (median of 20
-               after warm-up).
+               (widths D = 8 to 262,144, D % 8 != 0 included, for the plane,
+               rows, gather, exact and fused kernels); times from CUDA
+               events (median of 20 after warm-up).
   5. main    — B = 32 query batches through `RetrievalEngine.retrieve`
                with the Plain (cosine, MIPS), Masked (512 tenants) and
                Windowed (window 2048) policies on the kernel backend; the
@@ -22,7 +22,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
                result must equal the plain backend's bit for bit, the exact
                scores must equal the INT8 dot products, and recall@5
                against the planted gold is checked.
-  6. cluster — the cluster-pruned cascade at full width: a clustered corpus
+  6. autotune — this slice's path. The single-query and fused kernels and
+               the dense sign scan (table rows 4, 5, 7, 9, 10) against their
+               plain versions, bit-exact at full width (the arena corpus;
+               B = 32 for the sign scan and the fused top-k, masked with 512
+               tenants and a padding lane and unmasked; B = 1 for the
+               single-query forms) and at ragged shapes, and timed; the
+               fused candidates (k_per_block = c = 50) against the stable
+               top-c of the masked plane-kernel scores. Then, with the
+               launch counts set to 0: `autotune.autotune` over N = 2^20 x
+               D = 512 at B = 1, 8, 32 (reps 5) and 12 single queries
+               through `ops.fused_candidates`, `ops.stage1_scores` and
+               `ops.stage2_scores`, each held to the engine's B = 1 MIPS
+               result. The table must show every entry at >= 1.0x its
+               default; it is saved, reloaded and installed through
+               REPRO_TORCH_AUTOTUNE_CACHE by an engine, a copy with its
+               device_kind altered is refused, the tuned wrappers give the
+               default blocks' bits, and Plain and Masked batches served
+               with the table installed equal the untuned ones.
+  7. cluster — the cluster-pruned cascade at full width: a clustered corpus
                of N = 2^20 x D = 512 (1024 clusters of 1024 rows) built on
                the card, its INT8 codebook of cluster means and block table
                (64-row blocks), and B = 32 batches through
@@ -56,13 +74,18 @@ from repro_torch.core.engine import (ClusterPolicy,  # noqa: E402
                                      MaskedPolicy, PlainPolicy,
                                      RetrievalEngine, WindowedPolicy)
 from repro_torch.core.retrieval import RetrievalConfig  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels.stage0_sign import stage0_sign_gather  # noqa: E402
+from repro_torch.core.similarity import stable_topk  # noqa: E402
+from repro_torch.kernels import _build, autotune, ops, ref  # noqa: E402
+from repro_torch.kernels.fused_topk import (  # noqa: E402
+    fused_topk_batched, fused_topk_single)
+from repro_torch.kernels.stage0_sign import (  # noqa: E402
+    stage0_sign_batched, stage0_sign_gather)
 from repro_torch.kernels.stage1_gather import (  # noqa: E402
     stage1_int4_gather)
-from repro_torch.kernels.stage1_int4 import (stage1_int4_batched,  # noqa: E402
-                                             stage1_int4_rows)
-from repro_torch.kernels.stage2_int8 import stage2_int8_batched  # noqa: E402
+from repro_torch.kernels.stage1_int4 import (  # noqa: E402
+    stage1_int4_batched, stage1_int4_rows, stage1_int4_single)
+from repro_torch.kernels.stage2_int8 import (  # noqa: E402
+    stage2_int8_batched, stage2_int8_single)
 
 SEED = 20251027
 N, D = 1 << 20, 512
@@ -75,6 +98,13 @@ NOISE = 0.1
 CLUSTERS, CLUSTER_ROWS, SPREAD = 1024, 1024, 0.2
 BLOCK_ROWS, NPROBE, PRESCREEN_C0 = 64, 8, 2048
 MAIN_KERNELS = ("stage1_plane", "stage1_rows", "stage2_exact")
+# This slice's path: the autotuner and the single-query entry points.
+TUNE_KERNELS = ("stage1_plane", "stage1_rows", "stage1_single",
+                "stage2_single", "stage0_sign_plane", "fused_topk",
+                "fused_topk_single")
+FUSED_BLOCK, FUSED_K = 512, 8
+SINGLE_QUERIES = 12
+ROOT = os.path.dirname(os.path.abspath(__file__))
 CLUSTER_KERNELS = ("stage1_plane", "stage1_rows", "stage2_exact",
                    "stage1_gather", "stage0_sign_gather")
 # Published H100 SXM peaks (NVIDIA data sheet): device memory and dense
@@ -133,7 +163,11 @@ def bound_ms(bytes_moved: int, int8_ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
+def max_abs_err(got, want) -> int:
+    """Largest absolute difference of two int32 results (or of each pair
+    of a (scores, ids) result)."""
+    if isinstance(got, tuple):
+        return max(max_abs_err(g, w) for g, w in zip(got, want, strict=True))
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"kernel gave {got.dtype}{tuple(got.shape)}, "
                              f"plain {want.dtype}{tuple(want.shape)}")
@@ -151,19 +185,42 @@ def phase_card() -> None:
         f"devices {torch.cuda.device_count()}")
 
 
+# The instances the D = 512 paths launch (mangled template arguments).
+MAIN_INSTANCES = ("plane_kernelILi32ELi256ELi0ELb0EE",
+                  "plane_kernelILi1ELi256ELi0ELb0EE",
+                  "rows_kernelILi256ELi0ELb0EE", "gather_kernelILi0ELb0EE",
+                  "exact_kernelILi1EE", "sign_gather_kernelILi16EE",
+                  "sign_plane_kernelILi32ELi256ELi16EE",
+                  "fused_kernelILi32ELi0ELb0EE", "fused_kernelILi1ELi0ELb0EE")
+
+
 def phase_build() -> None:
+    """Compile every source; print each one's nvcc time, the registers of
+    the instances the D = 512 paths launch, and any instance that spills."""
     t0 = time.perf_counter()
-    logs = _build.build()
-    for name, text in logs.items():
-        kernel = ""
+    built = _build.build()
+    for name, (text, secs) in built.items():
+        regs, spills, kernel = {}, [], ""
         for line in text.splitlines():
-            entry = re.search(r"((?:plane|rows|sign_gather|gather|exact)"
-                              r"_kernel(?:I.*?EE)?)", line)
+            entry = re.search(r"((?:plane_wide|sign_plane|plane|rows|"
+                              r"sign_gather|gather|exact|fused)_kernelI.*?EE)",
+                              line)
             if "Compiling entry function" in line and entry:
-                kernel = entry.group(1)     # e.g. plane_kernelILi32ELb1ELb0EE
-            if "registers" in line or "error" in line.lower():
-                log(f"  nvcc {name}: {kernel} {line.strip()}")
-    log(f"build: {len(logs)} sources compiled in "
+                kernel = entry.group(1)
+            used = re.search(r"Used (\d+) registers", line)
+            if used:
+                regs[kernel] = int(used.group(1))
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            if spill and int(spill.group(1)):
+                spills.append(f"{kernel} ({spill.group(1)} B)")
+            if "error" in line.lower():
+                log(f"  nvcc {name}: {line.strip()}")
+        main = ", ".join(f"{k} {regs[k]}" for k in MAIN_INSTANCES if k in regs)
+        log(f"build: {name}.cu compiled in {secs:.1f} s: {len(regs)} "
+            f"kernel instances, at most {max(regs.values(), default=0)} "
+            f"registers; main instances' registers: {main or 'none'}; "
+            f"instances that spill: {', '.join(spills) or 'none'}")
+    log(f"build: {len(built)} sources compiled in "
         f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -445,14 +502,17 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
     return rows
 
 
-WIDTHS = (8, 64, 200, 1536, 8192)
+WIDTHS = (8, 36, 64, 200, 250, 1536, 8192, 262144)
 
 
 def _check_widths(gen, dev) -> None:
-    """The plane, rows and exact kernels at every kind of width: one
-    partial 64-byte chunk (D = 8, 200), 16-byte loads (64, 1536, 8192), and
+    """The plane, rows, gather, exact and fused kernels at every kind of
+    width: one partial 64-byte chunk (D = 8, 200), rows that are not whole
+    words (36, 250: read byte by byte), 16-byte loads (64, 1536, 8192),
     shared-memory panels past the 48 KiB default (8192, where the plane
-    kernel's lane tile also shrinks; B = 40 spans more than one tile)."""
+    kernel's lane tile also shrinks; B = 40 spans more than one tile), and
+    panels past what a block holds (262,144: walked through shared
+    memory)."""
     for dd in WIDTHS:
         d2 = dd // 2
         for bb in (1, 5) + ((40,) if dd == 8192 else ()):
@@ -463,10 +523,22 @@ def _check_widths(gen, dev) -> None:
             _check_kernel("stage1_plane", stage1_int4_batched,
                           ref.stage1_scores_batched_ref, (qp, p),
                           f"B={bb} N=1000 D={dd}")
+            qe = qp.transpose(0, 1).contiguous()
+            _check_kernel("fused_topk",
+                          lambda a, b_: fused_topk_batched(a, b_, k=5,
+                                                           block_n=300),
+                          lambda a, b_: ref.fused_topk_batched_ref(
+                              a, b_, 300, 5), (qe, p),
+                          f"B={bb} N=1000 D={dd} block_n=300 k=5")
+            _check_kernel("stage1_gather",
+                          lambda a, b_, c: stage1_int4_gather(
+                              a, b_, c, block_rows=64),
+                          lambda a, b_, c: ref.stage1_gather_batched_ref(
+                              a, b_, c, 64),
+                          (qe, p, _ragged_ids(gen, dev, bb, 1000, 64)),
+                          f"B={bb} N=1000 D={dd} BR=64")
             r = torch.randint(0, 256, (bb, 77, d2), generator=gen,
                               device=dev, dtype=torch.uint8)
-            qe = torch.randint(-8, 8, (bb, 2, d2), generator=gen, device=dev,
-                               dtype=torch.int8)
             _check_kernel("stage1_rows", stage1_int4_rows,
                           ref.stage1_rows_batched_ref, (qe, r),
                           f"B={bb} W=77 D={dd}")
@@ -479,8 +551,8 @@ def _check_widths(gen, dev) -> None:
             _check_kernel("stage2_exact", stage2_int8_batched,
                           ref.stage2_scores_batched_ref, (q8, m, lo),
                           f"B={bb} C=13 D={dd}")
-    log(f"widths: plane, rows and exact kernels bit-exact at D in {WIDTHS} "
-        "(B = 1, 5; B = 40 at D = 8192)")
+    log(f"widths: plane, fused, gather, rows and exact kernels bit-exact at "
+        f"D in {WIDTHS} (B = 1, 5; B = 40 at D = 8192)")
 
 
 def _cluster_like_ids(gen, dev) -> torch.Tensor:
@@ -502,6 +574,401 @@ def _ragged_ids(gen, dev, b: int, n: int, br: int) -> torch.Tensor:
                         dtype=torch.int32)
     ids[:, -1] = nb - 1
     return ids
+
+
+def _fused_library(scores_fn, nb: int):
+    """The fused kernel's yardstick: a stage-1 scan, then `torch.topk` of
+    each block (its values are the fused kernel's scores; its ids may
+    order ties otherwise)."""
+    def run():
+        s = scores_fn()
+        return torch.topk(s.reshape(*s.shape[:-1], nb, FUSED_BLOCK), FUSED_K,
+                          dim=-1)
+    return run
+
+
+def _sparse_owner(gen, dev, n: int, tenants: int = 3) -> torch.Tensor:
+    """Random owners with a fully unowned first block of 64 rows and
+    tenant 1 holding just 3 rows (k above its live rows)."""
+    owner = torch.randint(0, tenants, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    owner[owner == 1] = 0
+    owner[torch.randperm(n - 64, generator=gen, device=dev)[:3] + 64] = 1
+    owner[:64] = -1
+    return owner
+
+
+def phase_new_kernels(db, q_codes, gold, dev) -> list[dict]:
+    """Table rows 4, 5, 7, 9 and 10 (this slice's kernels) against their
+    plain versions on the card, bit-exact at the arena corpus's full width
+    and at ragged shapes (N not a block multiple, B = 1, 3, 33, k above the
+    live rows and above block_n, D % 8 != 0), timed like the first
+    slices' kernels."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def rand(shape, lo, hi, dtype):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    q = q_codes[:B]
+    q_msb = quantization.msb_nibble(q)
+    d2 = D // 2
+    nb = N // FUSED_BLOCK
+    rows = []
+
+    # -- stage1_single: one query over the plane (#4) ---------------------
+    q1 = ops.pack_query_even_odd(q_msb[0])
+    err = _check_kernel("stage1_single", stage1_int4_single,
+                        ref.stage1_scores_ref, (q1, db.msb_plane),
+                        f"N={N} D={D}")
+    for nn, dd in ((1000, 512), (4099, 36), (777, 250)):
+        _check_kernel("stage1_single", stage1_int4_single,
+                      ref.stage1_scores_ref,
+                      (rand((2, dd // 2), -8, 8, torch.int8),
+                       rand((nn, dd // 2), 0, 256, torch.uint8)),
+                      f"N={nn} D={dd}")
+    plane_f = bitplanar.unpack_nibble_plane_signed(db.msb_plane).float()
+    q1_f = q_msb[0].float()
+    lib_ms = _library_ms("stage1_single", lambda: torch.mv(plane_f, q1_f),
+                         stage1_int4_single(q1, db.msb_plane))
+    del plane_f
+    t_bound, by = bound_ms(2 * d2 + N * d2 + N * 4, 2 * N * D)
+    rows.append(dict(
+        name="stage1_single", route="cuda",
+        source="src/repro_torch/csrc/stage1_int4.cu",
+        replaces="src/repro/kernels/stage1_int4.py:144", max_abs_err=err,
+        ms=time_ms(lambda: stage1_int4_single(q1, db.msb_plane)),
+        plain_ms=time_ms(lambda: ref.stage1_scores_ref(q1, db.msb_plane)),
+        bound_ms=t_bound, bound_by=by, library_ms=lib_ms))
+
+    # -- fused_topk_single: one query, per-block top-k (#10) ---------------
+    def fused1(a, p):
+        return fused_topk_single(a, p, k=FUSED_K, block_n=FUSED_BLOCK)
+
+    def fused1_plain(a, p):
+        return ref.fused_topk_ref(a, p, FUSED_BLOCK, FUSED_K)
+
+    err = _check_kernel("fused_topk_single", fused1, fused1_plain,
+                        (q1, db.msb_plane),
+                        f"N={N} D={D} block_n={FUSED_BLOCK} k={FUSED_K}")
+    for nn, dd, blk, kk in ((1000, 512, 512, 8), (300, 64, 8, 12),
+                            (4099, 250, 512, 8)):
+        _check_kernel("fused_topk_single",
+                      lambda a, p: fused_topk_single(a, p, k=kk, block_n=blk),
+                      lambda a, p: ref.fused_topk_ref(a, p, blk, kk),
+                      (rand((2, dd // 2), -8, 8, torch.int8),
+                       rand((nn, dd // 2), 0, 256, torch.uint8)),
+                      f"N={nn} D={dd} block_n={blk} k={kk}")
+    lib = _fused_library(lambda: stage1_int4_single(q1, db.msb_plane), nb)
+    got = fused1(q1, db.msb_plane)
+    if not torch.equal(lib().values, got[0]):
+        raise AssertionError("fused_topk_single: the yardstick's top-k "
+                             "values differ from the kernel's")
+    t_bound, by = bound_ms(2 * d2 + N * d2 + 2 * nb * FUSED_K * 4,
+                           2 * N * D)
+    rows.append(dict(
+        name="fused_topk_single", route="cuda",
+        source="src/repro_torch/csrc/fused_topk.cu",
+        replaces="src/repro/kernels/fused_topk.py:132", max_abs_err=err,
+        ms=time_ms(lambda: fused1(q1, db.msb_plane)),
+        plain_ms=time_ms(lambda: fused1_plain(q1, db.msb_plane)),
+        bound_ms=t_bound, bound_by=by, library_ms=time_ms(lib)))
+
+    # -- stage2_single: one query's exact rescore (#5) ---------------------
+    cand = torch.randint(0, N, (C,), generator=gen, device=dev)
+    mr, lr = db.msb_plane[cand], db.lsb_plane[cand]
+    q81 = ops.pack_query_even_odd(q[0])
+    err = _check_kernel("stage2_single", stage2_int8_single,
+                        ref.stage2_scores_ref, (q81, mr, lr),
+                        f"C={C} D={D}")
+    for cc, dd in ((1, 512), (13, 36), (50, 250)):
+        _check_kernel("stage2_single", stage2_int8_single,
+                      ref.stage2_scores_ref,
+                      (rand((2, dd // 2), -128, 128, torch.int8),
+                       rand((cc, dd // 2), 0, 256, torch.uint8),
+                       rand((cc, dd // 2), 0, 256, torch.uint8)),
+                      f"C={cc} D={dd}")
+    docs_f = bitplanar.reconstruct_int8(mr, lr).float()
+    q8_f = q[0].float()
+    lib_ms = _library_ms("stage2_single", lambda: torch.mv(docs_f, q8_f),
+                         stage2_int8_single(q81, mr, lr))
+    t_bound, by = bound_ms(2 * d2 + 2 * C * d2 + C * 4, 2 * C * D)
+    rows.append(dict(
+        name="stage2_single", route="cuda",
+        source="src/repro_torch/csrc/stage2_int8.cu",
+        replaces="src/repro/kernels/stage2_int8.py:88", max_abs_err=err,
+        ms=time_ms(lambda: stage2_int8_single(q81, mr, lr)),
+        plain_ms=time_ms(lambda: ref.stage2_scores_ref(q81, mr, lr)),
+        bound_ms=t_bound, bound_by=by, library_ms=lib_ms))
+
+    # -- stage0_sign_plane: the dense sign scan (#7) -----------------------
+    q_sign = ops.pack_query_signs(q)
+    err = _check_kernel("stage0_sign_plane", stage0_sign_batched,
+                        ref.stage0_sign_batched_ref, (q_sign, db.sign_plane),
+                        f"B={B} N={N} D={D}")
+    for bb, nn, dd in ((1, 1000, 512), (3, 4099, 40), (33, 777, 96)):
+        _check_kernel("stage0_sign_plane", stage0_sign_batched,
+                      ref.stage0_sign_batched_ref,
+                      (ops.pack_query_signs(rand((bb, dd), -128, 128,
+                                                 torch.int8)),
+                       rand((nn, dd // 8), 0, 256, torch.uint8)),
+                      f"B={bb} N={nn} D={dd}")
+    sgn_f = bitplanar.unpack_sign_pm1(db.sign_plane).float()    # (N, D)
+    q_sign_f = q_sign.float()
+    lib_ms = _library_ms("stage0_sign_plane",
+                         lambda: torch.mm(q_sign_f, sgn_f.t()),
+                         stage0_sign_batched(q_sign, db.sign_plane))
+    del sgn_f
+    t_bound, by = bound_ms(B * D + N * D // 8 + B * N * 4, 2 * B * N * D)
+    rows.append(dict(
+        name="stage0_sign_plane", route="cuda",
+        source="src/repro_torch/csrc/stage0_sign.cu",
+        replaces="src/repro/kernels/stage0_sign.py:73", max_abs_err=err,
+        ms=time_ms(lambda: stage0_sign_batched(q_sign, db.sign_plane)),
+        plain_ms=time_ms(lambda: ref.stage0_sign_batched_ref(
+            q_sign, db.sign_plane)),
+        bound_ms=t_bound, bound_by=by, library_ms=lib_ms))
+
+    # -- fused_topk: the batched fused scan, masked and unmasked (#9) ------
+    q_eo = ops.pack_queries_even_odd(q_msb)
+    owner = (torch.arange(N, device=dev) // DOCS_PER_USER).to(torch.int32)
+    tids = (gold[:B] // DOCS_PER_USER).to(torch.int32)
+    tids[-1] = -1                                       # a padding lane
+
+    def fused(a, p, o=None, t=None, k=FUSED_K, blk=FUSED_BLOCK):
+        return fused_topk_batched(a, p, o, t, k=k, block_n=blk)
+
+    def fused_plain(a, p, o=None, t=None, k=FUSED_K, blk=FUSED_BLOCK):
+        return ref.fused_topk_batched_ref(a, p, blk, k, o, t)
+
+    err = max(
+        _check_kernel("fused_topk", fused, fused_plain,
+                      (q_eo, db.msb_plane),
+                      f"B={B} N={N} D={D} unmasked"),
+        _check_kernel("fused_topk", fused, fused_plain,
+                      (q_eo, db.msb_plane, owner, tids),
+                      f"B={B} N={N} D={D} masked, {USERS} tenants"))
+    for bb, nn, dd, blk, kk in ((3, 1000, 512, 512, 8),
+                                (33, 4099, 256, 64, 70),
+                                (1, 777, 36, 100, 8)):
+        qe = rand((bb, 2, dd // 2), -8, 8, torch.int8)
+        p = rand((nn, dd // 2), 0, 256, torch.uint8)
+        o = _sparse_owner(gen, dev, nn)
+        t = torch.arange(bb, device=dev, dtype=torch.int32) % 3
+        t[-1] = -1 if bb > 1 else 1
+        for args in ((qe, p), (qe, p, o, t)):
+            _check_kernel("fused_topk",
+                          lambda *a: fused(*a, k=kk, blk=blk),
+                          lambda *a: fused_plain(*a, k=kk, blk=blk), args,
+                          f"B={bb} N={nn} D={dd} block_n={blk} k={kk} "
+                          f"{'masked' if len(args) > 2 else 'unmasked'}")
+    panel = ops.pack_query_panel(q_msb)
+    lib = _fused_library(lambda: stage1_int4_batched(panel, db.msb_plane), nb)
+    if not torch.equal(lib().values, fused(q_eo, db.msb_plane)[0]):
+        raise AssertionError("fused_topk: the yardstick's top-k values "
+                             "differ from the kernel's")
+    # k_per_block = c: the fused candidates are the stable top-c of the
+    # masked plane-kernel scores, lane for lane (every live lane holds
+    # 2048 rows; the padding lane's are all masked)
+    cands = ops.fused_candidates_batched(q_msb, db.msb_plane, owner, tids,
+                                         c=C, k_per_block=C,
+                                         block_n=FUSED_BLOCK)
+    scores = stage1_int4_batched(panel, db.msb_plane)
+    member = (owner[None, :] == tids[:, None]) & (tids >= 0)[:, None]
+    _, dense = stable_topk(scores.masked_fill(~member, -(2 ** 31)), C)
+    live = tids >= 0
+    if not torch.equal(cands[live], dense[live].to(torch.int32)):
+        raise AssertionError("fused_candidates_batched differs from the "
+                             "stable top-c of the masked plane scores")
+    del scores, member, dense
+    log(f"kernel fused_topk: fused_candidates_batched (k_per_block = c = {C}) "
+        f"equals the masked plane kernel's stable top-{C} in all "
+        f"{int(live.sum())} live lanes")
+    t_bound, by = bound_ms(B * D + N * d2 + 2 * B * nb * FUSED_K * 4,
+                           2 * B * N * D)
+    masked_ms = time_ms(lambda: fused(q_eo, db.msb_plane, owner, tids))
+    rows.append(dict(
+        name="fused_topk", route="cuda",
+        source="src/repro_torch/csrc/fused_topk.cu",
+        replaces="src/repro/kernels/fused_topk.py:86", max_abs_err=err,
+        ms=time_ms(lambda: fused(q_eo, db.msb_plane)),
+        plain_ms=time_ms(lambda: fused_plain(q_eo, db.msb_plane)),
+        bound_ms=t_bound, bound_by=by, library_ms=time_ms(lib)))
+
+    device_only = {
+        "stage1_single": kernel_device_us(
+            lambda: stage1_int4_single(q1, db.msb_plane), "plane_kernel"),
+        "fused_topk_single": kernel_device_us(
+            lambda: fused1(q1, db.msb_plane), "fused_kernel"),
+        "stage2_single": kernel_device_us(
+            lambda: stage2_int8_single(q81, mr, lr), "exact_kernel"),
+        "stage0_sign_plane": kernel_device_us(
+            lambda: stage0_sign_batched(q_sign, db.sign_plane),
+            "sign_plane_kernel"),
+        "fused_topk": kernel_device_us(
+            lambda: fused(q_eo, db.msb_plane), "fused_kernel"),
+    }
+    masked_us = kernel_device_us(
+        lambda: fused(q_eo, db.msb_plane, owner, tids), "fused_kernel")
+    for r in rows:
+        note = {"fused_topk": " (library yardstick: the plane kernel, then "
+                              "torch.topk of each block)",
+                "fused_topk_single": " (library yardstick: the plane kernel "
+                                     "at B = 1, then torch.topk of each "
+                                     "block)"}.get(r["name"], "")
+        log(f"kernel {r['name']}: kernel_ms {r['ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} bound_us {r['bound_ms'] * 1e3:.2f} "
+            f"({r['bound_by']}) library_ms {r['library_ms']} "
+            f"device_only_us {device_only[r['name']]}{note}")
+    log(f"kernel fused_topk masked ({USERS} tenants, one padding lane): "
+        f"kernel_ms {masked_ms:.4f} device_only_us {masked_us}")
+    return rows
+
+
+def _serve_single(db, q_codes, dev) -> list:
+    """One query at a time through the single-query entry points: the
+    fused candidates (k_per_block = c, so exact), the dense single-query
+    scan's stable top-c (which they must equal), then the exact rescore of
+    the candidates and its top-k (MIPS)."""
+    out = []
+    lat = []
+    for i in range(SINGLE_QUERIES):
+        qc = q_codes[i]
+        q_msb = quantization.msb_nibble(qc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cand = ops.fused_candidates(q_msb, db.msb_plane, c=C, k_per_block=C)
+        _, dense = stable_topk(ops.stage1_scores(q_msb, db.msb_plane), C)
+        safe = cand.long()
+        exact = ops.stage2_scores(qc, db.msb_plane[safe], db.lsb_plane[safe])
+        top_scores, top = stable_topk(exact, K)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        out.append((cand, dense, cand[top], top_scores))
+    log(f"single-query path: {SINGLE_QUERIES} queries, p50 "
+        f"{statistics.median(lat) * 1e3:.3f} ms per query (fused "
+        f"candidates + single-query scan + exact rescore)")
+    return out
+
+
+def phase_autotune(qdb, db, q_codes, gold, dev) -> dict[str, int]:
+    """This slice's path, with the launch counts set to 0 just before and
+    read just after: the measured autotuner on the card and single
+    queries through the single-query entry points. Then the table's
+    checks, and Plain and Masked batches served with it installed."""
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    table = autotune.autotune(n=N, d=D, batches=(1, 8, 32), reps=5,
+                              device=dev, verbose=True)
+    tune_s = time.perf_counter() - t0
+    singles = _serve_single(db, q_codes, dev)
+    launches = ops.launch_counts()
+    log(f"autotune path launches (autotune over N={N} D={D} at B = 1, 8, 32 "
+        f"in {tune_s:.1f} s, then {SINGLE_QUERIES} single queries): "
+        f"{launches}")
+    for key in TUNE_KERNELS:
+        if launches[key] <= 0:
+            raise AssertionError(f"kernel {key} was not launched by the "
+                                 "autotune path")
+
+    mips = RetrievalEngine(RetrievalConfig(k=K, metric="mips"), dev)
+    for i, (cand, dense, idx, scores) in enumerate(singles):
+        if not torch.equal(cand, dense.to(torch.int32)):
+            raise AssertionError(f"single query {i}: fused candidates differ "
+                                 "from the single-query scan's top-c")
+        want = mips.retrieve_single(q_codes[i], db)
+        if not (torch.equal(idx, want.indices)
+                and torch.equal(scores, want.scores)
+                and torch.equal(cand, want.candidate_indices)):
+            raise AssertionError(f"single query {i}: the single-query path "
+                                 "differs from the engine's B = 1 result")
+    log(f"single-query path: {SINGLE_QUERIES} results equal the engine's "
+        "B = 1 MIPS results (candidates, indices, scores)")
+
+    for key, e in sorted(table.entries.items()):
+        log(f"autotune {key}: block {e['block_n']} (default "
+            f"{e['default_block_n']}, speedup {e['speedup_vs_default']:.4f}) "
+            f"timings_ms {e['timings_ms']} left_out "
+            f"{sorted(e.get('left_out', {}), key=int)}")
+        if e["speedup_vs_default"] < 1.0:
+            raise AssertionError(f"autotune {key}: speedup "
+                                 f"{e['speedup_vs_default']} < 1.0")
+    path = os.path.join(ROOT, "BENCH_autotune_torch.json")
+    table.save(path)
+    back = autotune.load(path, dev)
+    if back is None or back.entries != table.entries:
+        raise AssertionError("the saved table did not load back whole")
+    obj = table.to_json()
+    obj["signature"]["device_kind"] += " (altered)"
+    altered = os.path.join(ROOT, "BENCH_autotune_torch_altered.json")
+    with open(altered, "w") as f:
+        json.dump(obj, f)
+    if autotune.load(altered, dev) is not None:
+        raise AssertionError("a table with an altered device_kind loaded")
+    os.remove(altered)
+
+    # The tuned and the default wrappers give the same bits.
+    win = db.msb_plane[:B * DOCS_PER_USER].reshape(B, DOCS_PER_USER, D // 2)
+    q_sign = ops.pack_query_signs(q_codes[:B])
+    calls = {
+        "stage1_single": lambda bn: ops.stage1_scores(
+            quantization.msb_nibble(q_codes[0]), db.msb_plane, block_n=bn),
+        "stage1_batched": lambda bn, b: ops.stage1_scores_batched(
+            quantization.msb_nibble(q_codes[:b]), db.msb_plane, block_n=bn),
+        "stage1_rows": lambda bn, b: ops.stage1_scores_rows(
+            quantization.msb_nibble(q_codes[:b]), win[:b], block_w=bn),
+        "stage0_sign": lambda bn, b: ops.stage0_sign_scores_batched(
+            q_sign[:b], db.sign_plane, block_n=bn),
+        "fused_topk": lambda bn, b: ops.fused_candidates_batched(
+            quantization.msb_nibble(q_codes[:b]), db.msb_plane, c=16,
+            k_per_block=16, block_n=bn),
+    }
+    os.environ[autotune.ENV_CACHE] = path
+    autotune.clear_installed()
+    autotune._load_env_cache.cache_clear()
+    RetrievalEngine(RetrievalConfig(k=K), dev)     # installs the artifact
+    if autotune.installed() is None or \
+            autotune.installed().entries != table.entries:
+        raise AssertionError("the engine did not install the saved table")
+    for key, e in table.entries.items():
+        b, default = e["batch_bucket"], e["default_block_n"]
+        if e["kernel"] == "stage1_single":
+            same = torch.equal(calls["stage1_single"](None),
+                               calls["stage1_single"](default))
+        else:
+            fn = calls[e["kernel"]]
+            same = torch.equal(fn(None, b), fn(default, b))
+        if not same:
+            raise AssertionError(f"autotune {key}: the tuned block "
+                                 f"{e['block_n']} changed a result")
+    log("autotune: the table saved, reloaded and installed by an engine "
+        "through REPRO_TORCH_AUTOTUNE_CACHE; a copy with an altered "
+        "device_kind was refused; tuned and default wrappers bit-identical "
+        f"in all {len(table.entries)} entries")
+
+    # Plain and Masked served with the table installed == untuned.
+    variants = [v for v in _variants(gold, dev)
+                if v[0] in ("plain_cosine", "plain_mips", "masked")]
+    tuned = {}
+    for name, cfg, policy_for in variants:
+        engine = RetrievalEngine(cfg, dev)
+        tuned[name] = [engine.retrieve(q_codes[i * B:(i + 1) * B], db,
+                                       policy_for(slice(i * B, (i + 1) * B)))
+                       for i in range(3)]
+    del os.environ[autotune.ENV_CACHE]
+    autotune.clear_installed()
+    for name, cfg, policy_for in variants:
+        engine = RetrievalEngine(cfg, dev)
+        for i, got in enumerate(tuned[name]):
+            sl = slice(i * B, (i + 1) * B)
+            want = engine.retrieve(q_codes[sl], db, policy_for(sl))
+            for field in ("indices", "scores", "candidate_indices"):
+                if not torch.equal(getattr(got, field), getattr(want, field)):
+                    raise AssertionError(f"{name} batch {i}: {field} with the "
+                                         "tuned table differs from untuned")
+    log("autotune: Plain (cosine, MIPS) and Masked batches served with the "
+        "tuned table installed are bit-identical to the untuned ones")
+    return launches
 
 
 def _variants(gold: torch.Tensor, dev: torch.device):
@@ -663,11 +1130,16 @@ def main() -> int:
     qdb, db, q_codes, gold = phase_corpus(dev)
     kernels = phase_kernels(db, q_codes, dev)
     launches = phase_main(qdb, db, q_codes, gold, dev)
+    new_kernels = phase_new_kernels(db, q_codes, gold, dev)
+    tune_launches = phase_autotune(qdb, db, q_codes, gold, dev)
     del qdb, db, q_codes, gold
     torch.cuda.empty_cache()
     cluster_launches = phase_cluster(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]] + cluster_launches[k["name"]]
+    for k in new_kernels:
+        k["launches"] = tune_launches[k["name"]]
+    kernels += new_kernels
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

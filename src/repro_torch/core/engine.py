@@ -14,8 +14,9 @@ layered as:
              `CentroidPrune` and, with `prescreen_c0`, `SignPrescreen`.
   backend  — the batched stage primitives, chosen by
              `RetrievalConfig.backend`: "torch" (plain PyTorch) or "cuda"
-             (the kernel wrappers of `repro_torch.kernels.ops`). Both are
-             exact integer arithmetic and agree bit for bit.
+             (the kernel wrappers of `repro_torch.kernels.ops`, whose
+             block knobs come from the installed autotune table). Both
+             are exact integer arithmetic and agree bit for bit.
 
 `SchedulePlan` carries the exact analytic byte counts of one launch.
 """
@@ -658,6 +659,12 @@ class RetrievalEngine:
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
+        # Block-shape hook: if REPRO_TORCH_AUTOTUNE_CACHE names a valid
+        # artifact for this device, install it; the "cuda" backend's
+        # tunable wrappers resolve their blocks through it. Without one
+        # every block is the kernel's default.
+        from repro_torch.kernels import autotune
+        autotune.ensure_default_installed(self.device)
 
     def _check(self, query_codes: torch.Tensor, db: bitplanar.BitPlanarDB,
                policy: Policy) -> None:

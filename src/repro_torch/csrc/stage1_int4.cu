@@ -1,33 +1,41 @@
 // Stage-1 MSB-nibble (INT4) scoring on Hopper: the shared-plane scan, the
 // per-lane rows scan and the per-lane block-gather scan.
 //
-// Replaces three Pallas TPU kernels of the reference package:
+// Replaces four Pallas TPU kernels of the reference package:
 //   plane:  src/repro/kernels/stage1_int4.py    stage1_int4_batched_pallas
+//           and, at B = 1, stage1_int4_pallas (the single-query form)
 //   rows:   src/repro/kernels/stage1_int4.py    stage1_int4_rows_pallas
 //   gather: src/repro/kernels/stage1_gather.py  stage1_int4_gather_pallas
 //
 // All compute  score = sum_j q_even[j] * sext4(lo(byte j))
 //                    + q_odd[j]  * sext4(hi(byte j))
-// over packed MSB-nibble rows (byte j: dim 2j in the low nibble, dim 2j+1 in
-// the high nibble, raw two's complement). No nibble is unpacked: for a plane
-// word w, (w << 4) & 0xF0F0F0F0 holds 16 * sext4(lo) in each signed byte and
-// w & 0xF0F0F0F0 holds 16 * sext4(hi), so __dp4a against the query's even
-// and odd nibble words sums 16 * score, and an arithmetic shift right by 4
-// is exact.
+// over packed MSB-nibble rows with __dp4a on pre-shifted words, without
+// unpacking a nibble (nibble.cuh).
 //
-// Widths: every D with D % 8 == 0 (D/2 bytes a whole number of 32-bit
-// words per row). Rows are read 16 bytes at a time when D/2 % 16 == 0 and
-// word by word otherwise; the last partial chunk is masked word by word.
-// The query panels sit in dynamic shared memory, raised above the default
-// 48 KiB with cudaFuncSetAttribute when a width needs it (Hopper allows
-// 227 KiB per block); a D whose panels do not fit is refused.
+// Widths: every even D. Rows are read 16 bytes at a time when D/2 % 16 ==
+// 0, word by word when D/2 % 4 == 0 and byte by byte otherwise (rows of
+// D/2 bytes are then not word aligned); the last partial 64-byte chunk is
+// masked. The query panels sit in dynamic shared memory, raised above the
+// default 48 KiB with cudaFuncSetAttribute when a width needs it (Hopper
+// allows 227 KiB per block). A D whose one-lane panels do not fit (D/2
+// above ~116 K bytes) walks the panels through shared memory kPanelSpan
+// words at a time; that loop is compiled only into the `wide` instances,
+// so the D = 512 code is untouched.
+//
+// Rows per thread block (ROWS: 128, 256, 512 or 1024, one row per thread)
+// is the plane and rows kernels' schedule knob, which the measured
+// autotuner (kernels/autotune.py) picks per batch bucket; 256 is the
+// default and the code every caller gets without a tuned table. Each
+// instance is compiled with __launch_bounds__(ROWS), so the compiler fits
+// its registers to the block; a choice that still cannot launch is
+// refused by the launch and left out by the tuner.
 //
 // What bounds the plane scan on an H100 at N = 2^20, D = 512, B = 32: it
 // reads the 256 MiB plane once and writes the (B, N) int32 scores
 // (128 MiB), about 120 us at 3.35 TB/s; its 2*B*N*D = 34 G int8 operations
 // would take 17 us on the int8 tensor cores. On dp4a (4 MACs per
 // instruction, integer pipe) it is compute-bound above the byte bound.
-// Design: a block of 256 threads owns 256 consecutive plane rows (one per
+// Design: a block of ROWS threads owns ROWS consecutive plane rows (one per
 // thread) and a tile of up to BT = 32 query lanes, whose even/odd nibble
 // panel sits in shared memory and is read by broadcast. Each thread turns
 // 64 bytes of its row at a time into 32 pre-shifted words held in registers
@@ -36,10 +44,10 @@
 // across the warp (consecutive rows). At large D the lane tile shrinks
 // until 2 * BT * D/2 bytes of panels fit in shared memory. The kernel masks
 // its own ragged row edge: the plane is never padded or copied. wgmma s8
-// is later work.
+// is later work. The single-query form is the BT = 1 instance.
 //
 // The rows scan is the same arithmetic over per-lane row blocks (B, W, D/2):
-// grid.y walks lanes, a block scores 256 of that lane's rows against the
+// grid.y walks lanes, a block scores ROWS of that lane's rows against the
 // lane's query held in shared memory. At W = 2048 it moves 32 MiB and is
 // bound by launch latency rather than bytes.
 //
@@ -54,107 +62,40 @@
 // run of 256 view rows of one lane; consecutive threads read consecutive
 // rows of a block and store consecutive scores.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "nibble.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;     // one row per thread
-constexpr int kChunkWords = 16;   // 64 row bytes per register chunk
-constexpr int kDefaultSmem = 48 * 1024;
-constexpr int kMaxSmem = 232448;  // Hopper's opt-in shared memory per block
-
-__device__ __forceinline__ int lo16(uint32_t w) {
-  return static_cast<int>((w << 4) & 0xF0F0F0F0u);
-}
-
-__device__ __forceinline__ int hi16(uint32_t w) {
-  return static_cast<int>(w & 0xF0F0F0F0u);
-}
-
-// Loads words [c, c + 16) of a row as pre-shifted nibble words. VEC: 16-byte
-// loads (the row is 16-byte aligned); MASKED: words at or past `words` read
-// as zero, which contributes nothing to the dot.
-template <bool VEC, bool MASKED>
-__device__ __forceinline__ void load_chunk(const uint32_t* __restrict__ rowp,
-                                           int c, int words,
-                                           int (&lo)[kChunkWords],
-                                           int (&hi)[kChunkWords]) {
-  if constexpr (VEC && !MASKED) {
-    const uint4* p = reinterpret_cast<const uint4*>(rowp + c);
-#pragma unroll
-    for (int v = 0; v < kChunkWords / 4; ++v) {
-      const uint4 x = __ldg(p + v);
-      lo[4 * v + 0] = lo16(x.x); hi[4 * v + 0] = hi16(x.x);
-      lo[4 * v + 1] = lo16(x.y); hi[4 * v + 1] = hi16(x.y);
-      lo[4 * v + 2] = lo16(x.z); hi[4 * v + 2] = hi16(x.z);
-      lo[4 * v + 3] = lo16(x.w); hi[4 * v + 3] = hi16(x.w);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < kChunkWords; ++i) {
-      const uint32_t x = (!MASKED || c + i < words) ? __ldg(rowp + c + i) : 0u;
-      lo[i] = lo16(x);
-      hi[i] = hi16(x);
-    }
-  }
-}
-
-// acc[b] += 16 * (lane b's panel words [c, c + 16) . the loaded chunk).
-template <int BT>
-__device__ __forceinline__ void dot_chunk(const uint32_t* q_s, int words_pad,
-                                          int c, const int (&lo)[kChunkWords],
-                                          const int (&hi)[kChunkWords],
-                                          int (&acc)[BT]) {
-#pragma unroll
-  for (int b = 0; b < BT; ++b) {
-    const uint4* qe = reinterpret_cast<const uint4*>(q_s + b * words_pad + c);
-    const uint4* qo = reinterpret_cast<const uint4*>(
-        q_s + (BT + b) * words_pad + c);
-    int s = acc[b];
-#pragma unroll
-    for (int v = 0; v < kChunkWords / 4; ++v) {
-      const uint4 e = qe[v];
-      const uint4 o = qo[v];
-      s = __dp4a(lo[4 * v + 0], static_cast<int>(e.x), s);
-      s = __dp4a(lo[4 * v + 1], static_cast<int>(e.y), s);
-      s = __dp4a(lo[4 * v + 2], static_cast<int>(e.z), s);
-      s = __dp4a(lo[4 * v + 3], static_cast<int>(e.w), s);
-      s = __dp4a(hi[4 * v + 0], static_cast<int>(o.x), s);
-      s = __dp4a(hi[4 * v + 1], static_cast<int>(o.y), s);
-      s = __dp4a(hi[4 * v + 2], static_cast<int>(o.z), s);
-      s = __dp4a(hi[4 * v + 3], static_cast<int>(o.w), s);
-    }
-    acc[b] = s;
-  }
-}
+constexpr int kGatherThreads = 256;  // the gather's rows per block
+constexpr int kPanelSpan = 4096;     // panel words per half in a wide pass
 
 // q_panel (2, B, D2) int8; plane (N, D2) uint8; out (B, N) int32.
-// D2 % 4 == 0; VEC needs D2 % 16 == 0; TAIL when D2 % 64 != 0 (a last,
-// partial chunk). BT query lanes per block (blockIdx.y walks lane tiles);
-// each lane's panel is zero-padded in shared memory to words_pad, a
-// multiple of 16 words.
-template <int BT, bool VEC, bool TAIL>
-__global__ void __launch_bounds__(kThreads)
+// VEC needs D2 % 16 == 0; TAIL when D2 % 64 != 0 (a last, partial chunk).
+// BT query lanes per block (blockIdx.y walks lane tiles); each lane's
+// panel is zero-padded in shared memory to words_pad, a multiple of 16
+// words.
+template <int BT, int ROWS, int MODE, bool TAIL>
+__global__ void __launch_bounds__(ROWS)
 plane_kernel(const int8_t* __restrict__ q_panel,
              const uint8_t* __restrict__ plane,
              int32_t* __restrict__ out, int B, long long N, int D2) {
   extern __shared__ uint4 q_smem[];
   uint32_t* q_s = reinterpret_cast<uint32_t*>(q_smem);  // [2][BT][words_pad]
-  const int words = D2 / 4;
+  const int words = (D2 + 3) / 4;
   const int words_pad = (words + kChunkWords - 1) / kChunkWords * kChunkWords;
   const int b0 = blockIdx.y * BT;
-  const uint32_t* qg = reinterpret_cast<const uint32_t*>(q_panel);
-  for (int i = threadIdx.x; i < 2 * BT * words_pad; i += kThreads) {
+  for (int i = threadIdx.x; i < 2 * BT * words_pad; i += ROWS) {
     const int half = i / (BT * words_pad);
     const int b = (i / words_pad) % BT;
     const int w = i % words_pad;
     q_s[i] = (b0 + b < B && w < words)
-        ? qg[(static_cast<size_t>(half) * B + b0 + b) * words + w] : 0u;
+        ? operand_word<MODE>(q_panel, static_cast<size_t>(half) * B + b0 + b,
+                             w, D2)
+        : 0u;
   }
   __syncthreads();
 
-  const long long row = static_cast<long long>(blockIdx.x) * kThreads
+  const long long row = static_cast<long long>(blockIdx.x) * ROWS
                         + threadIdx.x;
   if (row >= N) return;
 
@@ -162,20 +103,19 @@ plane_kernel(const int8_t* __restrict__ q_panel,
 #pragma unroll
   for (int b = 0; b < BT; ++b) acc[b] = 0;
 
-  const uint32_t* rowp = reinterpret_cast<const uint32_t*>(
-      plane + static_cast<size_t>(row) * D2);
+  const uint8_t* rowp = plane + static_cast<size_t>(row) * D2;
   // The masked tail is compiled only into the TAIL instances: in the same
   // body as the whole-chunk loop it raised the 32-lane tile from 126 to 154
   // registers and slowed the D = 512 scan by a fifth on an H100.
-  const int full = TAIL ? words / kChunkWords * kChunkWords : words;
+  const int full = TAIL ? D2 / 4 / kChunkWords * kChunkWords : words;
   for (int c = 0; c < full; c += kChunkWords) {
     int lo[kChunkWords], hi[kChunkWords];
-    load_chunk<VEC, false>(rowp, c, words, lo, hi);
+    load_chunk<MODE, false>(rowp, c, D2, lo, hi);
     dot_chunk<BT>(q_s, words_pad, c, lo, hi, acc);
   }
   if constexpr (TAIL) {
     int lo[kChunkWords], hi[kChunkWords];
-    load_chunk<VEC, true>(rowp, full, words, lo, hi);
+    load_chunk<MODE, true>(rowp, full, D2, lo, hi);
     dot_chunk<BT>(q_s, words_pad, full, lo, hi, acc);
   }
 #pragma unroll
@@ -186,17 +126,62 @@ plane_kernel(const int8_t* __restrict__ q_panel,
   }
 }
 
-// 16 * (one packed row . the lane's [even; odd] panel in shared memory).
-// q_s: [2][words]; VEC needs words % 4 == 0 and a 16-byte aligned row.
-template <bool VEC>
+// The plane scan for a D whose one-lane panels do not fit in shared
+// memory: one lane per block (blockIdx.y), its panels walked through
+// shared memory kPanelSpan words per half at a time.
+template <int ROWS, int MODE>
+__global__ void __launch_bounds__(ROWS)
+plane_wide_kernel(const int8_t* __restrict__ q_panel,
+                  const uint8_t* __restrict__ plane,
+                  int32_t* __restrict__ out, int B, long long N, int D2) {
+  extern __shared__ uint4 q_smem[];
+  uint32_t* q_s = reinterpret_cast<uint32_t*>(q_smem);  // [2][kPanelSpan]
+  const int words = (D2 + 3) / 4;
+  const int full = D2 / 4 / kChunkWords * kChunkWords;
+  const int b = blockIdx.y;
+  const long long row = static_cast<long long>(blockIdx.x) * ROWS
+                        + threadIdx.x;
+  const uint8_t* rowp = plane + static_cast<size_t>(row) * D2;
+  int acc[1] = {0};
+  for (int c0 = 0; c0 < words; c0 += kPanelSpan) {
+    __syncthreads();  // every thread is done with the previous span
+    for (int i = threadIdx.x; i < 2 * kPanelSpan; i += ROWS) {
+      const int w = c0 + i % kPanelSpan;
+      q_s[i] = w < words
+          ? operand_word<MODE>(q_panel,
+                               static_cast<size_t>(i / kPanelSpan) * B + b,
+                               w, D2)
+          : 0u;
+    }
+    __syncthreads();
+    if (row >= N) continue;
+    const int end = min(c0 + kPanelSpan, full);
+    for (int c = c0; c < end; c += kChunkWords) {
+      int lo[kChunkWords], hi[kChunkWords];
+      load_chunk<MODE, false>(rowp, c, D2, lo, hi);
+      dot_chunk<1>(q_s, kPanelSpan, c - c0, lo, hi, acc);
+    }
+    if (full < words && full >= c0 && full < c0 + kPanelSpan) {
+      int lo[kChunkWords], hi[kChunkWords];
+      load_chunk<MODE, true>(rowp, full, D2, lo, hi);
+      dot_chunk<1>(q_s, kPanelSpan, full - c0, lo, hi, acc);
+    }
+  }
+  if (row < N) out[static_cast<size_t>(b) * N + row] = acc[0] >> 4;
+}
+
+// 16 * (words [c0, c0 + span) of one packed row . an [even; odd] panel of
+// span words each in shared memory), added to s. kVec needs span % 4 == 0
+// and c0 % 4 == 0 (16-byte aligned reads).
+template <int MODE>
 __device__ __forceinline__ int row_dot(const uint8_t* __restrict__ row,
-                                       const uint32_t* q_s, int words) {
-  int s = 0;
-  if constexpr (VEC) {
-    const uint4* rowp = reinterpret_cast<const uint4*>(row);
+                                       const uint32_t* q_s, int c0, int span,
+                                       int d2, int s) {
+  if constexpr (MODE == kVec) {
+    const uint4* rowp = reinterpret_cast<const uint4*>(row) + c0 / 4;
     const uint4* qe = reinterpret_cast<const uint4*>(q_s);
-    const uint4* qo = reinterpret_cast<const uint4*>(q_s + words);
-    for (int v = 0; v < words / 4; ++v) {
+    const uint4* qo = reinterpret_cast<const uint4*>(q_s + span);
+    for (int v = 0; v < span / 4; ++v) {
       const uint4 x = __ldg(rowp + v);
       const uint4 e = qe[v];
       const uint4 o = qo[v];
@@ -211,190 +196,289 @@ __device__ __forceinline__ int row_dot(const uint8_t* __restrict__ row,
     }
   } else {
     const uint32_t* rowp = reinterpret_cast<const uint32_t*>(row);
-    for (int w = 0; w < words; ++w) {
-      const uint32_t x = __ldg(rowp + w);
+    for (int w = 0; w < span; ++w) {
+      const uint32_t x = MODE == kWord ? __ldg(rowp + c0 + w)
+                                       : byte_word(row, c0 + w, d2);
       s = __dp4a(lo16(x), static_cast<int>(q_s[w]), s);
-      s = __dp4a(hi16(x), static_cast<int>(q_s[words + w]), s);
+      s = __dp4a(hi16(x), static_cast<int>(q_s[span + w]), s);
     }
   }
   return s;
 }
 
-// Copies lane b's [even; odd] panel (2 * D2 bytes of q_eo) to shared memory.
+// Copies lane b's [even; odd] panel (rows 2b and 2b + 1 of q_eo, D2 bytes
+// each) to shared memory as 2 x ceil(D2 / 4) words.
+template <int ROWS, int MODE>
 __device__ __forceinline__ void load_lane_panel(const int8_t* __restrict__ q_eo,
-                                                uint32_t* q_s, int b,
-                                                int words) {
-  const uint32_t* qg = reinterpret_cast<const uint32_t*>(
-      q_eo + static_cast<size_t>(b) * 8 * words);
-  for (int i = threadIdx.x; i < 2 * words; i += kThreads) q_s[i] = qg[i];
+                                                uint32_t* q_s, int b, int d2) {
+  const int words = (d2 + 3) / 4;
+  if constexpr (MODE == kByte) {
+    for (int i = threadIdx.x; i < 2 * words; i += ROWS) {
+      q_s[i] = operand_word<MODE>(q_eo, 2 * b + i / words, i % words, d2);
+    }
+  } else {
+    const uint32_t* qg = reinterpret_cast<const uint32_t*>(
+        q_eo + static_cast<size_t>(b) * 8 * words);
+    for (int i = threadIdx.x; i < 2 * words; i += ROWS) q_s[i] = qg[i];
+  }
   __syncthreads();
 }
 
-// q_eo (B, 2, D2) int8; rows (B, W, D2) uint8; out (B, W) int32.
-// D2 % 4 == 0 (VEC: D2 % 16 == 0); blockIdx.y is the lane.
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads)
+// 16 * (row . lane b's panel) for a D too wide for the whole panel: the
+// panel walks through shared memory kPanelSpan words per half at a time.
+// Every thread of the block calls it (it synchronises); `row` is null for
+// a thread that scores no row.
+template <int ROWS, int MODE>
+__device__ int wide_row_dot(const int8_t* __restrict__ q_eo, uint32_t* q_s,
+                            int b, const uint8_t* __restrict__ row, int d2) {
+  const int words = (d2 + 3) / 4;
+  int s = 0;
+  for (int c0 = 0; c0 < words; c0 += kPanelSpan) {
+    const int span = min(kPanelSpan, words - c0);
+    __syncthreads();  // every thread is done with the previous span
+    for (int i = threadIdx.x; i < 2 * span; i += ROWS) {
+      q_s[i] = operand_word<MODE>(q_eo, 2 * b + i / span, c0 + i % span, d2);
+    }
+    __syncthreads();
+    if (row != nullptr) s = row_dot<MODE>(row, q_s, c0, span, d2, s);
+  }
+  return s;
+}
+
+// q_eo (B, 2, D2) int8; rows (B, W, D2) uint8; out (B, W) int32;
+// blockIdx.y is the lane.
+template <int ROWS, int MODE, bool WIDE>
+__global__ void __launch_bounds__(ROWS)
 rows_kernel(const int8_t* __restrict__ q_eo,
             const uint8_t* __restrict__ rows,
             int32_t* __restrict__ out, long long W, int D2) {
   extern __shared__ uint4 q_smem[];
-  uint32_t* q_s = reinterpret_cast<uint32_t*>(q_smem);  // [2][D2/4]
+  uint32_t* q_s = reinterpret_cast<uint32_t*>(q_smem);  // [2][words]
   const int b = blockIdx.y;
-  load_lane_panel(q_eo, q_s, b, D2 / 4);
-  const long long r = static_cast<long long>(blockIdx.x) * kThreads
+  const long long r = static_cast<long long>(blockIdx.x) * ROWS
                       + threadIdx.x;
-  if (r >= W) return;
-  const int s = row_dot<VEC>(rows + (static_cast<size_t>(b) * W + r) * D2,
-                             q_s, D2 / 4);
-  out[static_cast<size_t>(b) * W + r] = s >> 4;
+  if constexpr (WIDE) {
+    const uint8_t* row = r < W
+        ? rows + (static_cast<size_t>(b) * W + r) * D2 : nullptr;
+    const int s = wide_row_dot<ROWS, MODE>(q_eo, q_s, b, row, D2);
+    if (row != nullptr) out[static_cast<size_t>(b) * W + r] = s >> 4;
+  } else {
+    load_lane_panel<ROWS, MODE>(q_eo, q_s, b, D2);
+    if (r >= W) return;
+    const int s = row_dot<MODE>(rows + (static_cast<size_t>(b) * W + r) * D2,
+                                q_s, 0, (D2 + 3) / 4, D2, 0);
+    out[static_cast<size_t>(b) * W + r] = s >> 4;
+  }
 }
 
 // q_eo (B, 2, D2) int8; plane (N, D2) uint8; ids (B, J) int32 block ids;
 // out (B, J * BR) int32. View rows at or past N (or before 0) score 0.
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads)
+template <int MODE, bool WIDE>
+__global__ void __launch_bounds__(kGatherThreads)
 gather_kernel(const int8_t* __restrict__ q_eo,
               const uint8_t* __restrict__ plane,
               const int32_t* __restrict__ ids,
               int32_t* __restrict__ out, long long N, int J, int BR, int D2) {
   extern __shared__ uint4 q_smem[];
-  uint32_t* q_s = reinterpret_cast<uint32_t*>(q_smem);  // [2][D2/4]
+  uint32_t* q_s = reinterpret_cast<uint32_t*>(q_smem);  // [2][words]
   const int b = blockIdx.y;
-  load_lane_panel(q_eo, q_s, b, D2 / 4);
   const long long R = static_cast<long long>(J) * BR;
-  const long long r = static_cast<long long>(blockIdx.x) * kThreads
+  const long long r = static_cast<long long>(blockIdx.x) * kGatherThreads
                       + threadIdx.x;
-  if (r >= R) return;
-  const long long id = ids[static_cast<size_t>(b) * J + r / BR];
-  const long long row = id * BR + r % BR;
-  int s = 0;
-  if (row >= 0 && row < N) {
-    s = row_dot<VEC>(plane + static_cast<size_t>(row) * D2, q_s, D2 / 4);
+  if constexpr (WIDE) {
+    const uint8_t* rowp = nullptr;
+    if (r < R) {
+      const long long id = ids[static_cast<size_t>(b) * J + r / BR];
+      const long long row = id * BR + r % BR;
+      if (row >= 0 && row < N) rowp = plane + static_cast<size_t>(row) * D2;
+    }
+    const int s = wide_row_dot<kGatherThreads, MODE>(q_eo, q_s, b, rowp, D2);
+    if (r < R) out[static_cast<size_t>(b) * R + r] = s >> 4;
+  } else {
+    load_lane_panel<kGatherThreads, MODE>(q_eo, q_s, b, D2);
+    if (r >= R) return;
+    const long long id = ids[static_cast<size_t>(b) * J + r / BR];
+    const long long row = id * BR + r % BR;
+    int s = 0;
+    if (row >= 0 && row < N) {
+      s = row_dot<MODE>(plane + static_cast<size_t>(row) * D2, q_s, 0,
+                        (D2 + 3) / 4, D2, 0);
+    }
+    out[static_cast<size_t>(b) * R + r] = s >> 4;
   }
-  out[static_cast<size_t>(b) * R + r] = s >> 4;
 }
 
-// Opts a kernel into more than the default 48 KiB of dynamic shared memory.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  if (smem <= static_cast<size_t>(kDefaultSmem)) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
-template <int BT, bool VEC, bool TAIL>
-cudaError_t launch_plane(const int8_t* q, const uint8_t* plane, int32_t* out,
-                         int B, long long N, int D2, cudaStream_t stream) {
-  const int words_pad = (D2 / 4 + kChunkWords - 1) / kChunkWords * kChunkWords;
-  const size_t smem = static_cast<size_t>(2) * BT * words_pad * 4;
-  cudaError_t err = allow_smem(plane_kernel<BT, VEC, TAIL>, smem);
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
+                   cudaStream_t stream, Args... args) {
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((N + kThreads - 1) / kThreads),
-                  static_cast<unsigned>((B + BT - 1) / BT));
-  plane_kernel<BT, VEC, TAIL><<<grid, kThreads, smem, stream>>>(
-      q, plane, out, B, N, D2);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-template <bool VEC, bool TAIL>
-cudaError_t launch_plane_tile(int bt, const int8_t* q, const uint8_t* p,
-                              int32_t* o, int B, long long N, int D2,
-                              cudaStream_t s) {
+struct PlaneArgs {
+  const int8_t* q;
+  const uint8_t* plane;
+  int32_t* out;
+  int B;
+  long long N;
+  int D2;
+  cudaStream_t stream;
+};
+
+template <int BT, int ROWS, int MODE, bool TAIL>
+cudaError_t launch_plane(const PlaneArgs& a) {
+  const long long words_pad = round_up((a.D2 + 3) / 4, kChunkWords);
+  const size_t smem = static_cast<size_t>(2) * BT * words_pad * 4;
+  const dim3 grid(static_cast<unsigned>((a.N + ROWS - 1) / ROWS),
+                  static_cast<unsigned>((a.B + BT - 1) / BT));
+  return launch(plane_kernel<BT, ROWS, MODE, TAIL>, grid, ROWS, smem,
+                a.stream, a.q, a.plane, a.out, a.B, a.N, a.D2);
+}
+
+template <int ROWS, int MODE, bool TAIL>
+cudaError_t launch_plane_tile(int bt, const PlaneArgs& a) {
   switch (bt) {
-    case 1: return launch_plane<1, VEC, TAIL>(q, p, o, B, N, D2, s);
-    case 2: return launch_plane<2, VEC, TAIL>(q, p, o, B, N, D2, s);
-    case 4: return launch_plane<4, VEC, TAIL>(q, p, o, B, N, D2, s);
-    case 8: return launch_plane<8, VEC, TAIL>(q, p, o, B, N, D2, s);
-    case 16: return launch_plane<16, VEC, TAIL>(q, p, o, B, N, D2, s);
-    default: return launch_plane<32, VEC, TAIL>(q, p, o, B, N, D2, s);
+    case 1: return launch_plane<1, ROWS, MODE, TAIL>(a);
+    case 2: return launch_plane<2, ROWS, MODE, TAIL>(a);
+    case 4: return launch_plane<4, ROWS, MODE, TAIL>(a);
+    case 8: return launch_plane<8, ROWS, MODE, TAIL>(a);
+    case 16: return launch_plane<16, ROWS, MODE, TAIL>(a);
+    default: return launch_plane<32, ROWS, MODE, TAIL>(a);
   }
+}
+
+template <int ROWS, int MODE>
+cudaError_t launch_plane_wide(const PlaneArgs& a) {
+  const dim3 grid(static_cast<unsigned>((a.N + ROWS - 1) / ROWS),
+                  static_cast<unsigned>(a.B));
+  return launch(plane_wide_kernel<ROWS, MODE>, grid, ROWS,
+                static_cast<size_t>(2) * kPanelSpan * 4, a.stream, a.q,
+                a.plane, a.out, a.B, a.N, a.D2);
+}
+
+template <int ROWS>
+cudaError_t launch_plane_rows(int bt, bool wide, const PlaneArgs& a) {
+  const int mode = mode_for(a.D2);
+  if (wide) {
+    if (mode == kVec) return launch_plane_wide<ROWS, kVec>(a);
+    if (mode == kWord) return launch_plane_wide<ROWS, kWord>(a);
+    return launch_plane_wide<ROWS, kByte>(a);
+  }
+  if (a.D2 % 64 == 0) return launch_plane_tile<ROWS, kVec, false>(bt, a);
+  if (mode == kVec) return launch_plane_tile<ROWS, kVec, true>(bt, a);
+  if (mode == kWord) return launch_plane_tile<ROWS, kWord, true>(bt, a);
+  return launch_plane_tile<ROWS, kByte, true>(bt, a);
+}
+
+template <int ROWS, int MODE>
+cudaError_t launch_rows_mode(const int8_t* q, const uint8_t* r, int32_t* o,
+                             int B, long long W, int D2, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>((W + ROWS - 1) / ROWS),
+                  static_cast<unsigned>(B));
+  const size_t panel = static_cast<size_t>(2) * ((D2 + 3) / 4) * 4;
+  if (panel > static_cast<size_t>(kMaxSmem)) {
+    return launch(rows_kernel<ROWS, MODE, true>, grid, ROWS,
+                  static_cast<size_t>(2) * kPanelSpan * 4, s, q, r, o, W, D2);
+  }
+  return launch(rows_kernel<ROWS, MODE, false>, grid, ROWS, panel, s, q, r,
+                o, W, D2);
+}
+
+template <int ROWS>
+cudaError_t launch_rows(const int8_t* q, const uint8_t* r, int32_t* o, int B,
+                        long long W, int D2, cudaStream_t s) {
+  const int mode = mode_for(D2);
+  if (mode == kVec) return launch_rows_mode<ROWS, kVec>(q, r, o, B, W, D2, s);
+  if (mode == kWord) {
+    return launch_rows_mode<ROWS, kWord>(q, r, o, B, W, D2, s);
+  }
+  return launch_rows_mode<ROWS, kByte>(q, r, o, B, W, D2, s);
+}
+
+template <int MODE>
+cudaError_t launch_gather(const int8_t* q, const uint8_t* p,
+                          const int32_t* ids, int32_t* o, int B, long long N,
+                          int J, int BR, int D2, cudaStream_t s) {
+  const long long R = static_cast<long long>(J) * BR;
+  const dim3 grid(static_cast<unsigned>((R + kGatherThreads - 1)
+                                        / kGatherThreads),
+                  static_cast<unsigned>(B));
+  const size_t panel = static_cast<size_t>(2) * ((D2 + 3) / 4) * 4;
+  if (panel > static_cast<size_t>(kMaxSmem)) {
+    return launch(gather_kernel<MODE, true>, grid, kGatherThreads,
+                  static_cast<size_t>(2) * kPanelSpan * 4, s, q, p, ids, o, N,
+                  J, BR, D2);
+  }
+  return launch(gather_kernel<MODE, false>, grid, kGatherThreads, panel, s, q,
+                p, ids, o, N, J, BR, D2);
 }
 
 }  // namespace
 
+// rows: threads (plane rows) per block, one of 128, 256, 512, 1024.
 extern "C" int stage1_plane_launch(const void* q_panel, const void* plane,
                                    void* out, int B, long long N, int D2,
-                                   void* stream) {
-  if (D2 % 4) return static_cast<int>(cudaErrorInvalidValue);
+                                   int rows, void* stream) {
   // The smallest power-of-two lane tile that covers B (at most 32), halved
-  // while its panels exceed the shared memory one block may hold.
+  // while its panels exceed the shared memory one block may hold; past one
+  // lane, the wide kernel walks the panels through shared memory.
   int bt = 1;
   while (bt < B && bt < 32) bt *= 2;
-  const long long words_pad =
-      (D2 / 4 + kChunkWords - 1) / kChunkWords * kChunkWords;
+  const long long words_pad = round_up((D2 + 3) / 4, kChunkWords);
   while (bt > 1 && 2LL * bt * words_pad * 4 > kMaxSmem) bt /= 2;
-  const auto* q = static_cast<const int8_t*>(q_panel);
-  const auto* p = static_cast<const uint8_t*>(plane);
-  auto* o = static_cast<int32_t*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
+  const bool wide = 2LL * words_pad * 4 > kMaxSmem;
+  const PlaneArgs a{static_cast<const int8_t*>(q_panel),
+                    static_cast<const uint8_t*>(plane),
+                    static_cast<int32_t*>(out), B, N, D2,
+                    static_cast<cudaStream_t>(stream)};
   cudaError_t err;
-  if (D2 % 64 == 0) {
-    err = launch_plane_tile<true, false>(bt, q, p, o, B, N, D2, s);
-  } else if (D2 % 16 == 0) {
-    err = launch_plane_tile<true, true>(bt, q, p, o, B, N, D2, s);
-  } else {
-    err = launch_plane_tile<false, true>(bt, q, p, o, B, N, D2, s);
+  switch (rows) {
+    case 128: err = launch_plane_rows<128>(bt, wide, a); break;
+    case 256: err = launch_plane_rows<256>(bt, wide, a); break;
+    case 512: err = launch_plane_rows<512>(bt, wide, a); break;
+    case 1024: err = launch_plane_rows<1024>(bt, wide, a); break;
+    default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
 
-extern "C" int stage1_rows_launch(const void* q_eo, const void* rows,
+extern "C" int stage1_rows_launch(const void* q_eo, const void* rows_in,
                                   void* out, int B, long long W, int D2,
-                                  void* stream) {
-  if (D2 % 4) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((W + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(B));
-  const size_t smem = static_cast<size_t>(2) * D2;
+                                  int rows, void* stream) {
   const auto* q = static_cast<const int8_t*>(q_eo);
-  const auto* r = static_cast<const uint8_t*>(rows);
+  const auto* r = static_cast<const uint8_t*>(rows_in);
   auto* o = static_cast<int32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (D2 % 16 == 0) {
-    err = allow_smem(rows_kernel<true>, smem);
-    if (err == cudaSuccess) {
-      rows_kernel<true><<<grid, kThreads, smem, s>>>(q, r, o, W, D2);
-    }
-  } else {
-    err = allow_smem(rows_kernel<false>, smem);
-    if (err == cudaSuccess) {
-      rows_kernel<false><<<grid, kThreads, smem, s>>>(q, r, o, W, D2);
-    }
+  switch (rows) {
+    case 128: err = launch_rows<128>(q, r, o, B, W, D2, s); break;
+    case 256: err = launch_rows<256>(q, r, o, B, W, D2, s); break;
+    case 512: err = launch_rows<512>(q, r, o, B, W, D2, s); break;
+    case 1024: err = launch_rows<1024>(q, r, o, B, W, D2, s); break;
+    default: err = cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 extern "C" int stage1_gather_launch(const void* q_eo, const void* plane,
                                     const void* block_ids, void* out, int B,
                                     long long N, int J, int BR, int D2,
                                     void* stream) {
-  if (D2 % 4) return static_cast<int>(cudaErrorInvalidValue);
-  const long long R = static_cast<long long>(J) * BR;
-  const dim3 grid(static_cast<unsigned>((R + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(B));
-  const size_t smem = static_cast<size_t>(2) * D2;
   const auto* q = static_cast<const int8_t*>(q_eo);
   const auto* p = static_cast<const uint8_t*>(plane);
   const auto* ids = static_cast<const int32_t*>(block_ids);
   auto* o = static_cast<int32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
+  const int mode = mode_for(D2);
   cudaError_t err;
-  if (D2 % 16 == 0) {
-    err = allow_smem(gather_kernel<true>, smem);
-    if (err == cudaSuccess) {
-      gather_kernel<true><<<grid, kThreads, smem, s>>>(q, p, ids, o, N, J, BR,
-                                                       D2);
-    }
+  if (mode == kVec) {
+    err = launch_gather<kVec>(q, p, ids, o, B, N, J, BR, D2, s);
+  } else if (mode == kWord) {
+    err = launch_gather<kWord>(q, p, ids, o, B, N, J, BR, D2, s);
   } else {
-    err = allow_smem(gather_kernel<false>, smem);
-    if (err == cudaSuccess) {
-      gather_kernel<false><<<grid, kThreads, smem, s>>>(q, p, ids, o, N, J,
-                                                        BR, D2);
-    }
+    err = launch_gather<kByte>(q, p, ids, o, B, N, J, BR, D2, s);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 for sm_90a into its own shared library under the package's own `build/`
-directory, named by a hash of the source and the flags, so a changed
-source rebuilds and an unchanged one is reused. Libraries are loaded with
+directory, named by a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so a changed source rebuilds and an
+unchanged one is reused. Libraries are loaded with
 ctypes (pointers and the stream as ``c_void_p``). `build` starts one
 `nvcc` per missing library, all at once, and waits for them.
 
@@ -17,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Callable
 
@@ -24,13 +26,15 @@ import torch
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[1] / "build"
-SOURCES = ("stage1_int4", "stage2_int8", "stage0_sign")
+SOURCES = ("stage1_int4", "stage2_int8", "stage0_sign", "fused_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: dict[str, int] = {"stage1_plane": 0, "stage1_rows": 0,
                             "stage2_exact": 0, "stage1_gather": 0,
-                            "stage0_sign_gather": 0}
+                            "stage0_sign_gather": 0, "stage1_single": 0,
+                            "stage2_single": 0, "stage0_sign_plane": 0,
+                            "fused_topk": 0, "fused_topk_single": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, Callable[..., int]] = {}
@@ -53,14 +57,17 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (_SRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(_SRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return _BUILD / f"{name}-{digest[:16]}.so"
 
 
-def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
+def build(names: tuple[str, ...] = SOURCES) -> dict[str, tuple[str, float]]:
     """Compile every named source whose library is missing, one `nvcc`
-    process each, all started together. Returns each compiled source's
-    compiler output (register and shared-memory use per kernel)."""
+    process each, all started together. Returns, per compiled source, the
+    compiler's output (register and shared-memory use per kernel) and the
+    seconds its `nvcc` ran."""
     _BUILD.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name in names:
@@ -68,22 +75,31 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        log = out.with_name(f"{out.stem}.{os.getpid()}.log")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, out, tmp, proc))
-    logs = {}
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        jobs.append((name, out, tmp, log, proc, time.perf_counter()))
+    seconds = {}
+    while len(seconds) < len(jobs):
+        for name, _, _, _, proc, t0 in jobs:
+            if name not in seconds and proc.poll() is not None:
+                seconds[name] = time.perf_counter() - t0
+        if len(seconds) < len(jobs):
+            time.sleep(0.05)
+    results = {}
     failed = []
-    for name, out, tmp, proc in jobs:
-        log, _ = proc.communicate()
-        logs[name] = log
+    for name, out, tmp, log, proc, _ in jobs:
+        text = log.read_text()
+        log.unlink()
+        results[name] = (text, seconds[name])
         if proc.returncode:
-            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            failed.append(f"nvcc failed for {name}.cu:\n{text}")
         else:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return logs
+    return results
 
 
 def function(name: str, symbol: str, argtypes: list) -> Callable[..., int]:

@@ -11,6 +11,9 @@ import torch
 
 from repro_torch.core.bitplanar import (expand_block_rows, gather_blocks,
                                         unpack_sign_pm1)
+from repro_torch.core.similarity import stable_topk
+
+INT32_MIN = -(2 ** 31)
 
 
 def _sext4(nib: torch.Tensor) -> torch.Tensor:
@@ -38,6 +41,13 @@ def stage1_scores_batched_ref(q_panel: torch.Tensor,
     even, odd = unpack_even_odd_signed(msb_plane)
     q = q_panel.to(torch.float64)
     return (q[0] @ even.T + q[1] @ odd.T).to(torch.int32)
+
+
+def stage1_scores_ref(q_eo: torch.Tensor,
+                      msb_plane: torch.Tensor) -> torch.Tensor:
+    """The plane kernel for one query: q_eo (2, D//2) int8 [even; odd]
+    MSB nibbles, msb_plane (N, D//2) uint8 -> (N,) int32."""
+    return stage1_scores_batched_ref(q_eo[:, None], msb_plane)[0]
 
 
 def stage1_rows_batched_ref(q_eo: torch.Tensor,
@@ -76,6 +86,14 @@ def _sign_dot(q_sign: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
         torch.int32)
 
 
+def stage0_sign_batched_ref(q_sign: torch.Tensor,
+                            sign_plane: torch.Tensor) -> torch.Tensor:
+    """The dense sign kernel: q_sign (B, D) int8 in {+1, -1}, sign_plane
+    (N, D//8) uint8 -> (B, N) int32 ``sum_k q_sign[k] * sign(d_k)``."""
+    docs = unpack_sign_pm1(sign_plane).to(torch.float64)
+    return (q_sign.to(torch.float64) @ docs.T).to(torch.int32)
+
+
 def stage0_sign_gather_ref(q_sign: torch.Tensor, sign_plane: torch.Tensor,
                            block_ids: torch.Tensor,
                            block_rows: int) -> torch.Tensor:
@@ -108,3 +126,70 @@ def stage2_scores_batched_ref(q_eo8: torch.Tensor, msb_rows: torch.Tensor,
     return (torch.bmm(me * 16 + le, q[:, 0, :, None])
             + torch.bmm(mo * 16 + lo, q[:, 1, :, None]))[..., 0].to(
                 torch.int32)
+
+
+def stage2_scores_ref(q_eo8: torch.Tensor, msb_rows: torch.Tensor,
+                      lsb_rows: torch.Tensor) -> torch.Tensor:
+    """The exact kernel for one query: q_eo8 (2, D//2), msb/lsb_rows
+    (C, D//2) -> (C,) int32."""
+    return stage2_scores_batched_ref(q_eo8[None], msb_rows[None],
+                                     lsb_rows[None])[0]
+
+
+def blockwise_topk(scores: torch.Tensor, block_n: int,
+                   k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, N) int32 scores, N a multiple of block_n -> (scores, global ids)
+    (B, N // block_n, k) int32: the reference's per-block iterative argmax
+    in closed form. Each pick takes the largest score, ties toward the
+    lower row, and sets it to INT32_MIN; so the first L = min(k, live)
+    picks are the live (non-INT32_MIN) entries in stable descending order,
+    and every later pick, over an all-INT32_MIN block, is argmax's index
+    0: (INT32_MIN, the block's first row), repeated."""
+    b, n = scores.shape
+    nb = n // block_n
+    blocks = scores.reshape(b, nb, block_n)
+    kk = min(k, block_n)
+    vals, idx = stable_topk(blocks, kk)
+    live = (blocks != INT32_MIN).sum(-1, keepdim=True)
+    dead = torch.arange(kk, device=scores.device) >= live
+    vals = vals.masked_fill(dead, INT32_MIN)
+    idx = idx.masked_fill(dead, 0)
+    if k > kk:
+        vals = torch.cat([vals, vals.new_full((b, nb, k - kk), INT32_MIN)], -1)
+        idx = torch.cat([idx, idx.new_zeros((b, nb, k - kk))], -1)
+    base = torch.arange(nb, device=scores.device)[:, None] * block_n
+    return vals, (idx + base).to(torch.int32)
+
+
+def fused_topk_batched_ref(q_eo: torch.Tensor, msb_plane: torch.Tensor,
+                           block_n: int, k: int,
+                           owner: torch.Tensor | None = None,
+                           tenant_ids: torch.Tensor | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused kernel: q_eo (B, 2, D//2), msb_plane (N, D//2), optionally
+    owner (N,) and tenant_ids (B,) int32 (rows outside the lane's tenant,
+    or every row of a lane with tid < 0, score INT32_MIN) -> (scores,
+    global ids), each (B, ceil(N / block_n), k) int32. A ragged plane is
+    taken as zero-padded to a block multiple (padding rows score 0, owner
+    -1), as the reference wrapper pads it."""
+    n, d2 = msb_plane.shape
+    pad = -n % block_n
+    if pad:
+        msb_plane = torch.cat([msb_plane,
+                               msb_plane.new_zeros((pad, d2))])
+    scores = stage1_scores_batched_ref(q_eo.transpose(0, 1), msb_plane)
+    if owner is not None:
+        if pad:
+            owner = torch.cat([owner, owner.new_full((pad,), -1)])
+        member = ((owner[None, :] == tenant_ids[:, None])
+                  & (tenant_ids >= 0)[:, None])
+        scores = scores.masked_fill(~member, INT32_MIN)
+    return blockwise_topk(scores, block_n, k)
+
+
+def fused_topk_ref(q_eo: torch.Tensor, msb_plane: torch.Tensor, block_n: int,
+                   k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused kernel for one query, unmasked: q_eo (2, D//2) ->
+    (scores, global ids), each (ceil(N / block_n), k) int32."""
+    scores, ids = fused_topk_batched_ref(q_eo[None], msb_plane, block_n, k)
+    return scores[0], ids[0]

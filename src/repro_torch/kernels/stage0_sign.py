@@ -1,13 +1,19 @@
-"""Stage-0 sign-agreement scoring over gathered blocks of the packed sign
-plane: wrapper of the CUDA kernel in `csrc/stage0_sign.cu`, which replaces
-the reference's `stage0_sign_gather_pallas`.
+"""Stage-0 sign-agreement scoring over the packed sign plane: wrappers of
+the CUDA kernels in `csrc/stage0_sign.cu`. `stage0_sign_batched`
+replaces the reference's `stage0_sign_batched_pallas` (a dense scan of the
+whole plane, streamed once per batch), `stage0_sign_gather` its
+`stage0_sign_gather_pallas` (gathered blocks).
 
-Lane b scores the sign-plane rows of its block table (the same table the
-stage-1 gather reads) against its +-1 query signs: ``sum_k q_sign[k] *
-(1 - 2 * bit_k)``. Rows past N are zero bytes, all +1, and score
-``sum_k q_sign[k]``; the kernel computes that without a read, so a ragged
-plane is never padded. A tensor on the CPU goes to the plain version in
-`ref`; a CUDA tensor launches the kernel or raises.
+Lane b scores sign-plane rows against its +-1 query signs: ``sum_k
+q_sign[k] * (1 - 2 * bit_k)``. Both kernels score from the query's sign
+bits (bit set where q_sign < 0) as D - 2 * popc(qbits ^ dbits), which
+equals the +-1 dot exactly for a query of +-1 signs, the operand
+`ops.pack_query_signs` makes; it is the contract of both wrappers. In the
+gather, rows past N are zero bytes, all +1, and score ``sum_k
+q_sign[k]``; the kernel computes that without a read, so a ragged plane
+is never padded. A tensor on the CPU goes to the plain version in `ref`;
+a CUDA tensor launches the kernel or raises. Widths: every D % 8 == 0
+whose packed signs (D/8 bytes per lane) fit one block's shared memory.
 """
 from __future__ import annotations
 
@@ -17,12 +23,53 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.stage1_gather import check_gather
-from repro_torch.kernels.stage1_int4 import _check, _on_cpu, check_width
+from repro_torch.kernels.stage1_int4 import (DEFAULT_ROWS, MAX_GRID_Y,
+                                             _check, _on_cpu, check_rows,
+                                             check_smem)
 
 _SIGN_GATHER_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
                      ctypes.c_void_p]
+_SIGN_PLANE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_void_p]
+
+
+def _check_signs(kernel: str, q_sign: torch.Tensor, sign_plane: torch.Tensor,
+                 dev: torch.device) -> int:
+    """Checks the (B, D) query signs against the (N, D/8) plane; returns D."""
+    _check("q_sign", q_sign, torch.int8, 2, dev)
+    _check("sign_plane", sign_plane, torch.uint8, 2, dev)
+    d = q_sign.shape[1]
+    if d != 8 * sign_plane.shape[1]:
+        raise ValueError(f"q_sign has D = {d}, the sign plane "
+                         f"{sign_plane.shape[1]} bytes per row")
+    check_smem(kernel, f"D = {d}", -(-d // 32) * 4)
+    return d
+
+
+def stage0_sign_batched(q_sign: torch.Tensor, sign_plane: torch.Tensor, *,
+                        rows: int = DEFAULT_ROWS) -> torch.Tensor:
+    """q_sign (B, D) int8 in {+1, -1}, sign_plane (N, D//8) uint8 ->
+    (B, N) int32 sign-agreement scores. `rows`: sign rows per thread block
+    (the autotuner's "stage0_sign" knob; it never changes a result)."""
+    check_rows(rows)
+    if _on_cpu(sign_plane):
+        return ref.stage0_sign_batched_ref(q_sign, sign_plane)
+    dev = sign_plane.device
+    d = _check_signs("sign plane", q_sign, sign_plane, dev)
+    b, n = q_sign.shape[0], sign_plane.shape[0]
+    if b > MAX_GRID_Y:
+        raise ValueError(f"batch {b} exceeds the kernel's grid")
+    out = torch.empty((b, n), dtype=torch.int32, device=dev)
+    if out.numel():
+        fn = _build.function("stage0_sign", "stage0_sign_plane_launch",
+                             _SIGN_PLANE_ARGS)
+        _build.launch("stage0_sign_plane", fn, q_sign.data_ptr(),
+                      sign_plane.data_ptr(), out.data_ptr(), b, n, d, rows,
+                      device=dev)
+    return out
 
 
 def stage0_sign_gather(q_sign: torch.Tensor, sign_plane: torch.Tensor,
@@ -30,20 +77,13 @@ def stage0_sign_gather(q_sign: torch.Tensor, sign_plane: torch.Tensor,
                        block_rows: int) -> torch.Tensor:
     """q_sign (B, D) int8 in {+1, -1}, sign_plane (N, D//8) uint8,
     block_ids (B, J) int32 clamped block ids -> (B, J * block_rows) int32
-    sign-agreement scores in block-table order. The kernel scores from the
-    query's sign bits, which equals the +-1 dot only for +-1 signs."""
+    sign-agreement scores in block-table order."""
     if _on_cpu(sign_plane):
         return ref.stage0_sign_gather_ref(q_sign, sign_plane, block_ids,
                                           block_rows)
     dev = sign_plane.device
-    _check("q_sign", q_sign, torch.int8, 2, dev)
-    _check("sign_plane", sign_plane, torch.uint8, 2, dev)
-    n, d8 = sign_plane.shape
-    b, d = q_sign.shape
-    if d != 8 * d8:
-        raise ValueError(f"q_sign has D = {d}, the sign plane {d8} bytes "
-                         "per row")
-    check_width("sign gather", d, -(-d // 32) * 4)
+    d = _check_signs("sign gather", q_sign, sign_plane, dev)
+    n, b = sign_plane.shape[0], q_sign.shape[0]
     j = check_gather(block_ids, b, block_rows, dev)
     out = torch.empty((b, j * block_rows), dtype=torch.int32, device=dev)
     if out.numel():

@@ -5,9 +5,9 @@ gather kernel in `csrc/stage1_int4.cu`, which replaces the reference's
 Lane b scores the plane rows of its block table: view row r is plane row
 ``block_ids[b, r // block_rows] * block_rows + r % block_rows``. The
 kernel reads those rows in place and scores rows past N as 0 without
-reading them, so a ragged plane is never padded. A tensor on the CPU goes
-to the plain version in `ref`; a CUDA tensor launches the kernel or
-raises.
+reading them, so a ragged plane is never padded. Every even D is served
+(the rows kernel's widths). A tensor on the CPU goes to the plain version
+in `ref`; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -16,8 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.stage1_int4 import (MAX_GRID_Y, _check, _on_cpu,
-                                             check_width)
+from repro_torch.kernels.stage1_int4 import MAX_GRID_Y, _check, _on_cpu
 
 DEFAULT_BLOCK_ROWS = 64
 
@@ -62,7 +61,6 @@ def stage1_int4_gather(q_eo: torch.Tensor, msb_plane: torch.Tensor,
     if q_eo.shape != (b, 2, d2):
         raise ValueError(f"q_eo shape {tuple(q_eo.shape)} does not match "
                          f"the plane's {d2} bytes per row")
-    check_width("gather", 2 * d2, 2 * d2)
     j = check_gather(block_ids, b, block_rows, dev)
     out = torch.empty((b, j * block_rows), dtype=torch.int32, device=dev)
     if out.numel():

@@ -3,13 +3,20 @@
 
 `stage1_int4_batched` replaces the reference's
 `stage1_int4_batched_pallas` (one scan of a shared plane for the whole
-batch), `stage1_int4_rows` its `stage1_int4_rows_pallas` (per-lane row
-blocks). A tensor on the CPU goes to the plain version in `ref`; a CUDA
-tensor launches the kernel or raises. The kernels mask their own ragged
-edge, so no operand is padded.
+batch), `stage1_int4_single` its single-query `stage1_int4_pallas` (the
+same plane kernel at B = 1, counted apart), `stage1_int4_rows` its
+`stage1_int4_rows_pallas` (per-lane row blocks). A tensor on the CPU goes
+to the plain version in `ref`; a CUDA tensor launches the kernel or
+raises. The kernels mask their own ragged edge, so no operand is padded.
 
-Widths: every D with D % 8 == 0, up to what one thread block's shared
-memory holds (`check_width`).
+`rows` is the plane and rows kernels' schedule knob: plane (or window)
+rows per thread block, one of `ROWS_CHOICES` (each a compiled instance),
+`DEFAULT_ROWS` unless the autotuner chose another. It never changes a
+result.
+
+Widths: every even D. Rows of D/2 bytes that are not whole 32-bit words
+are read byte by byte, and a D whose query panels do not fit in one
+thread block's shared memory walks them through it in passes.
 """
 from __future__ import annotations
 
@@ -20,12 +27,15 @@ import torch
 from repro_torch.kernels import _build, ref
 
 _PLANE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-               ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+               ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+               ctypes.c_void_p]
 _ROWS_ARGS = _PLANE_ARGS
 
 # Dynamic shared memory one Hopper thread block may opt into (227 KiB).
 SMEM_BYTES = 232448
 MAX_GRID_Y = 65535
+ROWS_CHOICES = (128, 256, 512, 1024)
+DEFAULT_ROWS = 256
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
@@ -51,33 +61,25 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
-def check_width(kernel: str, d: int, smem_bytes: int) -> None:
-    """The two width limits every kernel shares: D % 8 == 0 (a row of D/2
-    nibble bytes, or D/8 sign bytes, is whole 32-bit words or whole bytes),
-    and the `smem_bytes` of query panels the kernel keeps for this D must
-    fit in one thread block's shared memory."""
-    if d % 8:
-        raise ValueError(f"the {kernel} kernel takes D a multiple of 8 "
-                         f"(rows of whole words), got D = {d}")
-    if smem_bytes > SMEM_BYTES:
-        raise ValueError(f"D = {d} is above what one thread block of the "
-                         f"{kernel} kernel can hold: its query panels need "
-                         f"{smem_bytes} bytes of the {SMEM_BYTES} bytes of "
-                         "shared memory")
+def check_rows(rows: int) -> None:
+    """Rows per thread block must name a compiled instance."""
+    if rows not in ROWS_CHOICES:
+        raise ValueError(f"rows per thread block must be one of "
+                         f"{ROWS_CHOICES}, got {rows}")
 
 
-def _plane_panel_bytes(d2: int) -> int:
-    """Shared memory of one lane's panels in the plane kernel (the smallest
-    lane tile): [even; odd] words padded to 64-byte chunks."""
-    return 2 * -(-d2 // 64) * 64
+def check_smem(kernel: str, what: str, nbytes: int) -> None:
+    """Raises when the `nbytes` of shared memory one thread block of
+    `kernel` keeps for `what` exceed what a Hopper block may hold."""
+    if nbytes > SMEM_BYTES:
+        raise ValueError(f"{what} is above what one thread block of the "
+                         f"{kernel} kernel can hold: it needs {nbytes} bytes "
+                         f"of the {SMEM_BYTES} bytes of shared memory")
 
 
-def stage1_int4_batched(q_panel: torch.Tensor,
-                        msb_plane: torch.Tensor) -> torch.Tensor:
-    """q_panel (2, B, D//2) int8 signed MSB nibbles [even dims; odd dims],
-    msb_plane (N, D//2) uint8 -> (B, N) int32."""
-    if _on_cpu(msb_plane):
-        return ref.stage1_scores_batched_ref(q_panel, msb_plane)
+def _plane(counter: str, q_panel: torch.Tensor, msb_plane: torch.Tensor,
+           rows: int) -> torch.Tensor:
+    """Launches the plane kernel: q_panel (2, B, D//2) -> (B, N) int32."""
     dev = msb_plane.device
     _check("q_panel", q_panel, torch.int8, 3, dev)
     _check("msb_plane", msb_plane, torch.uint8, 2, dev)
@@ -86,23 +88,45 @@ def stage1_int4_batched(q_panel: torch.Tensor,
     if q_panel.shape != (2, b, d2):
         raise ValueError(f"q_panel shape {tuple(q_panel.shape)} does not "
                          f"match the plane's {d2} bytes per row")
-    check_width("plane", 2 * d2, _plane_panel_bytes(d2))
     if b > MAX_GRID_Y:
         raise ValueError(f"batch {b} exceeds the kernel's grid")
     out = torch.empty((b, n), dtype=torch.int32, device=dev)
     if out.numel():
         fn = _build.function("stage1_int4", "stage1_plane_launch",
                              _PLANE_ARGS)
-        _build.launch("stage1_plane", fn, q_panel.data_ptr(),
-                      msb_plane.data_ptr(), out.data_ptr(), b, n, d2,
-                      device=dev)
+        _build.launch(counter, fn, q_panel.data_ptr(), msb_plane.data_ptr(),
+                      out.data_ptr(), b, n, d2, rows, device=dev)
     return out
 
 
-def stage1_int4_rows(q_eo: torch.Tensor,
-                     msb_rows: torch.Tensor) -> torch.Tensor:
+def stage1_int4_batched(q_panel: torch.Tensor, msb_plane: torch.Tensor, *,
+                        rows: int = DEFAULT_ROWS) -> torch.Tensor:
+    """q_panel (2, B, D//2) int8 signed MSB nibbles [even dims; odd dims],
+    msb_plane (N, D//2) uint8 -> (B, N) int32."""
+    check_rows(rows)
+    if _on_cpu(msb_plane):
+        return ref.stage1_scores_batched_ref(q_panel, msb_plane)
+    return _plane("stage1_plane", q_panel, msb_plane, rows)
+
+
+def stage1_int4_single(q_eo: torch.Tensor, msb_plane: torch.Tensor, *,
+                       rows: int = DEFAULT_ROWS) -> torch.Tensor:
+    """One query: q_eo (2, D//2) int8 [even; odd] MSB nibbles, msb_plane
+    (N, D//2) uint8 -> (N,) int32. The plane kernel at B = 1 (its one-lane
+    instance), counted as `stage1_single`."""
+    check_rows(rows)
+    if _on_cpu(msb_plane):
+        return ref.stage1_scores_ref(q_eo, msb_plane)
+    if q_eo.ndim != 2:
+        raise ValueError(f"q_eo must be (2, D//2), got {tuple(q_eo.shape)}")
+    return _plane("stage1_single", q_eo[:, None], msb_plane, rows)[0]
+
+
+def stage1_int4_rows(q_eo: torch.Tensor, msb_rows: torch.Tensor, *,
+                     rows: int = DEFAULT_ROWS) -> torch.Tensor:
     """q_eo (B, 2, D//2) int8 per-lane [even; odd] nibble panels,
     msb_rows (B, W, D//2) uint8 -> (B, W) int32."""
+    check_rows(rows)
     if _on_cpu(msb_rows):
         return ref.stage1_rows_batched_ref(q_eo, msb_rows)
     dev = msb_rows.device
@@ -112,13 +136,12 @@ def stage1_int4_rows(q_eo: torch.Tensor,
     if q_eo.shape != (b, 2, d2):
         raise ValueError(f"q_eo shape {tuple(q_eo.shape)} does not match "
                          f"rows of shape {tuple(msb_rows.shape)}")
-    check_width("rows", 2 * d2, 2 * d2)
     if b > MAX_GRID_Y:
         raise ValueError(f"batch {b} exceeds the kernel's grid")
     out = torch.empty((b, w), dtype=torch.int32, device=dev)
     if out.numel():
         fn = _build.function("stage1_int4", "stage1_rows_launch", _ROWS_ARGS)
         _build.launch("stage1_rows", fn, q_eo.data_ptr(),
-                      msb_rows.data_ptr(), out.data_ptr(), b, w, d2,
+                      msb_rows.data_ptr(), out.data_ptr(), b, w, d2, rows,
                       device=dev)
     return out

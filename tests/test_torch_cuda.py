@@ -17,15 +17,25 @@ from repro_torch.core.engine import (MaskedPolicy, PlainPolicy,
                                      RetrievalEngine, WindowedPolicy)
 from repro_torch.core.retrieval import RetrievalConfig, cluster_pruned_retrieve
 from repro_torch.data import retrieval_corpus
-from repro_torch.kernels import ops, ref
-from repro_torch.kernels.stage0_sign import stage0_sign_gather
+from repro_torch.kernels import autotune, ops, ref
+from repro_torch.kernels.fused_topk import (fused_topk_batched,
+                                            fused_topk_single)
+from repro_torch.kernels.stage0_sign import (stage0_sign_batched,
+                                             stage0_sign_gather)
 from repro_torch.kernels.stage1_gather import stage1_int4_gather
-from repro_torch.kernels.stage1_int4 import (stage1_int4_batched,
-                                             stage1_int4_rows)
-from repro_torch.kernels.stage2_int8 import stage2_int8_batched
+from repro_torch.kernels.stage1_int4 import (ROWS_CHOICES,
+                                             stage1_int4_batched,
+                                             stage1_int4_rows,
+                                             stage1_int4_single)
+from repro_torch.kernels.stage2_int8 import (stage2_int8_batched,
+                                             stage2_int8_single)
 
 ZERO_COUNTS = {"stage1_plane": 0, "stage1_rows": 0, "stage2_exact": 0,
-               "stage1_gather": 0, "stage0_sign_gather": 0}
+               "stage1_gather": 0, "stage0_sign_gather": 0,
+               "stage1_single": 0, "stage2_single": 0,
+               "stage0_sign_plane": 0, "fused_topk": 0,
+               "fused_topk_single": 0}
+INT32_MIN = -(2 ** 31)
 
 
 @pytest.fixture
@@ -94,10 +104,12 @@ def test_kernel_backend_equals_plain_backend(cuda_device, metric):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,d", [(3, 64), (33, 1536), (40, 8192), (5, 200),
-                                 (2, 8)])
+                                 (2, 8), (3, 36), (4, 250), (2, 262144)])
 def test_kernels_take_every_width(cuda_device, b, d):
     """The plane, rows and exact kernels at widths past the 64-byte chunk
-    and the 48 KiB shared-memory default, bit-exact against plain."""
+    and the 48 KiB shared-memory default, at D % 8 != 0 (rows read byte by
+    byte) and at a D whose panels are walked through shared memory
+    (262,144), bit-exact against plain."""
     gen = torch.Generator(device=cuda_device).manual_seed(b + d)
 
     def rand(shape, lo, hi, dtype):
@@ -115,9 +127,15 @@ def test_kernels_take_every_width(cuda_device, b, d):
     m, lo = (rand((b, 9, d // 2), 0, 256, torch.uint8) for _ in range(2))
     assert torch.equal(stage2_int8_batched(q8, m, lo),
                        ref.stage2_scores_batched_ref(q8, m, lo))
-    with pytest.raises(ValueError, match="multiple of 8"):
-        stage1_int4_batched(panel[..., :-1].contiguous(),
-                            plane[:, :-1].contiguous())
+    q_eo_t = rand((b, 2, d // 2), -8, 8, torch.int8)
+    ids = torch.zeros((b, 3), dtype=torch.int32, device=cuda_device)
+    ids[:, 1] = 517 // 64
+    assert torch.equal(
+        stage1_int4_gather(q_eo_t, plane, ids, block_rows=64),
+        ref.stage1_gather_batched_ref(q_eo_t, plane, ids, 64))
+    got = fused_topk_batched(q_eo_t, plane, k=3, block_n=100)
+    want = ref.fused_topk_batched_ref(q_eo_t, plane, 100, 3)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.gpu
@@ -191,3 +209,125 @@ def test_cluster_backend_equals_plain_backend(cuda_device, c0):
     else:
         assert counts["stage0_sign_gather"] == 2
         assert counts["stage1_rows"] == 2
+
+
+def _rand(gen, dev):
+    def rand(shape, lo, hi, dtype):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+    return rand
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,d,block,k", [(4, 512, 256, 128, 8),
+                                           (3, 250, 64, 32, 20),
+                                           (33, 1000, 512, 512, 8),
+                                           (1, 200, 36, 8, 12)])
+def test_fused_kernel_matches_plain(cuda_device, b, n, d, block, k):
+    """The fused kernel, masked (with a padding lane and a fully masked
+    block) and unmasked, at ragged N, k above block_n and k above a
+    lane's live rows, against its plain version; the single-query form
+    too."""
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(n + k),
+                 cuda_device)
+    q_eo = rand((b, 2, d // 2), -8, 8, torch.int8)
+    plane = rand((n, d // 2), 0, 256, torch.uint8)
+    owner = rand((n,), 0, 3, torch.int32)
+    owner[:block] = -1
+    owner[owner == 1] = 2
+    owner[block + 3] = 1
+    tids = rand((b,), 0, 3, torch.int32)
+    tids[-1] = -1
+    ops.reset_launch_counts()
+    got = fused_topk_batched(q_eo, plane, owner, tids, k=k, block_n=block)
+    want = ref.fused_topk_batched_ref(q_eo, plane, block, k, owner, tids)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((got[0][-1] == INT32_MIN).all())
+    got = fused_topk_batched(q_eo, plane, k=k, block_n=block)
+    want = ref.fused_topk_batched_ref(q_eo, plane, block, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = fused_topk_single(q_eo[0], plane, k=k, block_n=block)
+    want = ref.fused_topk_ref(q_eo[0], plane, block, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict(ZERO_COUNTS, fused_topk=2,
+                                       fused_topk_single=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,d", [(32, 5000, 512), (1, 777, 40),
+                                   (33, 300, 96), (5, 1000, 262144)])
+def test_sign_plane_and_single_kernels_match_plain(cuda_device, b, n, d):
+    """The dense sign kernel at every read mode (16-byte, word, byte rows)
+    and at a wide D, and the single-query stage-1 and stage-2 forms."""
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(b * n + d),
+                 cuda_device)
+    n = n if d < 65536 else 40
+    ops.reset_launch_counts()
+    q_sign = ops.pack_query_signs(rand((b, d), -128, 128, torch.int8))
+    sign_plane = rand((n, d // 8), 0, 256, torch.uint8)
+    assert torch.equal(stage0_sign_batched(q_sign, sign_plane),
+                       ref.stage0_sign_batched_ref(q_sign, sign_plane))
+    q_eo = rand((2, d // 2), -8, 8, torch.int8)
+    plane = rand((n, d // 2), 0, 256, torch.uint8)
+    assert torch.equal(stage1_int4_single(q_eo, plane),
+                       ref.stage1_scores_ref(q_eo, plane))
+    q8 = rand((2, d // 2), -128, 128, torch.int8)
+    lsb = rand((n, d // 2), 0, 256, torch.uint8)
+    assert torch.equal(stage2_int8_single(q8, plane, lsb),
+                       ref.stage2_scores_ref(q8, plane, lsb))
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict(ZERO_COUNTS, stage0_sign_plane=1,
+                                       stage1_single=1, stage2_single=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", ROWS_CHOICES)
+@pytest.mark.parametrize("b,d", [(32, 512), (3, 200), (1, 36)])
+def test_rows_per_block_instances_match_plain(cuda_device, rows, b, d):
+    """Every rows-per-block instance of the plane, rows and dense sign
+    kernels gives the default's bits."""
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(rows + b),
+                 cuda_device)
+    panel = rand((2, b, d // 2), -8, 8, torch.int8)
+    plane = rand((3001, d // 2), 0, 256, torch.uint8)
+    assert torch.equal(stage1_int4_batched(panel, plane, rows=rows),
+                       ref.stage1_scores_batched_ref(panel, plane))
+    q_eo = rand((b, 2, d // 2), -8, 8, torch.int8)
+    win = rand((b, 1100, d // 2), 0, 256, torch.uint8)
+    assert torch.equal(stage1_int4_rows(q_eo, win, rows=rows),
+                       ref.stage1_rows_batched_ref(q_eo, win))
+    if d % 8 == 0:
+        q_sign = ops.pack_query_signs(rand((b, d), -128, 128, torch.int8))
+        sign_plane = rand((3001, d // 8), 0, 256, torch.uint8)
+        assert torch.equal(stage0_sign_batched(q_sign, sign_plane, rows=rows),
+                           ref.stage0_sign_batched_ref(q_sign, sign_plane))
+
+
+@pytest.mark.gpu
+def test_autotune_on_the_card(cuda_device):
+    """A small search on the card: every entry at >= 1.0x its default, the
+    table keyed to this card, and the tuned wrappers bit-identical to the
+    default ones."""
+    table = autotune.autotune(n=1 << 14, d=256, batches=(1, 8), reps=2,
+                              device=cuda_device)
+    assert table.signature["device_kind"] == torch.cuda.get_device_name(
+        cuda_device)
+    assert table.signature["backend"] == "torch-cuda"
+    for e in table.entries.values():
+        assert e["speedup_vs_default"] >= 1.0
+        if e["kernel"] != "fused_topk":
+            assert "2048" in e["left_out"]
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(1),
+                 cuda_device)
+    q = rand((8, 256), -8, 8, torch.int8)
+    plane = rand((1 << 14, 128), 0, 256, torch.uint8)
+    base = ops.stage1_scores_batched(q, plane)
+    cand = ops.fused_candidates_batched(q, plane, c=16, k_per_block=16)
+    autotune.install(table)
+    try:
+        assert torch.equal(ops.stage1_scores_batched(q, plane), base)
+        assert torch.equal(ops.fused_candidates_batched(
+            q, plane, c=16, k_per_block=16), cand)
+    finally:
+        autotune.clear_installed()

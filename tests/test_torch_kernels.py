@@ -22,11 +22,11 @@ from repro.kernels.stage1_gather import stage1_int4_gather_pallas
 from repro.kernels.stage1_int4 import (stage1_int4_batched_pallas,
                                        stage1_int4_rows_pallas)
 from repro.kernels.stage2_int8 import stage2_int8_batched_pallas
-from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import (_build, fused_topk, ops, ref, stage0_sign,
+                                 stage1_gather, stage1_int4, stage2_int8)
 from repro_torch.kernels.stage0_sign import stage0_sign_gather
 from repro_torch.kernels.stage1_gather import stage1_int4_gather
-from repro_torch.kernels.stage1_int4 import (SMEM_BYTES, _plane_panel_bytes,
-                                             check_width, stage1_int4_batched,
+from repro_torch.kernels.stage1_int4 import (SMEM_BYTES, stage1_int4_batched,
                                              stage1_int4_rows)
 from repro_torch.kernels.stage2_int8 import stage2_int8_batched
 
@@ -159,17 +159,64 @@ def test_wrappers_raise_for_devices_without_a_kernel():
                            block_rows=2)
 
 
-def test_width_limits_name_themselves():
-    """Every D % 8 == 0 up to past 8192 passes the kernels' width checks;
-    the two limits left raise with messages that name them."""
-    for d in (8, 40, 64, 200, 1536, 8192, 65536):
-        check_width("plane", d, _plane_panel_bytes(d // 2))
-        check_width("rows", d, d)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        check_width("plane", 36, _plane_panel_bytes(18))
-    too_wide = 2 * (SMEM_BYTES // 2 + 64)
+def _capture_launches(monkeypatch) -> list:
+    """Runs the wrappers' CUDA branch on CPU tensors up to the launch: every
+    check a CUDA tensor meets runs, and each launch is recorded (counter,
+    C arguments) instead of reaching a kernel."""
+    calls = []
+    for mod in (stage1_int4, stage1_gather, stage2_int8, stage0_sign,
+                fused_topk):
+        monkeypatch.setattr(mod, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(_build, "function", lambda *a: None)
+    monkeypatch.setattr(_build, "launch",
+                        lambda counter, fn, *args, device: calls.append(
+                            (counter, args)))
+    return calls
+
+
+@pytest.mark.parametrize("d", [36, 250, 262144])
+def test_width_limits_name_themselves(monkeypatch, d):
+    """The widths the JAX Pallas backend serves reach the kernels: D % 8 !=
+    0 with D even (rows of D/2 bytes that are not whole words) and D whose
+    query panels exceed one block's shared memory (262,144: 2 x 128 KiB of
+    panels). Every nibble wrapper launches with D/2 bytes per row; the sign
+    kernels take D % 8 == 0, and their one limit (a lane's packed signs in
+    one block) raises with a message that names it."""
+    calls = _capture_launches(monkeypatch)
+    d2 = d // 2
+    q = torch.zeros((3, d), dtype=torch.int8)
+    plane = torch.zeros((5, d2), dtype=torch.uint8)
+    rows = torch.zeros((3, 4, d2), dtype=torch.uint8)
+    ids = torch.zeros((3, 2), dtype=torch.int32)
+    assert ops.stage1_scores_batched(q, plane).shape == (3, 5)
+    assert ops.stage1_scores(q[0], plane).shape == (5,)
+    assert ops.stage1_scores_rows(q, rows).shape == (3, 4)
+    assert ops.stage1_scores_gather(q, plane, ids,
+                                    block_rows=4).shape == (3, 8)
+    assert ops.stage2_scores_batched(q, rows, rows).shape == (3, 4)
+    assert ops.stage2_scores(q[0], plane, plane).shape == (5,)
+    s, i = fused_topk.fused_topk_batched(ops.pack_queries_even_odd(q), plane,
+                                         k=2, block_n=4)
+    assert s.shape == i.shape == (3, 2, 2)
+    assert [c for c, _ in calls] == [
+        "stage1_plane", "stage1_single", "stage1_rows", "stage1_gather",
+        "stage2_exact", "stage2_single", "fused_topk"]
+    assert all(d2 in args for _, args in calls)
+    if d % 8 == 0:
+        signs = torch.ones((3, d), dtype=torch.int8)
+        sign_plane = torch.zeros((5, d // 8), dtype=torch.uint8)
+        assert ops.stage0_sign_scores_batched(signs, sign_plane).shape == (
+            3, 5)
+        assert ops.stage0_sign_scores_gather(signs, sign_plane, ids,
+                                             block_rows=4).shape == (3, 8)
+    too_wide = 32 * (SMEM_BYTES // 4 + 1)
     with pytest.raises(ValueError, match="above what one thread block"):
-        check_width("plane", too_wide, _plane_panel_bytes(too_wide // 2))
+        ops.stage0_sign_scores_batched(
+            torch.ones((1, too_wide), dtype=torch.int8),
+            torch.zeros((1, too_wide // 8), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="above what one thread block"):
+        fused_topk.fused_topk_batched(ops.pack_queries_even_odd(q), plane,
+                                      k=2, block_n=SMEM_BYTES // 4)
 
 
 def test_build_is_keyed_by_source_and_raises_without_nvcc(monkeypatch,
@@ -192,9 +239,11 @@ def test_launch_counters_reset_and_do_not_count_the_plain_path():
     ops.reset_launch_counts()
     q = torch.zeros((2, 64), dtype=torch.int8)
     ops.stage1_scores_batched(q, torch.zeros((9, 32), dtype=torch.uint8))
-    assert ops.launch_counts() == {"stage1_plane": 0, "stage1_rows": 0,
-                                   "stage2_exact": 0, "stage1_gather": 0,
-                                   "stage0_sign_gather": 0}
+    assert ops.launch_counts() == {
+        "stage1_plane": 0, "stage1_rows": 0, "stage2_exact": 0,
+        "stage1_gather": 0, "stage0_sign_gather": 0, "stage1_single": 0,
+        "stage2_single": 0, "stage0_sign_plane": 0, "fused_topk": 0,
+        "fused_topk_single": 0}
 
 
 # ---------------------------------------------------------------------------
