@@ -14,14 +14,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
                bit-exact, at the main paths' shapes and at ragged shapes
                (widths D = 8 to 262,144, D % 8 != 0 included, for the plane,
                rows, gather, exact and fused kernels); times from CUDA
-               events (median of 20 after warm-up).
+               events (median of 20 after warm-up). The plane scan on both
+               of its kernels (tensor-core and dp4a, and their times at
+               B = 2, 4, 8: the crossover), the exact rescore in both forms
+               (gathered rows and by id, held to each other).
   5. main    — B = 32 query batches through `RetrievalEngine.retrieve`
                with the Plain (cosine, MIPS), Masked (512 tenants) and
                Windowed (window 2048) policies on the kernel backend; the
-               launch counter of each kernel of the path must grow, every
-               result must equal the plain backend's bit for bit, the exact
-               scores must equal the INT8 dot products, and recall@5
-               against the planted gold is checked.
+               launch counter of each kernel of the path must grow (the
+               dp4a plane kernel and the gathered-rows exact form must not:
+               the path takes the tensor-core plane kernel and reads
+               candidates by id), every result must equal the plain
+               backend's bit for bit, the exact scores must equal the INT8
+               dot products, and recall@5 against the planted gold is
+               checked.
   6. autotune — this slice's path. The single-query and fused kernels and
                the dense sign scan (table rows 4, 5, 7, 9, 10) against their
                plain versions, bit-exact at full width (the arena corpus;
@@ -49,9 +55,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
                C0 = 2048; counted, checked against the plain backend and
                the planted gold like the main phase, then freed.
 
-The line before the last is a JSON object describing every kernel; the
-last line is {"ok": true, "device": {...}}. Without a CUDA device the
-script exits non-zero and prints no result.
+Then the exact wrappers' host microseconds per call (`host_us_per_call`).
+The line before the last is a JSON object describing every kernel
+(launches: the sum over the main, autotune and cluster paths); the last
+line is {"ok": true, "device": {...}}. Without a CUDA device the script
+exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -75,7 +83,8 @@ from repro_torch.core.engine import (ClusterPolicy,  # noqa: E402
                                      RetrievalEngine, WindowedPolicy)
 from repro_torch.core.retrieval import RetrievalConfig  # noqa: E402
 from repro_torch.core.similarity import stable_topk  # noqa: E402
-from repro_torch.kernels import _build, autotune, ops, ref  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    _build, autotune, ops, ref, stage1_int4)
 from repro_torch.kernels.fused_topk import (  # noqa: E402
     fused_topk_batched, fused_topk_single)
 from repro_torch.kernels.stage0_sign import (  # noqa: E402
@@ -83,9 +92,9 @@ from repro_torch.kernels.stage0_sign import (  # noqa: E402
 from repro_torch.kernels.stage1_gather import (  # noqa: E402
     stage1_int4_gather)
 from repro_torch.kernels.stage1_int4 import (  # noqa: E402
-    stage1_int4_batched, stage1_int4_rows, stage1_int4_single)
+    DEFAULT_ROWS, stage1_int4_batched, stage1_int4_rows, stage1_int4_single)
 from repro_torch.kernels.stage2_int8 import (  # noqa: E402
-    stage2_int8_batched, stage2_int8_single)
+    stage2_int8_batched, stage2_int8_by_id, stage2_int8_single)
 
 SEED = 20251027
 N, D = 1 << 20, 512
@@ -97,15 +106,22 @@ NOISE = 0.1
 # noise 0.1: the golden protocol's ratios), 64-row blocks, 8 probes.
 CLUSTERS, CLUSTER_ROWS, SPREAD = 1024, 1024, 0.2
 BLOCK_ROWS, NPROBE, PRESCREEN_C0 = 64, 8, 2048
-MAIN_KERNELS = ("stage1_plane", "stage1_rows", "stage2_exact")
-# This slice's path: the autotuner and the single-query entry points.
-TUNE_KERNELS = ("stage1_plane", "stage1_rows", "stage1_single",
-                "stage2_single", "stage0_sign_plane", "fused_topk",
-                "fused_topk_single")
+MAIN_KERNELS = ("stage1_plane_mma", "stage1_rows", "stage2_by_id")
+# Kernels the main and cluster paths must not launch: at B = 32, D = 512
+# the plane scan takes the tensor-core kernel, and the exact stage reads
+# candidates by id (no gathered-rows form, so no index gathers before it).
+OFF_PATH_KERNELS = ("stage1_plane", "stage2_exact")
+# The autotune path: the autotuner and the single-query entry points.
+TUNE_KERNELS = ("stage1_plane", "stage1_plane_mma", "stage1_rows",
+                "stage1_single", "stage2_single", "stage0_sign_plane",
+                "fused_topk", "fused_topk_single")
+# The batches at which the tensor-core and dp4a plane kernels are compared.
+CROSSOVER_BATCHES = (2, 4, 8)
+HOST_CALLS = 1000
 FUSED_BLOCK, FUSED_K = 512, 8
 SINGLE_QUERIES = 12
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CLUSTER_KERNELS = ("stage1_plane", "stage1_rows", "stage2_exact",
+CLUSTER_KERNELS = ("stage1_plane_mma", "stage1_rows", "stage2_by_id",
                    "stage1_gather", "stage0_sign_gather")
 # Published H100 SXM peaks (NVIDIA data sheet): device memory and dense
 # int8 tensor-core rate. Used only for the least-time bound of each kernel.
@@ -150,8 +166,9 @@ def device_profile(fn, reps: int = 5) -> list[tuple[str, float, float]]:
 
 
 def kernel_device_us(fn, symbol: str) -> str:
-    """Device-only time of the kernel named `symbol` per call, or "not
-    measured" when the trace holds no such kernel."""
+    """Device-only time per call of the kernels whose name holds `symbol`
+    (e.g. "::plane_kernel<", which "sign_plane_kernel" does not hold), or
+    "not measured" when the trace holds no such kernel."""
     times = [t for name, t, _ in device_profile(fn, reps=20)
              if symbol in name]
     return f"{sum(times):.2f}" if times else "not measured"
@@ -185,13 +202,19 @@ def phase_card() -> None:
         f"devices {torch.cuda.device_count()}")
 
 
-# The instances the D = 512 paths launch (mangled template arguments).
-MAIN_INSTANCES = ("plane_kernelILi32ELi256ELi0ELb0EE",
-                  "plane_kernelILi1ELi256ELi0ELb0EE",
-                  "rows_kernelILi256ELi0ELb0EE", "gather_kernelILi0ELb0EE",
-                  "exact_kernelILi1EE", "sign_gather_kernelILi16EE",
-                  "sign_plane_kernelILi32ELi256ELi16EE",
-                  "fused_kernelILi32ELi0ELb0EE", "fused_kernelILi1ELi0ELb0EE")
+# The instances the D = 512 paths launch (mangled template arguments):
+# every instance of the tensor-core plane kernel (rows per tile x lane
+# tile: 8, 16 or 32 lanes by B, at most 16 at 1024 rows), the dp4a plane
+# kernel's 32- and 1-lane ones.
+MAIN_INSTANCES = tuple(
+    f"plane_mma_kernelILi{rows}ELi{nt}EE"
+    for rows in (256, 128, 512, 1024) for nt in (4, 2, 1)
+    if rows < 1024 or nt < 4) + (
+    "plane_kernelILi32ELi256ELi0ELb0EE", "plane_kernelILi1ELi256ELi0ELb0EE",
+    "rows_kernelILi256ELi0ELb0EE", "gather_kernelILi0ELb0EE",
+    "exact_kernelILi1EE", "sign_gather_kernelILi16EE",
+    "sign_plane_kernelILi32ELi256ELi16EE", "fused_kernelILi32ELi0ELb0EE",
+    "fused_kernelILi1ELi0ELb0EE")
 
 
 def phase_build() -> None:
@@ -202,9 +225,9 @@ def phase_build() -> None:
     for name, (text, secs) in built.items():
         regs, spills, kernel = {}, [], ""
         for line in text.splitlines():
-            entry = re.search(r"((?:plane_wide|sign_plane|plane|rows|"
-                              r"sign_gather|gather|exact|fused)_kernelI.*?EE)",
-                              line)
+            entry = re.search(r"((?:plane_wide|sign_plane|plane_mma|plane|"
+                              r"rows|sign_gather|gather|exact|fused)"
+                              r"_kernelI.*?EE)", line)
             if "Compiling entry function" in line and entry:
                 kernel = entry.group(1)
             used = re.search(r"Used (\d+) registers", line)
@@ -248,6 +271,12 @@ def phase_corpus(dev: torch.device):
     return qdb, db, q_codes, gold
 
 
+def _route(b: int, d2: int) -> str:
+    """The plane scan's kernel for B lanes of D/2 bytes at the default rows
+    per tile, as the tensor-core launcher decides it."""
+    return "mma" if stage1_int4._mma_lanes(b, d2, DEFAULT_ROWS) else "dp4a"
+
+
 def _check_kernel(name, kernel, plain, args, shapes_note) -> int:
     got = kernel(*args)
     want = plain(*args)
@@ -280,20 +309,33 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
     d2 = D // 2
     rows = []
 
-    # -- plane: the shared-plane stage-1 scan ------------------------------
+    # -- plane: the shared-plane stage-1 scan, on the tensor cores ---------
+    # (the route the main path takes at B = 32, D = 512) and on dp4a.
     panel = ops.pack_query_panel(q_msb)
-    err = _check_kernel("stage1_plane", stage1_int4_batched,
-                        ref.stage1_scores_batched_ref, (panel, db.msb_plane),
-                        f"B={B} N={N} D={D}")
-    for bb, nn, dd in ((1, 1000, 512), (3, 4099, 256), (33, 777, 512),
-                       (17, 256, 128)):
-        p = torch.randint(0, 256, (nn, dd // 2), generator=gen, device=dev,
-                          dtype=torch.uint8)
-        qp = torch.randint(-8, 8, (2, bb, dd // 2), generator=gen,
-                           device=dev, dtype=torch.int8)
-        _check_kernel("stage1_plane", stage1_int4_batched,
-                      ref.stage1_scores_batched_ref, (qp, p),
-                      f"B={bb} N={nn} D={dd}")
+    if stage1_int4._mma_lanes(B, d2, DEFAULT_ROWS) != 32:
+        raise AssertionError(f"the plane scan at B={B} D={D} does not take "
+                             "the tensor-core kernel's 32-lane tile")
+
+    def plane_mma(qp, p):
+        return stage1_int4._plane(qp, p, DEFAULT_ROWS, route="mma")
+
+    def plane_dp4a(qp, p):
+        return stage1_int4._plane(qp, p, DEFAULT_ROWS, route="dp4a")
+
+    errs = {}
+    for name, fn in (("stage1_plane_mma", plane_mma),
+                     ("stage1_plane", plane_dp4a)):
+        errs[name] = _check_kernel(name, fn, ref.stage1_scores_batched_ref,
+                                   (panel, db.msb_plane),
+                                   f"B={B} N={N} D={D}")
+        for bb, nn, dd in ((2, 1000, 512), (3, 4099, 256), (33, 777, 512),
+                           (17, 256, 128), (65, 20001, 64)):
+            p = torch.randint(0, 256, (nn, dd // 2), generator=gen,
+                              device=dev, dtype=torch.uint8)
+            qp = torch.randint(-8, 8, (2, bb, dd // 2), generator=gen,
+                               device=dev, dtype=torch.int8)
+            _check_kernel(name, fn, ref.stage1_scores_batched_ref, (qp, p),
+                          f"B={bb} N={nn} D={dd}")
     unpacked = bitplanar.unpack_nibble_plane_signed(db.msb_plane)
     unpacked_t = unpacked.t()
     q_int8 = q_msb.contiguous()
@@ -302,15 +344,31 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
                          stage1_int4_batched(panel, db.msb_plane))
     del unpacked, unpacked_t
     t_bound, by = bound_ms(2 * B * d2 + N * d2 + B * N * 4, 2 * B * N * D)
-    rows.append(dict(
-        name="stage1_plane", route="cuda",
-        source="src/repro_torch/csrc/stage1_int4.cu",
-        replaces="src/repro/kernels/stage1_int4.py:79",
-        max_abs_err=err,
-        ms=time_ms(lambda: stage1_int4_batched(panel, db.msb_plane)),
-        plain_ms=time_ms(lambda: ref.stage1_scores_batched_ref(
-            panel, db.msb_plane)),
-        bound_ms=t_bound, bound_by=by, library_ms=lib_ms))
+    plain_ms = time_ms(lambda: ref.stage1_scores_batched_ref(
+        panel, db.msb_plane))
+    for name, fn, source in (
+            ("stage1_plane_mma", plane_mma,
+             "src/repro_torch/csrc/stage1_mma.cu"),
+            ("stage1_plane", plane_dp4a,
+             "src/repro_torch/csrc/stage1_int4.cu")):
+        rows.append(dict(
+            name=name, route="cuda", source=source,
+            replaces="src/repro/kernels/stage1_int4.py:79",
+            max_abs_err=errs[name],
+            ms=time_ms(lambda: fn(panel, db.msb_plane)), plain_ms=plain_ms,
+            bound_ms=t_bound, bound_by=by, library_ms=lib_ms))
+    # The crossover: both kernels over the arena plane at small batches.
+    for bb in CROSSOVER_BATCHES:
+        qp = ops.pack_query_panel(q_msb[:bb])
+        want = plane_dp4a(qp, db.msb_plane)
+        if not torch.equal(plane_mma(qp, db.msb_plane), want):
+            raise AssertionError(f"stage1_plane_mma disagrees with dp4a at "
+                                 f"B={bb} N={N} D={D}")
+        mma_ms = time_ms(lambda: plane_mma(qp, db.msb_plane))
+        dp4a_ms = time_ms(lambda: plane_dp4a(qp, db.msb_plane))
+        log(f"plane crossover B={bb} N={N} D={D}: mma_ms {mma_ms:.4f} "
+            f"dp4a_ms {dp4a_ms:.4f} (route at this B: "
+            f"{_route(bb, d2)})")
 
     # -- rows: per-lane windows of the arena (the Windowed policy) ---------
     w = DOCS_PER_USER
@@ -344,7 +402,7 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
         plain_ms=time_ms(lambda: ref.stage1_rows_batched_ref(q_eo, win)),
         bound_ms=t_bound, bound_by=by, library_ms=lib_ms))
 
-    # -- exact: INT8 rescore of gathered candidates ------------------------
+    # -- exact: INT8 rescore of gathered candidates (the reference's form) --
     cand = torch.randint(0, N, (B, C), generator=gen, device=dev)
     msb_rows, lsb_rows = db.msb_plane[cand], db.lsb_plane[cand]
     q_eo8 = ops.pack_queries_even_odd(q)
@@ -378,6 +436,55 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
         ms=time_ms(lambda: stage2_int8_batched(q_eo8, msb_rows, lsb_rows)),
         plain_ms=time_ms(lambda: ref.stage2_scores_batched_ref(
             q_eo8, msb_rows, lsb_rows)),
+        bound_ms=t_bound, bound_by=by, library_ms=lib_ms))
+
+    # -- exact by id: the same kernel reading the candidates in place ------
+    ids8 = cand.to(torch.int32)
+    by_id_args = (q_eo8, db.msb_plane, db.lsb_plane, ids8)
+    err = _check_kernel("stage2_by_id", stage2_int8_by_id,
+                        ref.stage2_scores_by_id_ref, by_id_args,
+                        f"B={B} C={C} D={D}")
+    if not torch.equal(stage2_int8_by_id(*by_id_args),
+                       stage2_int8_batched(q_eo8, msb_rows, lsb_rows)):
+        raise AssertionError("stage2_by_id disagrees with the gathered form")
+    for bb, cc, nn, dd in ((1, 1, 1000, 512), (3, 50, 4099, 512),
+                           (7, 13, 777, 250), (2, 64, 300, 8)):
+        m = torch.randint(0, 256, (nn, dd // 2), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        lo = torch.randint(0, 256, (nn, dd // 2), generator=gen, device=dev,
+                           dtype=torch.uint8)
+        qe = torch.randint(-128, 128, (bb, 2, dd // 2), generator=gen,
+                           device=dev, dtype=torch.int8)
+        ii = torch.randint(-2, nn + 2, (bb, cc), generator=gen, device=dev,
+                           dtype=torch.int32)
+        ii[:, 0] = -1
+        ii[:, -1] = nn - 1
+        _check_kernel("stage2_by_id", stage2_int8_by_id,
+                      ref.stage2_scores_by_id_ref, (qe, m, lo, ii),
+                      f"B={bb} C={cc} N={nn} D={dd}, ids -1, N - 1 and "
+                      "past N")
+        safe = ii.clamp(0, nn - 1).long()
+        if not torch.equal(stage2_int8_by_id(qe, m, lo, ii),
+                           stage2_int8_batched(qe, m[safe], lo[safe])):
+            raise AssertionError(f"stage2_by_id disagrees with the gathered "
+                                 f"form at B={bb} C={cc} N={nn} D={dd}")
+    # Yardstick: the two index gathers the by-id kernel spares the engine,
+    # then torch.bmm on the candidates' rebuilt INT8 rows.
+    lib_ms = _library_ms(
+        "stage2_by_id",
+        lambda: (db.msb_plane[cand], db.lsb_plane[cand],
+                 torch.bmm(docs_f, q_col8))[2],
+        stage2_int8_by_id(*by_id_args))
+    uniq_cand = int(torch.unique(cand).numel())
+    t_bound, by = bound_ms(2 * B * d2 + B * C * 4 + 2 * uniq_cand * d2
+                           + B * C * 4, 2 * B * C * D)
+    rows.append(dict(
+        name="stage2_by_id", route="cuda",
+        source="src/repro_torch/csrc/stage2_int8.cu",
+        replaces="src/repro/kernels/stage2_int8.py:62",
+        max_abs_err=err,
+        ms=time_ms(lambda: stage2_int8_by_id(*by_id_args)),
+        plain_ms=time_ms(lambda: ref.stage2_scores_by_id_ref(*by_id_args)),
         bound_ms=t_bound, bound_by=by, library_ms=lib_ms))
 
     _check_widths(gen, dev)
@@ -476,23 +583,35 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
         bound_ms=t_bound, bound_by=by, library_ms=lib_ms))
 
     device_only = {
+        "stage1_plane_mma": kernel_device_us(
+            lambda: plane_mma(panel, db.msb_plane), "::plane_mma_kernel<"),
         "stage1_plane": kernel_device_us(
-            lambda: stage1_int4_batched(panel, db.msb_plane), "plane_kernel"),
+            lambda: plane_dp4a(panel, db.msb_plane), "::plane_kernel<"),
         "stage1_rows": kernel_device_us(
             lambda: stage1_int4_rows(q_eo, win), "rows_kernel"),
         "stage2_exact": kernel_device_us(
             lambda: stage2_int8_batched(q_eo8, msb_rows, lsb_rows),
             "exact_kernel"),
+        "stage2_by_id": kernel_device_us(
+            lambda: stage2_int8_by_id(*by_id_args), "exact_kernel"),
         "stage1_gather": kernel_device_us(
             lambda: gather(q_eo, db.msb_plane, ids), "gather_kernel"),
         "stage0_sign_gather": kernel_device_us(
             lambda: sign(q_sign, db.sign_plane, ids), "sign_gather_kernel"),
     }
+    notes = {
+        "stage1_plane_mma": " (library yardstick: torch._int_mm on the "
+                            "pre-unpacked int8 plane)",
+        "stage1_plane": " (the dp4a kernel, which the main path no longer "
+                        "takes at this shape; same yardstick)",
+        "stage2_by_id": " (library yardstick: the two index gathers of the "
+                        "candidate rows, then torch.bmm on their pre-rebuilt "
+                        "INT8 rows)"}
     for r in rows:
         note = (" (library yardstick: one torch.bmm on the pre-gathered, "
                 "pre-unpacked operand; it leaves out the gather)"
                 if r["name"] in ("stage1_gather", "stage0_sign_gather")
-                else "")
+                else notes.get(r["name"], ""))
         log(f"kernel {r['name']}: kernel_ms {r['ms']:.4f} plain_ms "
             f"{r['plain_ms']:.4f} bound_us {r['bound_ms'] * 1e3:.2f} "
             f"({r['bound_by']}) library_ms {r['library_ms']} "
@@ -506,13 +625,14 @@ WIDTHS = (8, 36, 64, 200, 250, 1536, 8192, 262144)
 
 
 def _check_widths(gen, dev) -> None:
-    """The plane, rows, gather, exact and fused kernels at every kind of
-    width: one partial 64-byte chunk (D = 8, 200), rows that are not whole
-    words (36, 250: read byte by byte), 16-byte loads (64, 1536, 8192),
-    shared-memory panels past the 48 KiB default (8192, where the plane
-    kernel's lane tile also shrinks; B = 40 spans more than one tile), and
-    panels past what a block holds (262,144: walked through shared
-    memory)."""
+    """The plane (by its shape rule and on dp4a), rows, gather, exact (both
+    forms) and fused kernels at every kind of width: one partial 64-byte
+    chunk (D = 8, 200), rows that are not whole words (36, 250: read byte
+    by byte), 16-byte loads (64, 1536, 8192; at B = 5 the tensor-core plane
+    kernel, with a partial 128-byte slab at 64), shared-memory panels past
+    the 48 KiB default (8192, where both plane kernels' lane tiles also
+    shrink; B = 40 spans more than one tile), and panels past what a block
+    holds (262,144: walked through shared memory, on dp4a)."""
     for dd in WIDTHS:
         d2 = dd // 2
         for bb in (1, 5) + ((40,) if dd == 8192 else ()):
@@ -520,9 +640,13 @@ def _check_widths(gen, dev) -> None:
                               dtype=torch.uint8)
             qp = torch.randint(-8, 8, (2, bb, d2), generator=gen, device=dev,
                                dtype=torch.int8)
-            _check_kernel("stage1_plane", stage1_int4_batched,
-                          ref.stage1_scores_batched_ref, (qp, p),
-                          f"B={bb} N=1000 D={dd}")
+            for label, fn in (
+                    (f"auto: {_route(bb, d2)}", stage1_int4_batched),
+                    ("dp4a", lambda a, b_: stage1_int4._plane(
+                        a, b_, DEFAULT_ROWS, route="dp4a"))):
+                _check_kernel(f"stage1_plane ({label})", fn,
+                              ref.stage1_scores_batched_ref, (qp, p),
+                              f"B={bb} N=1000 D={dd}")
             qe = qp.transpose(0, 1).contiguous()
             _check_kernel("fused_topk",
                           lambda a, b_: fused_topk_batched(a, b_, k=5,
@@ -551,8 +675,14 @@ def _check_widths(gen, dev) -> None:
             _check_kernel("stage2_exact", stage2_int8_batched,
                           ref.stage2_scores_batched_ref, (q8, m, lo),
                           f"B={bb} C=13 D={dd}")
-    log(f"widths: plane, fused, gather, rows and exact kernels bit-exact at "
-        f"D in {WIDTHS} (B = 1, 5; B = 40 at D = 8192)")
+            ids = torch.randint(-1, 1001, (bb, 13), generator=gen,
+                                device=dev, dtype=torch.int32)
+            _check_kernel("stage2_by_id", stage2_int8_by_id,
+                          ref.stage2_scores_by_id_ref, (q8, p, p, ids),
+                          f"B={bb} C=13 N=1000 D={dd}")
+    log(f"widths: plane (tensor-core and dp4a), fused, gather, rows, exact "
+        f"and by-id exact kernels bit-exact at D in {WIDTHS} (B = 1, 5; "
+        "B = 40 at D = 8192)")
 
 
 def _cluster_like_ids(gen, dev) -> torch.Tensor:
@@ -797,7 +927,7 @@ def phase_new_kernels(db, q_codes, gold, dev) -> list[dict]:
 
     device_only = {
         "stage1_single": kernel_device_us(
-            lambda: stage1_int4_single(q1, db.msb_plane), "plane_kernel"),
+            lambda: stage1_int4_single(q1, db.msb_plane), "::plane_kernel<"),
         "fused_topk_single": kernel_device_us(
             lambda: fused1(q1, db.msb_plane), "fused_kernel"),
         "stage2_single": kernel_device_us(
@@ -811,7 +941,8 @@ def phase_new_kernels(db, q_codes, gold, dev) -> list[dict]:
     masked_us = kernel_device_us(
         lambda: fused(q_eo, db.msb_plane, owner, tids), "fused_kernel")
     for r in rows:
-        note = {"fused_topk": " (library yardstick: the plane kernel, then "
+        note = {"fused_topk": " (library yardstick: the plane scan, on the "
+                              "tensor-core kernel at this B, then "
                               "torch.topk of each block)",
                 "fused_topk_single": " (library yardstick: the plane kernel "
                                      "at B = 1, then torch.topk of each "
@@ -996,9 +1127,11 @@ def phase_main(qdb, db, q_codes, gold, dev) -> dict[str, int]:
 def _serve(label: str, variants, path_kernels, qdb, db, q_codes, gold,
            dev) -> dict[str, int]:
     """Drive `BATCHES` batches of each variant through the kernel backend
-    with the launch counts set to 0 just before and read just after; then
-    hold every batch to the plain backend, the exact INT8 dot products and
-    the planted gold, and profile one batch of each variant."""
+    with the launch counts set to 0 just before and read just after (every
+    kernel of `path_kernels` must have launched, none of
+    OFF_PATH_KERNELS); then hold every batch to the plain backend, the
+    exact INT8 dot products and the planted gold, and profile one batch of
+    each variant."""
     results = {}
     ops.reset_launch_counts()
     for name, cfg, policy_for in variants:
@@ -1021,6 +1154,10 @@ def _serve(label: str, variants, path_kernels, qdb, db, q_codes, gold,
         if launches[key] <= 0:
             raise AssertionError(f"kernel {key} was not launched by the "
                                  f"{label} path")
+    for key in OFF_PATH_KERNELS:
+        if launches[key]:
+            raise AssertionError(f"kernel {key} was launched by the {label} "
+                                 "path, which should not take it")
 
     for name, cfg, policy_for in variants:
         plain_engine = RetrievalEngine(
@@ -1120,6 +1257,48 @@ def phase_cluster(dev) -> dict[str, int]:
     return launches
 
 
+# Host cost of the exact wrappers: HOST_CALLS back-to-back calls at the
+# main path's shapes (B = 32, C = 50, D = 512; one query for the single
+# form), one synchronize at the end, microseconds per call; beside them
+# torch.bmm and torch.mv, the yardsticks' calls. The median of three
+# rounds.
+def phase_host_us(dev) -> None:
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def rand(shape, lo, hi, dtype):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+    d2 = D // 2
+    msb, lsb = (rand((N, d2), 0, 256, torch.uint8) for _ in range(2))
+    q8 = rand((B, 2, d2), -128, 128, torch.int8)
+    ids = rand((B, C), 0, N, torch.int32)
+    mr, lr = msb[ids.long()], lsb[ids.long()]
+    q1, mr1, lr1 = q8[0].contiguous(), mr[0].contiguous(), lr[0].contiguous()
+    docs = torch.randn(B, C, D, device=dev, generator=gen)
+    col = torch.randn(B, D, 1, device=dev, generator=gen)
+    docs1, col1 = docs[0].contiguous(), col[0, :, 0].contiguous()
+    fns = {"stage2_int8_batched": lambda: stage2_int8_batched(q8, mr, lr),
+           "stage2_int8_single": lambda: stage2_int8_single(q1, mr1, lr1),
+           "stage2_int8_by_id": lambda: stage2_int8_by_id(q8, msb, lsb, ids),
+           "torch.bmm": lambda: torch.bmm(docs, col),
+           "torch.mv": lambda: torch.mv(docs1, col1)}
+    us = {}
+    for name, fn in fns.items():
+        rounds = []
+        for _ in range(3):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            rounds.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        us[name] = round(statistics.median(rounds), 2)
+    log(f"host_us_per_call ({HOST_CALLS} calls, median of 3 rounds): {us}")
+    del msb, lsb, mr, lr, docs
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1135,11 +1314,11 @@ def main() -> int:
     del qdb, db, q_codes, gold
     torch.cuda.empty_cache()
     cluster_launches = phase_cluster(dev)
-    for k in kernels:
-        k["launches"] = launches[k["name"]] + cluster_launches[k["name"]]
-    for k in new_kernels:
-        k["launches"] = tune_launches[k["name"]]
     kernels += new_kernels
+    for k in kernels:
+        k["launches"] = sum(counts[k["name"]] for counts in (
+            launches, tune_launches, cluster_launches))
+    phase_host_us(dev)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,10 @@ layered as:
              arena window), `ClusterPolicy` (rows in the lane's
              top-`nprobe` clusters of an INT8 centroid codebook).
   schedule — the cascade: `(ApproxScan, ExactRescore)`, a batched INT4
-             scan with a per-lane top-C and then a batched INT8 gather,
-             exact rescore and metric rerank; the cluster policy prepends
-             `CentroidPrune` and, with `prescreen_c0`, `SignPrescreen`.
+             scan with a per-lane top-C and then a batched exact INT8
+             rescore of the candidates, read by id, and a metric rerank;
+             the cluster policy prepends `CentroidPrune` and, with
+             `prescreen_c0`, `SignPrescreen`.
   backend  — the batched stage primitives, chosen by
              `RetrievalConfig.backend`: "torch" (plain PyTorch) or "cuda"
              (the kernel wrappers of `repro_torch.kernels.ops`, whose
@@ -115,7 +116,8 @@ class StageFns:
     gather_resident: the gather over a plane of whole blocks whose every
               id is live (no zero-row convention)
     centroid: stage-0 codebook scoring, the plane scan over (K, D/2)
-    exact:    stage-2 INT8 rescore        (B, D) x 2 (B, C, D/2) -> (B, C)
+    exact:    stage-2 INT8 rescore of candidate ids (B, D) x 2 (N, D/2)
+              planes + (B, C) int32 ids -> (B, C); ids clamp to [0, N - 1]
     sign_gather / sign_gather_resident: the sign prescreen's block gathers
               over the packed (N, D/8) sign plane; zero bytes score
               sum(q_sign)
@@ -143,7 +145,7 @@ def stage_fns(backend: str) -> StageFns:
             gather=kops.stage1_scores_gather,
             gather_resident=kops.stage1_scores_gather_resident,
             centroid=kops.centroid_scores_batched,
-            exact=kops.stage2_scores_batched,
+            exact=kops.stage2_scores_by_id,
             sign_gather=kops.stage0_sign_scores_gather,
             sign_gather_resident=kops.stage0_sign_scores_gather_resident)
     if backend == "torch":
@@ -166,8 +168,8 @@ def stage_fns(backend: str) -> StageFns:
             gather=gather_with(ref.stage1_gather_batched_ref),
             gather_resident=gather_with(ref.stage1_gather_resident_ref),
             centroid=plane,
-            exact=lambda q, msb, lsb: ref.stage2_scores_batched_ref(
-                kops.pack_queries_even_odd(q), msb, lsb),
+            exact=lambda q, msb, lsb, ids: ref.stage2_scores_by_id_ref(
+                kops.pack_queries_even_odd(q), msb, lsb, ids),
             sign_gather=sign_gather_with(ref.stage0_sign_gather_ref),
             sign_gather_resident=sign_gather_with(
                 ref.stage0_sign_gather_resident_ref))
@@ -422,19 +424,20 @@ class ApproxScan:
 
 @dataclasses.dataclass(frozen=True)
 class ExactRescore:
-    """Terminal stage: gather the candidates' full INT8 codes, rescore
-    exactly, rerank (non-division comparator for cosine, top-k for MIPS)."""
+    """Terminal stage: rescore the candidates' full INT8 codes exactly, read
+    from the full planes at their ids, then rerank (non-division comparator
+    for cosine, top-k for MIPS)."""
 
     def run(self, state: _CascadeState, ctx: _CascadeCtx) -> _CascadeState:
         db, cfg = ctx.db, ctx.cfg
         cand, cand_member = state.rows, state.member
-        # Candidates are gathered from the full planes by global id; holes
-        # clamp to row 0 and are pinned below every real candidate by the
-        # membership mask.
+        # The exact stage reads each candidate's row by global id (the
+        # reference gathers (B, C, D//2) copies first); holes clamp to row
+        # 0 and are pinned below every real candidate by the membership
+        # mask.
+        exact = ctx.fns.exact(ctx.query_codes, db.msb_plane, db.lsb_plane,
+                              cand)
         safe = torch.clamp(cand, min=0).long()
-        msb_rows = db.msb_plane[safe]                          # (B, C, D//2)
-        lsb_rows = db.lsb_plane[safe]
-        exact = ctx.fns.exact(ctx.query_codes, msb_rows, lsb_rows)
         cand_norms = db.norms_sq[safe]
         if cand_member is not None:
             exact = exact.masked_fill(~cand_member, MASKED_SCORE)

@@ -34,7 +34,11 @@
 // reads the 256 MiB plane once and writes the (B, N) int32 scores
 // (128 MiB), about 120 us at 3.35 TB/s; its 2*B*N*D = 34 G int8 operations
 // would take 17 us on the int8 tensor cores. On dp4a (4 MACs per
-// instruction, integer pipe) it is compute-bound above the byte bound.
+// instruction, integer pipe) it is compute-bound above the byte bound
+// (0.45 ms), so the batched scan runs on the tensor cores instead
+// (stage1_mma.cu) wherever that kernel's launcher takes the shape (B >= 2,
+// D/2 % 16 == 0, its panels fit); this kernel serves the single query and
+// every shape stage1_mma_lanes refuses.
 // Design: a block of ROWS threads owns ROWS consecutive plane rows (one per
 // thread) and a tile of up to BT = 32 query lanes, whose even/odd nibble
 // panel sits in shared memory and is read by broadcast. Each thread turns
@@ -43,8 +47,8 @@
 // device memory once per tile of lanes and the (B, N) stores are coalesced
 // across the warp (consecutive rows). At large D the lane tile shrinks
 // until 2 * BT * D/2 bytes of panels fit in shared memory. The kernel masks
-// its own ragged row edge: the plane is never padded or copied. wgmma s8
-// is later work. The single-query form is the BT = 1 instance.
+// its own ragged row edge: the plane is never padded or copied. The
+// single-query form is the BT = 1 instance.
 //
 // The rows scan is the same arithmetic over per-lane row blocks (B, W, D/2):
 // grid.y walks lanes, a block scores ROWS of that lane's rows against the

@@ -1,8 +1,11 @@
 """Hand-written Hopper kernels (CUDA C++ in `../csrc`) and their wrappers.
 
   stage1_int4   — the stage-1 INT4 plane, single-query and rows scans
+                  (the batched plane scan on the int8 tensor cores of
+                  `stage1_mma.cu` where its shape allows)
   stage1_gather — stage 1 over per-lane block tables (cluster cascade)
-  stage2_int8   — the exact INT8 rescore, batched and single-query
+  stage2_int8   — the exact INT8 rescore: by candidate id, and on
+                  gathered rows (batched and single-query)
   stage0_sign   — the 1-bit sign scans: dense plane and block gather
   fused_topk    — stage-1 scoring fused with a per-block top-k
 
@@ -21,4 +24,5 @@ from repro_torch.kernels.stage1_int4 import (stage1_int4_batched,
                                              stage1_int4_rows,
                                              stage1_int4_single)
 from repro_torch.kernels.stage2_int8 import (stage2_int8_batched,
+                                             stage2_int8_by_id,
                                              stage2_int8_single)

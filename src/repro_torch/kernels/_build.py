@@ -26,7 +26,8 @@ import torch
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[1] / "build"
-SOURCES = ("stage1_int4", "stage2_int8", "stage0_sign", "fused_topk")
+SOURCES = ("stage1_int4", "stage1_mma", "stage2_int8", "stage0_sign",
+           "fused_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,7 +35,8 @@ LAUNCHES: dict[str, int] = {"stage1_plane": 0, "stage1_rows": 0,
                             "stage2_exact": 0, "stage1_gather": 0,
                             "stage0_sign_gather": 0, "stage1_single": 0,
                             "stage2_single": 0, "stage0_sign_plane": 0,
-                            "fused_topk": 0, "fused_topk_single": 0}
+                            "fused_topk": 0, "fused_topk_single": 0,
+                            "stage1_plane_mma": 0, "stage2_by_id": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, Callable[..., int]] = {}
@@ -123,10 +125,16 @@ def function(name: str, symbol: str, argtypes: list) -> Callable[..., int]:
 def launch(counter: str, fn: Callable[..., int], *args,
            device: torch.device) -> None:
     """Call a C launch function on `device`'s current stream and count
-    the launch; raises if the launch was refused."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+    the launch; raises if the launch was refused. The device is made
+    current only when it is not already (CUDA is initialised: the caller
+    holds a tensor on it)."""
+    index = device.index
+    current = torch._C._cuda_getDevice()
+    if index is None or index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"kernel {counter} failed to launch: CUDA error "
                            f"{err}")

@@ -32,6 +32,7 @@ from repro_torch.kernels.stage1_int4 import (DEFAULT_ROWS,
                                              stage1_int4_rows,
                                              stage1_int4_single)
 from repro_torch.kernels.stage2_int8 import (stage2_int8_batched,
+                                             stage2_int8_by_id,
                                              stage2_int8_single)
 
 
@@ -180,6 +181,16 @@ def stage2_scores_batched(q: torch.Tensor, msb_rows: torch.Tensor,
     """q (B, D) int8 full queries x gathered msb/lsb_rows (B, C, D//2) ->
     (B, C) int32 exact scores."""
     return stage2_int8_batched(pack_queries_even_odd(q), msb_rows, lsb_rows)
+
+
+def stage2_scores_by_id(q: torch.Tensor, msb_plane: torch.Tensor,
+                        lsb_plane: torch.Tensor,
+                        ids: torch.Tensor) -> torch.Tensor:
+    """q (B, D) int8 full queries x the rows of msb/lsb_plane (N, D//2) at
+    ids (B, C) int32, clamped to [0, N - 1] -> (B, C) int32 exact scores;
+    the rows are read in place, not gathered."""
+    return stage2_int8_by_id(pack_queries_even_odd(q), msb_plane, lsb_plane,
+                             ids)
 
 
 def _merge_blocks(scores: torch.Tensor, ids: torch.Tensor, n: int,

@@ -23,18 +23,21 @@ from repro_torch.kernels.fused_topk import (fused_topk_batched,
 from repro_torch.kernels.stage0_sign import (stage0_sign_batched,
                                              stage0_sign_gather)
 from repro_torch.kernels.stage1_gather import stage1_int4_gather
-from repro_torch.kernels.stage1_int4 import (ROWS_CHOICES,
+from repro_torch.kernels import stage1_int4
+from repro_torch.kernels.stage1_int4 import (DEFAULT_ROWS, ROWS_CHOICES,
                                              stage1_int4_batched,
                                              stage1_int4_rows,
                                              stage1_int4_single)
 from repro_torch.kernels.stage2_int8 import (stage2_int8_batched,
+                                             stage2_int8_by_id,
                                              stage2_int8_single)
 
 ZERO_COUNTS = {"stage1_plane": 0, "stage1_rows": 0, "stage2_exact": 0,
                "stage1_gather": 0, "stage0_sign_gather": 0,
                "stage1_single": 0, "stage2_single": 0,
                "stage0_sign_plane": 0, "fused_topk": 0,
-               "fused_topk_single": 0}
+               "fused_topk_single": 0, "stage1_plane_mma": 0,
+               "stage2_by_id": 0}
 INT32_MIN = -(2 ** 31)
 
 
@@ -68,14 +71,118 @@ def test_cuda_kernels_match_plain(cuda_device, b, n, d):
     assert torch.equal(stage2_int8_batched(q8, m, lo),
                        ref.stage2_scores_batched_ref(q8, m, lo))
     torch.cuda.synchronize()
-    assert ops.launch_counts() == dict(ZERO_COUNTS, stage1_plane=1,
-                                       stage1_rows=1, stage2_exact=1)
+    plane_key = ("stage1_plane_mma"
+                 if stage1_int4._mma_lanes(b, d // 2, DEFAULT_ROWS)
+                 else "stage1_plane")
+    assert ops.launch_counts() == dict(ZERO_COUNTS, stage1_rows=1,
+                                       stage2_exact=1, **{plane_key: 1})
     with pytest.raises(ValueError):
         stage1_int4_batched(panel, plane[:, : d // 2 - 16].contiguous())
     with pytest.raises(TypeError):
         stage1_int4_batched(panel, plane.to(torch.int8))
     with pytest.raises(ValueError):
         stage2_int8_batched(q8, m[:, ::2], lo[:, ::2])
+
+
+@pytest.mark.gpu
+def test_mma_lane_tile_by_shape(cuda_device):
+    """The tensor-core launcher takes B >= 2 and D/2 % 16 == 0 with the
+    smallest of 8, 16, 32 lanes that covers B (16 at most at 1024 rows per
+    tile), shrunk until a block fits in shared memory, and answers 0 for
+    every other shape (those go to dp4a); it refuses to launch a shape it
+    answers 0 for."""
+    lanes = stage1_int4._mma_lanes
+    assert lanes(1, 256, 256) == 0
+    assert lanes(2, 256, 256) == 8
+    assert lanes(9, 256, 256) == 16
+    assert lanes(33, 256, 256) == 32
+    assert lanes(33, 256, 1024) == 16
+    assert lanes(32, 18, 256) == 0
+    assert lanes(40, 4096, 256) == 8
+    assert lanes(32, 131072, 256) == 0
+    assert lanes(32, 256, 64) == 0
+    panel = torch.zeros((2, 4, 9), dtype=torch.int8, device=cuda_device)
+    plane = torch.zeros((5, 9), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="does not take B = 4, D/2 = 9"):
+        stage1_int4._plane(panel, plane, 256, route="mma")
+
+
+MMA_BATCHES = (2, 7, 8, 9, 31, 32, 33, 65)
+# N: below, at and past one m16 tile, a row count that is no multiple of
+# any tile (4099, 20001: ragged boxes, N % 4 != 0 for the 16-byte stores).
+MMA_ROWS = (1, 15, 16, 17, 4099, 20001)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", ROWS_CHOICES)
+@pytest.mark.parametrize("d", [32, 64, 512, 1536])
+def test_mma_plane_kernel_matches_plain(cuda_device, rows, d):
+    """The tensor-core plane kernel, bit-exact against the plain version at
+    every lane tile (B up to 65: two and three tiles), ragged N, widths
+    with a partial 128-byte slab (D = 32, 64: one box narrower than the
+    swizzle span) and several slabs (1536), at every rows-per-tile
+    instance."""
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(rows + d),
+                 cuda_device)
+    for n in MMA_ROWS:
+        plane = rand((n, d // 2), 0, 256, torch.uint8)
+        for b in MMA_BATCHES:
+            panel = rand((2, b, d // 2), -8, 8, torch.int8)
+            ops.reset_launch_counts()
+            got = stage1_int4._plane(panel, plane, rows, route="mma")
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["stage1_plane_mma"] == 1
+            assert torch.equal(got, ref.stage1_scores_batched_ref(panel,
+                                                                  plane)), \
+                (b, n, d, rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", ROWS_CHOICES)
+@pytest.mark.parametrize("d", [512, 1536])
+def test_mma_plane_kernel_at_the_extremes_of_the_range(cuda_device, rows, d):
+    """All-(-8) nibbles (16 * sext4 = -128, the s8 operand's floor) against
+    all-(-8) and all-7 query panels, and the dp4a kernel's bits."""
+    plane = torch.full((3001, d // 2), 0x88, dtype=torch.uint8,
+                       device=cuda_device)
+    for fill in (-8, 7):
+        panel = torch.full((2, 33, d // 2), fill, dtype=torch.int8,
+                           device=cuda_device)
+        got = stage1_int4._plane(panel, plane, rows, route="mma")
+        want = ref.stage1_scores_batched_ref(panel, plane)
+        assert int(want[0, 0]) == 2 * (d // 2) * (-8) * fill
+        assert torch.equal(got, want)
+        assert torch.equal(got, stage1_int4._plane(panel, plane, rows,
+                                                   route="dp4a"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [8, 36, 250, 512])
+def test_exact_by_id_matches_gathered_and_plain(cuda_device, d):
+    """The exact kernel reading rows in place at their ids equals the
+    gathered form on the rows the ids name (holes and ids past N clamped
+    to [0, N - 1]) and its plain version; ids include -1, N - 1 and N."""
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(d),
+                 cuda_device)
+    n = 1001
+    msb = rand((n, d // 2), 0, 256, torch.uint8)
+    lsb = rand((n, d // 2), 0, 256, torch.uint8)
+    for b, c in ((1, 50), (3, 7), (32, 50)):
+        q8 = rand((b, 2, d // 2), -128, 128, torch.int8)
+        ids = rand((b, c), -2, n + 2, torch.int32)
+        ids[:, 0] = -1
+        ids[:, -1] = n - 1
+        if c > 2:
+            ids[:, 1] = n
+        ops.reset_launch_counts()
+        got = stage2_int8_by_id(q8, msb, lsb, ids)
+        safe = ids.clamp(0, n - 1).long()
+        assert torch.equal(got, stage2_int8_batched(q8, msb[safe], lsb[safe]))
+        assert torch.equal(got, ref.stage2_scores_by_id_ref(q8, msb, lsb,
+                                                            ids))
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == dict(ZERO_COUNTS, stage2_by_id=1,
+                                           stage2_exact=1)
 
 
 @pytest.mark.gpu
@@ -98,8 +205,8 @@ def test_kernel_backend_equals_plain_backend(cuda_device, metric):
                                cuda_device).retrieve(q, db, policy)
         for field in ("indices", "scores", "candidate_indices"):
             assert torch.equal(getattr(got, field), getattr(want, field))
-    assert ops.launch_counts() == dict(ZERO_COUNTS, stage1_plane=2,
-                                       stage1_rows=1, stage2_exact=3)
+    assert ops.launch_counts() == dict(ZERO_COUNTS, stage1_plane_mma=2,
+                                       stage1_rows=1, stage2_by_id=3)
 
 
 @pytest.mark.gpu
@@ -202,7 +309,8 @@ def test_cluster_backend_equals_plain_backend(cuda_device, c0):
             assert torch.equal(getattr(runs[0], field),
                                getattr(runs[1], field))
     counts = ops.launch_counts()
-    assert counts["stage1_plane"] == 2 and counts["stage2_exact"] == 2
+    assert counts["stage1_plane_mma"] == 2 and counts["stage2_by_id"] == 2
+    assert counts["stage1_plane"] == 0 and counts["stage2_exact"] == 0
     if c0 is None:
         assert counts["stage1_gather"] == 2
         assert counts["stage0_sign_gather"] == 0

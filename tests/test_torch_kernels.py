@@ -26,9 +26,12 @@ from repro_torch.kernels import (_build, fused_topk, ops, ref, stage0_sign,
                                  stage1_gather, stage1_int4, stage2_int8)
 from repro_torch.kernels.stage0_sign import stage0_sign_gather
 from repro_torch.kernels.stage1_gather import stage1_int4_gather
-from repro_torch.kernels.stage1_int4 import (SMEM_BYTES, stage1_int4_batched,
-                                             stage1_int4_rows)
-from repro_torch.kernels.stage2_int8 import stage2_int8_batched
+from repro_torch.kernels.stage1_int4 import (SMEM_BYTES,
+                                             stage1_int4_batched,
+                                             stage1_int4_rows,
+                                             stage1_int4_single)
+from repro_torch.kernels.stage2_int8 import (stage2_int8_batched,
+                                             stage2_int8_by_id)
 
 
 def _rand(shape, lo, hi, dtype, seed):
@@ -111,6 +114,65 @@ def test_exact_plain_matches_pallas(b, d):
             jnp.asarray(q_eo8), jnp.asarray(msb), jnp.asarray(lsb))))
 
 
+@pytest.mark.parametrize("b,c,n,d", [(1, 16, 40, 250), (3, 32, 77, 6),
+                                     (4, 48, 300, 512), (2, 16, 9, 36)])
+def test_exact_by_id_plain_matches_pallas(b, c, n, d):
+    """The by-id exact rescore's plain version against the Pallas kernel
+    on the reference's own gather: holes (-1) read row 0, as the reference
+    engine's `jnp.maximum(cand, 0)` makes them, and ids at or past N read
+    row N - 1, as JAX's indexing gather clamps them. D/2 is odd at D = 250
+    and 6."""
+    rng = np.random.default_rng(b * 1000 + n + d)
+    q = rng.integers(-128, 128, (b, d)).astype(np.int8)
+    msb = rng.integers(0, 256, (n, d // 2)).astype(np.uint8)
+    lsb = rng.integers(0, 256, (n, d // 2)).astype(np.uint8)
+    ids = rng.integers(-3, n + 3, (b, c)).astype(np.int32)
+    ids[:, :4] = [-1, n - 1, n, n + 5]
+    safe = jnp.maximum(jnp.asarray(ids), 0)
+    q_eo8 = jops.pack_queries_even_odd(jnp.asarray(q))
+    want = np.asarray(stage2_int8_batched_pallas(
+        q_eo8, jnp.asarray(msb)[safe], jnp.asarray(lsb)[safe], block_c=16,
+        interpret=True))
+    got = ops.stage2_scores_by_id(_t(q), _t(msb), _t(lsb), _t(ids))
+    assert got.dtype == torch.int32 and got.shape == (b, c)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        stage2_int8_by_id(_t(np.asarray(q_eo8)), _t(msb), _t(lsb),
+                          _t(ids)).numpy(), want)
+
+
+def test_plane_scan_routes_on_the_launchers_answer(monkeypatch):
+    """The batched plane scan asks the tensor-core launcher for its lane
+    tile (`_mma_lanes`) and launches that kernel when the answer is not 0,
+    else dp4a; the single-query form and a forced dp4a never ask. Asking
+    for the tensor-core kernel at a shape it does not take, or for a route
+    that does not exist, raises naming it."""
+    calls = _capture_launches(monkeypatch)
+    asked, answer = [], [0]
+
+    def lanes(b, d2, rows):
+        asked.append((b, d2, rows))
+        return answer[0]
+    monkeypatch.setattr(stage1_int4, "_mma_lanes", lanes)
+    q = torch.zeros((2, 4, 32), dtype=torch.int8)
+    plane = torch.zeros((5, 32), dtype=torch.uint8)
+    assert stage1_int4_batched(q, plane, rows=512).shape == (4, 5)
+    answer[0] = 16
+    assert stage1_int4_batched(q, plane, rows=512).shape == (4, 5)
+    assert stage1_int4._plane(q, plane, 256, route="dp4a").shape == (4, 5)
+    assert stage1_int4_single(q[:, 0].contiguous(), plane).shape == (5,)
+    assert asked == [(4, 32, 512), (4, 32, 512)]
+    assert [c for c, _ in calls] == ["stage1_plane", "stage1_plane_mma",
+                                     "stage1_plane", "stage1_single"]
+    assert [args[-1] for _, args in calls] == [512, 512, 256, 256]
+    answer[0] = 0
+    with pytest.raises(ValueError, match="does not take B = 4, D/2 = 32"):
+        stage1_int4._plane(q, plane, 256, route="mma")
+    with pytest.raises(ValueError, match="route must be one of"):
+        stage1_int4._plane(q, plane, 256, route="wgmma")
+    assert len(calls) == 4
+
+
 def test_exact_plain_is_the_int8_dot_product():
     rng = np.random.default_rng(5)
     codes = rng.integers(-128, 128, size=(4, 50, 512)).astype(np.int8)
@@ -151,6 +213,10 @@ def test_wrappers_raise_for_devices_without_a_kernel():
         stage1_int4_rows(panel.reshape(1, 2, 32), plane[None])
     with pytest.raises(ValueError, match="no kernel"):
         stage2_int8_batched(panel.reshape(1, 2, 32), plane[None], plane[None])
+    with pytest.raises(ValueError, match="no kernel"):
+        stage2_int8_by_id(panel.reshape(1, 2, 32), plane, plane,
+                          torch.zeros((1, 2), dtype=torch.int32,
+                                      device="meta"))
     ids = torch.zeros((1, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         stage1_int4_gather(panel.reshape(1, 2, 32), plane, ids, block_rows=2)
@@ -159,30 +225,36 @@ def test_wrappers_raise_for_devices_without_a_kernel():
                            block_rows=2)
 
 
-def _capture_launches(monkeypatch) -> list:
+def _capture_launches(monkeypatch, mma_lanes: int = 0) -> list:
     """Runs the wrappers' CUDA branch on CPU tensors up to the launch: every
     check a CUDA tensor meets runs, and each launch is recorded (counter,
-    C arguments) instead of reaching a kernel."""
+    C arguments) instead of reaching a kernel. The tensor-core plane
+    launcher answers `mma_lanes` for every shape it is asked about."""
     calls = []
     for mod in (stage1_int4, stage1_gather, stage2_int8, stage0_sign,
                 fused_topk):
         monkeypatch.setattr(mod, "_on_cpu", lambda t: False)
     monkeypatch.setattr(_build, "function", lambda *a: None)
+    monkeypatch.setattr(stage1_int4, "_mma_lanes",
+                        lambda b, d2, rows: mma_lanes)
     monkeypatch.setattr(_build, "launch",
                         lambda counter, fn, *args, device: calls.append(
                             (counter, args)))
     return calls
 
 
-@pytest.mark.parametrize("d", [36, 250, 262144])
+@pytest.mark.parametrize("d", [36, 250, 262144, 512])
 def test_width_limits_name_themselves(monkeypatch, d):
     """The widths the JAX Pallas backend serves reach the kernels: D % 8 !=
     0 with D even (rows of D/2 bytes that are not whole words) and D whose
     query panels exceed one block's shared memory (262,144: 2 x 128 KiB of
-    panels). Every nibble wrapper launches with D/2 bytes per row; the sign
-    kernels take D % 8 == 0, and their one limit (a lane's packed signs in
-    one block) raises with a message that names it."""
-    calls = _capture_launches(monkeypatch)
+    panels). Every nibble wrapper launches with D/2 bytes per row; the
+    batched plane scan takes the tensor-core kernel where its launcher
+    takes the shape (answered here as the launcher answers: at D = 512
+    only, where D/2 % 16 == 0 and the panels fit); the sign kernels take
+    D % 8 == 0, and their one limit (a lane's packed signs in one block)
+    raises with a message that names it."""
+    calls = _capture_launches(monkeypatch, mma_lanes=8 if d == 512 else 0)
     d2 = d // 2
     q = torch.zeros((3, d), dtype=torch.int8)
     plane = torch.zeros((5, d2), dtype=torch.uint8)
@@ -195,13 +267,19 @@ def test_width_limits_name_themselves(monkeypatch, d):
                                     block_rows=4).shape == (3, 8)
     assert ops.stage2_scores_batched(q, rows, rows).shape == (3, 4)
     assert ops.stage2_scores(q[0], plane, plane).shape == (5,)
+    assert ops.stage2_scores_by_id(q, plane, plane, ids).shape == (3, 2)
     s, i = fused_topk.fused_topk_batched(ops.pack_queries_even_odd(q), plane,
                                          k=2, block_n=4)
     assert s.shape == i.shape == (3, 2, 2)
     assert [c for c, _ in calls] == [
-        "stage1_plane", "stage1_single", "stage1_rows", "stage1_gather",
-        "stage2_exact", "stage2_single", "fused_topk"]
+        "stage1_plane_mma" if d == 512 else "stage1_plane", "stage1_single",
+        "stage1_rows", "stage1_gather", "stage2_exact", "stage2_single",
+        "stage2_by_id", "fused_topk"]
     assert all(d2 in args for _, args in calls)
+    with pytest.raises(ValueError, match="empty plane"):
+        ops.stage2_scores_by_id(q, plane[:0], plane[:0], ids)
+    with pytest.raises(TypeError, match="ids must be torch.int32"):
+        ops.stage2_scores_by_id(q, plane, plane, ids.long())
     if d % 8 == 0:
         signs = torch.ones((3, d), dtype=torch.int8)
         sign_plane = torch.zeros((5, d // 8), dtype=torch.uint8)
@@ -238,12 +316,15 @@ def test_build_is_keyed_by_source_and_raises_without_nvcc(monkeypatch,
 def test_launch_counters_reset_and_do_not_count_the_plain_path():
     ops.reset_launch_counts()
     q = torch.zeros((2, 64), dtype=torch.int8)
-    ops.stage1_scores_batched(q, torch.zeros((9, 32), dtype=torch.uint8))
+    plane = torch.zeros((9, 32), dtype=torch.uint8)
+    ops.stage1_scores_batched(q, plane)
+    ops.stage2_scores_by_id(q, plane, plane,
+                            torch.zeros((2, 3), dtype=torch.int32))
     assert ops.launch_counts() == {
         "stage1_plane": 0, "stage1_rows": 0, "stage2_exact": 0,
         "stage1_gather": 0, "stage0_sign_gather": 0, "stage1_single": 0,
         "stage2_single": 0, "stage0_sign_plane": 0, "fused_topk": 0,
-        "fused_topk_single": 0}
+        "fused_topk_single": 0, "stage1_plane_mma": 0, "stage2_by_id": 0}
 
 
 # ---------------------------------------------------------------------------
