@@ -34,8 +34,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
                B = 32 for the sign scan and the fused top-k, masked with 512
                tenants and a padding lane and unmasked; B = 1 for the
                single-query forms) and at ragged shapes, and timed; the
-               fused candidates (k_per_block = c = 50) against the stable
-               top-c of the masked plane-kernel scores. Then, with the
+               batched fused top-k on both of its kernels (tensor-core and
+               dp4a: each against the plain version and the other, and
+               timed masked and unmasked at k = 8 and k = 1, which splits
+               scoring from selection); the fused candidates (k_per_block =
+               c = 50, on the tensor-core kernel) against the stable top-c
+               of the masked plane-kernel scores. Then, with the
                launch counts set to 0: `autotune.autotune` over N = 2^20 x
                D = 512 at B = 1, 8, 32 (reps 5) and 12 single queries
                through `ops.fused_candidates`, `ops.stage1_scores` and
@@ -84,7 +88,7 @@ from repro_torch.core.engine import (ClusterPolicy,  # noqa: E402
 from repro_torch.core.retrieval import RetrievalConfig  # noqa: E402
 from repro_torch.core.similarity import stable_topk  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    _build, autotune, ops, ref, stage1_int4)
+    _build, autotune, fused_topk, ops, ref, stage1_int4)
 from repro_torch.kernels.fused_topk import (  # noqa: E402
     fused_topk_batched, fused_topk_single)
 from repro_torch.kernels.stage0_sign import (  # noqa: E402
@@ -114,7 +118,7 @@ OFF_PATH_KERNELS = ("stage1_plane", "stage2_exact")
 # The autotune path: the autotuner and the single-query entry points.
 TUNE_KERNELS = ("stage1_plane", "stage1_plane_mma", "stage1_rows",
                 "stage1_single", "stage2_single", "stage0_sign_plane",
-                "fused_topk", "fused_topk_single")
+                "fused_topk", "fused_topk_single", "fused_topk_mma")
 # The batches at which the tensor-core and dp4a plane kernels are compared.
 CROSSOVER_BATCHES = (2, 4, 8)
 HOST_CALLS = 1000
@@ -203,11 +207,12 @@ def phase_card() -> None:
 
 
 # The instances the D = 512 paths launch (mangled template arguments):
-# every instance of the tensor-core plane kernel (rows per tile x lane
-# tile: 8, 16 or 32 lanes by B, at most 16 at 1024 rows), the dp4a plane
-# kernel's 32- and 1-lane ones.
+# every instance of the tensor-core plane and fused kernels (rows per tile
+# x lane tile: 8, 16 or 32 lanes by B, at most 16 at 1024 rows), the dp4a
+# plane kernel's 32- and 1-lane ones.
 MAIN_INSTANCES = tuple(
-    f"plane_mma_kernelILi{rows}ELi{nt}EE"
+    f"{kernel}_kernelILi{rows}ELi{nt}EE"
+    for kernel in ("plane_mma", "fused_mma")
     for rows in (256, 128, 512, 1024) for nt in (4, 2, 1)
     if rows < 1024 or nt < 4) + (
     "plane_kernelILi32ELi256ELi0ELb0EE", "plane_kernelILi1ELi256ELi0ELb0EE",
@@ -226,7 +231,8 @@ def phase_build() -> None:
         regs, spills, kernel = {}, [], ""
         for line in text.splitlines():
             entry = re.search(r"((?:plane_wide|sign_plane|plane_mma|plane|"
-                              r"rows|sign_gather|gather|exact|fused)"
+                              r"rows|sign_gather|gather|exact|fused_mma|"
+                              r"fused)"
                               r"_kernelI.*?EE)", line)
             if "Compiling entry function" in line and entry:
                 kernel = entry.group(1)
@@ -275,6 +281,13 @@ def _route(b: int, d2: int) -> str:
     """The plane scan's kernel for B lanes of D/2 bytes at the default rows
     per tile, as the tensor-core launcher decides it."""
     return "mma" if stage1_int4._mma_lanes(b, d2, DEFAULT_ROWS) else "dp4a"
+
+
+def _fused_route(b: int, d2: int, block_n: int, k: int = 5) -> str:
+    """The fused top-k's kernel for this shape, as its tensor-core launcher
+    decides it."""
+    return ("mma" if fused_topk._fused_mma_lanes(b, d2, block_n, k)
+            else "dp4a")
 
 
 def _check_kernel(name, kernel, plain, args, shapes_note) -> int:
@@ -648,12 +661,14 @@ def _check_widths(gen, dev) -> None:
                               ref.stage1_scores_batched_ref, (qp, p),
                               f"B={bb} N=1000 D={dd}")
             qe = qp.transpose(0, 1).contiguous()
-            _check_kernel("fused_topk",
-                          lambda a, b_: fused_topk_batched(a, b_, k=5,
-                                                           block_n=300),
-                          lambda a, b_: ref.fused_topk_batched_ref(
-                              a, b_, 300, 5), (qe, p),
-                          f"B={bb} N=1000 D={dd} block_n=300 k=5")
+            for blk in (300, 256):
+                route = _fused_route(bb, d2, blk)
+                _check_kernel(f"fused_topk (auto: {route})",
+                              lambda a, b_: fused_topk_batched(a, b_, k=5,
+                                                               block_n=blk),
+                              lambda a, b_: ref.fused_topk_batched_ref(
+                                  a, b_, blk, 5), (qe, p),
+                              f"B={bb} N=1000 D={dd} block_n={blk} k=5")
             _check_kernel("stage1_gather",
                           lambda a, b_, c: stage1_int4_gather(
                               a, b_, c, block_rows=64),
@@ -680,8 +695,10 @@ def _check_widths(gen, dev) -> None:
             _check_kernel("stage2_by_id", stage2_int8_by_id,
                           ref.stage2_scores_by_id_ref, (q8, p, p, ids),
                           f"B={bb} C=13 N=1000 D={dd}")
-    log(f"widths: plane (tensor-core and dp4a), fused, gather, rows, exact "
-        f"and by-id exact kernels bit-exact at D in {WIDTHS} (B = 1, 5; "
+    log(f"widths: plane (tensor-core and dp4a), fused (block_n = 300 on dp4a, "
+        f"256 on the tensor cores where D/2 % 16 == 0 and B > 1), gather, "
+        f"rows, exact and by-id exact kernels bit-exact at D in {WIDTHS} "
+        "(B = 1, 5; "
         "B = 40 at D = 8192)")
 
 
@@ -859,50 +876,85 @@ def phase_new_kernels(db, q_codes, gold, dev) -> list[dict]:
             q_sign, db.sign_plane)),
         bound_ms=t_bound, bound_by=by, library_ms=lib_ms))
 
-    # -- fused_topk: the batched fused scan, masked and unmasked (#9) ------
+    # -- fused_topk: the batched fused scan, masked and unmasked (#9), on
+    # both of its kernels: tensor-core (the route at B = 32, D = 512,
+    # block_n = 512) and dp4a.
     q_eo = ops.pack_queries_even_odd(q_msb)
     owner = (torch.arange(N, device=dev) // DOCS_PER_USER).to(torch.int32)
     tids = (gold[:B] // DOCS_PER_USER).to(torch.int32)
     tids[-1] = -1                                       # a padding lane
+    if not fused_topk._fused_mma_lanes(B, d2, FUSED_BLOCK, FUSED_K):
+        raise AssertionError(f"the fused top-k at B={B} D={D} block_n="
+                             f"{FUSED_BLOCK} does not take the tensor-core "
+                             "kernel")
 
-    def fused(a, p, o=None, t=None, k=FUSED_K, blk=FUSED_BLOCK):
-        return fused_topk_batched(a, p, o, t, k=k, block_n=blk)
+    def fused_on(route):
+        def run(a, p, o=None, t=None, k=FUSED_K, blk=FUSED_BLOCK):
+            return fused_topk._fused(a, p, o, t, k, blk, route=route)
+        return run
+
+    fused_mma, fused_dp4a = fused_on("mma"), fused_on("dp4a")
 
     def fused_plain(a, p, o=None, t=None, k=FUSED_K, blk=FUSED_BLOCK):
         return ref.fused_topk_batched_ref(a, p, blk, k, o, t)
 
-    err = max(
-        _check_kernel("fused_topk", fused, fused_plain,
-                      (q_eo, db.msb_plane),
-                      f"B={B} N={N} D={D} unmasked"),
-        _check_kernel("fused_topk", fused, fused_plain,
-                      (q_eo, db.msb_plane, owner, tids),
-                      f"B={B} N={N} D={D} masked, {USERS} tenants"))
+    full_args = ((q_eo, db.msb_plane), (q_eo, db.msb_plane, owner, tids))
+    errs = {}
+    for name, fn in (("fused_topk_mma", fused_mma),
+                     ("fused_topk", fused_dp4a)):
+        errs[name] = max(
+            _check_kernel(name, fn, fused_plain, args, f"B={B} N={N} D={D} "
+                          + (f"masked, {USERS} tenants" if len(args) > 2
+                             else "unmasked"))
+            for args in full_args)
+    for args in full_args:
+        got, other = fused_mma(*args), fused_dp4a(*args)
+        if not (torch.equal(got[0], other[0])
+                and torch.equal(got[1], other[1])):
+            raise AssertionError("fused_topk_mma disagrees with the dp4a "
+                                 f"fused kernel at B={B} N={N} D={D}")
     for bb, nn, dd, blk, kk in ((3, 1000, 512, 512, 8),
                                 (33, 4099, 256, 64, 70),
-                                (1, 777, 36, 100, 8)):
+                                (1, 777, 36, 100, 8),
+                                (9, 4099, 1024, 256, 50),
+                                (33, 3001, 512, 1024, 9),
+                                (2, 77, 64, 128, 130)):
         qe = rand((bb, 2, dd // 2), -8, 8, torch.int8)
         p = rand((nn, dd // 2), 0, 256, torch.uint8)
         o = _sparse_owner(gen, dev, nn)
         t = torch.arange(bb, device=dev, dtype=torch.int32) % 3
         t[-1] = -1 if bb > 1 else 1
+        takes = bool(fused_topk._fused_mma_lanes(bb, dd // 2, blk, kk))
         for args in ((qe, p), (qe, p, o, t)):
-            _check_kernel("fused_topk",
-                          lambda *a: fused(*a, k=kk, blk=blk),
-                          lambda *a: fused_plain(*a, k=kk, blk=blk), args,
-                          f"B={bb} N={nn} D={dd} block_n={blk} k={kk} "
-                          f"{'masked' if len(args) > 2 else 'unmasked'}")
+            note = (f"B={bb} N={nn} D={dd} block_n={blk} k={kk} "
+                    f"{'masked' if len(args) > 2 else 'unmasked'}")
+            routes = (("fused_topk_mma", fused_mma),) if takes else ()
+            for name, fn in routes + (("fused_topk", fused_dp4a),):
+                _check_kernel(name, lambda *a: fn(*a, k=kk, blk=blk),
+                              lambda *a: fused_plain(*a, k=kk, blk=blk), args,
+                              note)
+        log(f"kernel fused_topk: B={bb} N={nn} D={dd} block_n={blk} k={kk} "
+            f"route {'mma' if takes else 'dp4a'}: bit-exact, masked and "
+            f"unmasked{', and equal to dp4a' if takes else ''}")
     panel = ops.pack_query_panel(q_msb)
     lib = _fused_library(lambda: stage1_int4_batched(panel, db.msb_plane), nb)
-    if not torch.equal(lib().values, fused(q_eo, db.msb_plane)[0]):
+    if not torch.equal(lib().values, fused_mma(q_eo, db.msb_plane)[0]):
         raise AssertionError("fused_topk: the yardstick's top-k values "
                              "differ from the kernel's")
     # k_per_block = c: the fused candidates are the stable top-c of the
     # masked plane-kernel scores, lane for lane (every live lane holds
-    # 2048 rows; the padding lane's are all masked)
-    cands = ops.fused_candidates_batched(q_msb, db.msb_plane, owner, tids,
-                                         c=C, k_per_block=C,
-                                         block_n=FUSED_BLOCK)
+    # 2048 rows; the padding lane's are all masked); at this shape they
+    # take the tensor-core kernel.
+    ops.reset_launch_counts()
+
+    def fused_cands():
+        return ops.fused_candidates_batched(q_msb, db.msb_plane, owner, tids,
+                                            c=C, k_per_block=C,
+                                            block_n=FUSED_BLOCK)
+    cands = fused_cands()
+    if ops.launch_counts()["fused_topk_mma"] != 1:
+        raise AssertionError("fused_candidates_batched did not take the "
+                             "tensor-core fused kernel")
     scores = stage1_int4_batched(panel, db.msb_plane)
     member = (owner[None, :] == tids[:, None]) & (tids >= 0)[:, None]
     _, dense = stable_topk(scores.masked_fill(~member, -(2 ** 31)), C)
@@ -913,17 +965,38 @@ def phase_new_kernels(db, q_codes, gold, dev) -> list[dict]:
     del scores, member, dense
     log(f"kernel fused_topk: fused_candidates_batched (k_per_block = c = {C}) "
         f"equals the masked plane kernel's stable top-{C} in all "
-        f"{int(live.sum())} live lanes")
+        f"{int(live.sum())} live lanes: kernel_ms "
+        f"{time_ms(fused_cands):.4f} device_only_us "
+        f"{kernel_device_us(fused_cands, '::fused_mma_kernel<')} "
+        "(tensor-core kernel at k = 50, then the cross-block merge)")
     t_bound, by = bound_ms(B * D + N * d2 + 2 * B * nb * FUSED_K * 4,
                            2 * B * N * D)
-    masked_ms = time_ms(lambda: fused(q_eo, db.msb_plane, owner, tids))
-    rows.append(dict(
-        name="fused_topk", route="cuda",
-        source="src/repro_torch/csrc/fused_topk.cu",
-        replaces="src/repro/kernels/fused_topk.py:86", max_abs_err=err,
-        ms=time_ms(lambda: fused(q_eo, db.msb_plane)),
-        plain_ms=time_ms(lambda: fused_plain(q_eo, db.msb_plane)),
-        bound_ms=t_bound, bound_by=by, library_ms=time_ms(lib)))
+    lib_ms = time_ms(lib)
+    for name, fn in (("fused_topk_mma", fused_mma),
+                     ("fused_topk", fused_dp4a)):
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/fused_topk.cu",
+            replaces="src/repro/kernels/fused_topk.py:86",
+            max_abs_err=errs[name],
+            ms=time_ms(lambda: fn(q_eo, db.msb_plane)),
+            plain_ms=time_ms(lambda: fused_plain(q_eo, db.msb_plane)),
+            bound_ms=t_bound, bound_by=by, library_ms=lib_ms))
+    # Scoring against selection: each kernel unmasked and masked at k = 8
+    # and k = 1 (one pick per lane and block), event and device-only time.
+    for name, fn, symbol in (
+            ("fused_topk_mma", fused_mma, "::fused_mma_kernel<"),
+            ("fused_topk", fused_dp4a, "::fused_kernel<")):
+        for kk in (FUSED_K, 1):
+            for label, args in (("unmasked", full_args[0]),
+                                ("masked", full_args[1])):
+                bound_k, _ = bound_ms(
+                    B * D + N * d2 + 2 * B * nb * kk * 4
+                    + (N * 4 + B * 4 if len(args) > 2 else 0), 2 * B * N * D)
+                log(f"kernel {name} split: k={kk} {label}: kernel_ms "
+                    f"{time_ms(lambda: fn(*args, k=kk)):.4f} device_only_us "
+                    f"{kernel_device_us(lambda: fn(*args, k=kk), symbol)} "
+                    f"bound_us {bound_k * 1e3:.2f}")
 
     device_only = {
         "stage1_single": kernel_device_us(
@@ -935,15 +1008,17 @@ def phase_new_kernels(db, q_codes, gold, dev) -> list[dict]:
         "stage0_sign_plane": kernel_device_us(
             lambda: stage0_sign_batched(q_sign, db.sign_plane),
             "sign_plane_kernel"),
+        "fused_topk_mma": kernel_device_us(
+            lambda: fused_mma(q_eo, db.msb_plane), "::fused_mma_kernel<"),
         "fused_topk": kernel_device_us(
-            lambda: fused(q_eo, db.msb_plane), "fused_kernel"),
+            lambda: fused_dp4a(q_eo, db.msb_plane), "::fused_kernel<"),
     }
-    masked_us = kernel_device_us(
-        lambda: fused(q_eo, db.msb_plane, owner, tids), "fused_kernel")
+    yardstick = (" (library yardstick: the plane scan, on the tensor-core "
+                 "kernel at this B, then torch.topk of each block)")
     for r in rows:
-        note = {"fused_topk": " (library yardstick: the plane scan, on the "
-                              "tensor-core kernel at this B, then "
-                              "torch.topk of each block)",
+        note = {"fused_topk_mma": yardstick,
+                "fused_topk": " (the dp4a kernel, which this shape no longer "
+                              "takes; same yardstick)",
                 "fused_topk_single": " (library yardstick: the plane kernel "
                                      "at B = 1, then torch.topk of each "
                                      "block)"}.get(r["name"], "")
@@ -951,8 +1026,6 @@ def phase_new_kernels(db, q_codes, gold, dev) -> list[dict]:
             f"{r['plain_ms']:.4f} bound_us {r['bound_ms'] * 1e3:.2f} "
             f"({r['bound_by']}) library_ms {r['library_ms']} "
             f"device_only_us {device_only[r['name']]}{note}")
-    log(f"kernel fused_topk masked ({USERS} tenants, one padding lane): "
-        f"kernel_ms {masked_ms:.4f} device_only_us {masked_us}")
     return rows
 
 

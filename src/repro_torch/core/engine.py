@@ -118,6 +118,8 @@ class StageFns:
     centroid: stage-0 codebook scoring, the plane scan over (K, D/2)
     exact:    stage-2 INT8 rescore of candidate ids (B, D) x 2 (N, D/2)
               planes + (B, C) int32 ids -> (B, C); ids clamp to [0, N - 1]
+              as JAX's indexing clamps (the reference's `jnp.take` fills;
+              the engine never passes an id >= N)
     sign_gather / sign_gather_resident: the sign prescreen's block gathers
               over the packed (N, D/8) sign plane; zero bytes score
               sum(q_sign)

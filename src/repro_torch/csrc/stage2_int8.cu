@@ -17,9 +17,10 @@
 //
 // Two forms, one body. By id (the engine's): candidate (b, c) is row
 // ids[b, c] of the full (N, D/2) planes, clamped to [0, N - 1] as JAX's
-// gather clamps, read in place. Gathered (the reference's interface, and
-// the single-query form): row b * C + c of (B * C, D/2) rows the caller
-// copied out.
+// indexing (x[ids]) clamps, read in place; the reference engine's jnp.take
+// fills instead, and the engine never passes an id >= N. Gathered (the
+// reference's interface, and the single-query form): row b * C + c of
+// (B * C, D/2) rows the caller copied out.
 //
 // What bounds it on an H100 at B = 32, C = 50, D = 512: it reads
 // 2 * B * C * D/2 = 800 KiB of candidate rows, under a microsecond of

@@ -133,7 +133,9 @@ def stage2_scores_by_id_ref(q_eo8: torch.Tensor, msb_plane: torch.Tensor,
                             ids: torch.Tensor) -> torch.Tensor:
     """The exact kernel by id: q_eo8 (B, 2, D//2), msb/lsb_plane (N, D//2),
     ids (B, C) int32 -> (B, C) int32. Ids are clamped to [0, N - 1], as
-    JAX's gather clamps them, then the rows are gathered and scored."""
+    JAX's indexing `x[ids]` clamps them (the reference engine's `jnp.take`
+    fills instead; the engine never passes an id >= N), then the rows are
+    gathered and scored."""
     safe = ids.clamp(0, msb_plane.shape[0] - 1).long()
     return stage2_scores_batched_ref(q_eo8, msb_plane[safe], lsb_plane[safe])
 

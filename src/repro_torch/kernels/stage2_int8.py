@@ -48,8 +48,9 @@ def stage2_int8_by_id(q_eo8: torch.Tensor, msb_plane: torch.Tensor,
                       ids: torch.Tensor) -> torch.Tensor:
     """q_eo8 (B, 2, D//2) int8 full query values [even; odd], msb/lsb_plane
     (N, D//2) uint8 full planes, ids (B, C) int32 candidate rows, clamped
-    to [0, N - 1] as JAX's gather clamps -> (B, C) int32; no row is
-    copied."""
+    to [0, N - 1] (as JAX's indexing `x[ids]` clamps; the reference
+    engine's `jnp.take` fills instead, and the engine never passes an id
+    >= N) -> (B, C) int32; no row is copied."""
     if _on_cpu(msb_plane):
         return ref.stage2_scores_by_id_ref(q_eo8, msb_plane, lsb_plane, ids)
     return _exact("stage2_by_id", q_eo8, msb_plane, lsb_plane, 2, ids)

@@ -17,7 +17,7 @@ from repro_torch.core.engine import (MaskedPolicy, PlainPolicy,
                                      RetrievalEngine, WindowedPolicy)
 from repro_torch.core.retrieval import RetrievalConfig, cluster_pruned_retrieve
 from repro_torch.data import retrieval_corpus
-from repro_torch.kernels import autotune, ops, ref
+from repro_torch.kernels import autotune, fused_topk, ops, ref
 from repro_torch.kernels.fused_topk import (fused_topk_batched,
                                             fused_topk_single)
 from repro_torch.kernels.stage0_sign import (stage0_sign_batched,
@@ -37,7 +37,7 @@ ZERO_COUNTS = {"stage1_plane": 0, "stage1_rows": 0, "stage2_exact": 0,
                "stage1_single": 0, "stage2_single": 0,
                "stage0_sign_plane": 0, "fused_topk": 0,
                "fused_topk_single": 0, "stage1_plane_mma": 0,
-               "stage2_by_id": 0}
+               "stage2_by_id": 0, "fused_topk_mma": 0}
 INT32_MIN = -(2 ** 31)
 
 
@@ -358,8 +358,126 @@ def test_fused_kernel_matches_plain(cuda_device, b, n, d, block, k):
     want = ref.fused_topk_ref(q_eo[0], plane, block, k)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     torch.cuda.synchronize()
-    assert ops.launch_counts() == dict(ZERO_COUNTS, fused_topk=2,
-                                       fused_topk_single=1)
+    batched = ("fused_topk_mma"
+               if fused_topk._fused_mma_lanes(b, d // 2, block, k)
+               else "fused_topk")
+    assert ops.launch_counts() == dict(ZERO_COUNTS, fused_topk_single=1,
+                                       **{batched: 2})
+
+
+@pytest.mark.gpu
+def test_fused_mma_lane_tile_by_shape(cuda_device):
+    """The tensor-core fused launcher takes B >= 2, D/2 % 16 == 0 and
+    block_n of 128, 256, 512, 1024 with the smallest of 8, 16, 32 lanes that
+    covers B (16 at most at block_n = 1024), shrunk until a block's ring,
+    panels and key tile fit in shared memory, and answers 0 for every other
+    shape; the wrapper launches the kernel it names."""
+    lanes = fused_topk._fused_mma_lanes
+    assert lanes(1, 256, 512, 8) == 0
+    assert lanes(2, 256, 512, 8) == 8
+    assert lanes(9, 256, 512, 8) == 16
+    assert lanes(32, 256, 512, 8) == 32
+    assert lanes(33, 256, 512, 8) == 32
+    assert lanes(33, 256, 1024, 8) == 16
+    assert lanes(32, 512, 512, 8) == 16      # D = 1024: 32 lanes do not fit
+    assert lanes(32, 256, 512, 0) == 0
+    assert lanes(32, 18, 512, 8) == 0
+    for block in (64, 100, 2048):
+        assert lanes(32, 256, block, 8) == 0
+    assert lanes(32, 1 << 16, 128, 8) == 0   # panels past shared memory
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(7),
+                 cuda_device)
+    plane = rand((1000, 256), 0, 256, torch.uint8)
+    for b, block in ((1, 512), (2, 512), (32, 512), (32, 100), (9, 1024)):
+        q_eo = rand((b, 2, 256), -8, 8, torch.int8)
+        ops.reset_launch_counts()
+        fused_topk_batched(q_eo, plane, k=8, block_n=block)
+        key = "fused_topk_mma" if lanes(b, 256, block, 8) else "fused_topk"
+        assert ops.launch_counts() == dict(ZERO_COUNTS, **{key: 1})
+    q_eo = torch.zeros((4, 2, 9), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="does not take B = 4, D/2 = 9"):
+        fused_topk._fused(q_eo, plane[:, :9].contiguous(), None, None, 8, 512,
+                          route="mma")
+
+
+FUSED_MMA_BATCHES = (2, 9, 32, 33)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [128, 256, 512, 1024])
+@pytest.mark.parametrize("d", [32, 512, 1024])
+def test_fused_mma_kernel_matches_plain_and_dp4a(cuda_device, block, d):
+    """The tensor-core fused kernel, bit-exact against the plain version and
+    the dp4a kernel on the same inputs, masked (a lane with tid < 0, a fully
+    masked block, a tenant with 3 rows) and unmasked, at every lane tile and
+    padding lanes (B = 2, 9, 32, 33), one and several slabs (D = 32, 512,
+    1024), ragged N (N % block_n != 0, N % 4 != 0, N below one block) and
+    k of 1, 8, 50 and above block_n."""
+    gen = torch.Generator(device=cuda_device).manual_seed(block + d)
+    rand = _rand(gen, cuda_device)
+    for n in (3 * block + 1, block // 2 + 3):
+        plane = rand((n, d // 2), 0, 256, torch.uint8)
+        owner = rand((n,), 0, 3, torch.int32)
+        owner[owner == 1] = 2
+        first = block if n > block else 0    # block 0 fully masked
+        owner[:first] = -1
+        owner[first + torch.randperm(n - first, generator=gen,
+                                     device=cuda_device)[:3]] = 1
+        for b in FUSED_MMA_BATCHES:
+            q_eo = rand((b, 2, d // 2), -8, 8, torch.int8)
+            tids = rand((b,), 0, 3, torch.int32)
+            tids[-1] = -1
+            tids[0] = 1
+            for k in (1, 8, 50, block + 3):
+                assert fused_topk._fused_mma_lanes(b, d // 2, block, k)
+                for mask in ((), (owner, tids)):
+                    ops.reset_launch_counts()
+                    got = fused_topk._fused(q_eo, plane, *(mask or (None,
+                                                                    None)),
+                                            k, block, route="mma")
+                    torch.cuda.synchronize()
+                    assert ops.launch_counts()["fused_topk_mma"] == 1
+                    want = ref.fused_topk_batched_ref(q_eo, plane, block, k,
+                                                      *mask)
+                    dp4a = fused_topk._fused(q_eo, plane,
+                                             *(mask or (None, None)), k,
+                                             block, route="dp4a")
+                    note = (b, n, d, block, k, bool(mask))
+                    for g, w, p in zip(got, want, dp4a):
+                        assert torch.equal(g, w), note
+                        assert torch.equal(g, p), note
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [128, 256, 512, 1024])
+def test_fused_mma_kernel_near_the_key_limit(cuda_device, block):
+    """At the widest D the launcher takes for each block_n (|score| up to
+    64 * D, so the 32-bit keys come nearest their limit): all-(-8)
+    nibbles against all-(-8) and all-7 panels (every row ties, so the
+    picks are the block's first rows) and random ones, against the plain
+    version."""
+    d2 = 16
+    while fused_topk._fused_mma_lanes(2, d2 + 16, block, 8):
+        d2 += 16
+    assert fused_topk._fused_mma_lanes(2, d2, block, 8) == 8
+    n = 2 * block + 7
+    extreme = torch.full((n, d2), 0x88, dtype=torch.uint8,
+                         device=cuda_device)
+    for fill in (-8, 7):
+        q_eo = torch.full((2, 2, d2), fill, dtype=torch.int8,
+                          device=cuda_device)
+        got = fused_topk._fused(q_eo, extreme, None, None, 8, block,
+                                route="mma")
+        want = ref.fused_topk_batched_ref(q_eo, extreme, block, 8)
+        assert int(want[0][0, 0, 0]) == 2 * d2 * (-8) * fill
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(block),
+                 cuda_device)
+    plane = rand((n, d2), 0, 256, torch.uint8)
+    q_eo = rand((3, 2, d2), -8, 8, torch.int8)
+    got = fused_topk._fused(q_eo, plane, None, None, 8, block, route="mma")
+    want = ref.fused_topk_batched_ref(q_eo, plane, block, 8)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.gpu

@@ -120,8 +120,9 @@ def test_exact_by_id_plain_matches_pallas(b, c, n, d):
     """The by-id exact rescore's plain version against the Pallas kernel
     on the reference's own gather: holes (-1) read row 0, as the reference
     engine's `jnp.maximum(cand, 0)` makes them, and ids at or past N read
-    row N - 1, as JAX's indexing gather clamps them. D/2 is odd at D = 250
-    and 6."""
+    row N - 1, as JAX's indexing (`x[ids]`) clamps them; the reference
+    engine's `jnp.take` would fill them instead, but the engine never
+    passes an id >= N. D/2 is odd at D = 250 and 6."""
     rng = np.random.default_rng(b * 1000 + n + d)
     q = rng.integers(-128, 128, (b, d)).astype(np.int8)
     msb = rng.integers(0, 256, (n, d // 2)).astype(np.uint8)
@@ -171,6 +172,55 @@ def test_plane_scan_routes_on_the_launchers_answer(monkeypatch):
     with pytest.raises(ValueError, match="route must be one of"):
         stage1_int4._plane(q, plane, 256, route="wgmma")
     assert len(calls) == 4
+
+
+def test_fused_topk_routes_on_the_launchers_answer(monkeypatch):
+    """The batched fused top-k asks the tensor-core launcher for its lane
+    tile (`_fused_mma_lanes`, with B, D/2, block_n and k) and launches that
+    kernel (counted `fused_topk_mma`, mma flag 1) when the answer is not 0,
+    else dp4a (flag 0); the single-query form and a forced dp4a never ask,
+    and only the dp4a route meets the dp4a kernel's shared-memory limit.
+    Asking for the tensor-core kernel at a shape it does not take, or for a
+    route that does not exist, raises naming it."""
+    calls = _capture_launches(monkeypatch)
+    asked, answer = [], [0]
+
+    def lanes(b, d2, block_n, k):
+        asked.append((b, d2, block_n, k))
+        return answer[0]
+    monkeypatch.setattr(fused_topk, "_fused_mma_lanes", lanes)
+    q = torch.zeros((4, 2, 32), dtype=torch.int8)
+    plane = torch.zeros((600, 32), dtype=torch.uint8)
+    owner = torch.zeros((600,), dtype=torch.int32)
+    tids = torch.zeros((4,), dtype=torch.int32)
+    s, i = fused_topk.fused_topk_batched(q, plane, k=3, block_n=512)
+    assert s.shape == i.shape == (4, 2, 3)
+    answer[0] = 8
+    s, i = fused_topk.fused_topk_batched(q, plane, owner, tids, k=5,
+                                         block_n=256)
+    assert s.shape == i.shape == (4, 3, 5)
+    assert fused_topk._fused(q, plane, None, None, 3, 512,
+                             route="dp4a")[0].shape == (4, 2, 3)
+    s, i = fused_topk.fused_topk_single(q[0], plane, k=2, block_n=128)
+    assert s.shape == i.shape == (5, 2)
+    assert asked == [(4, 32, 512, 3), (4, 32, 256, 5)]
+    assert [c for c, _ in calls] == ["fused_topk", "fused_topk_mma",
+                                     "fused_topk", "fused_topk_single"]
+    assert [args[-1] for _, args in calls] == [0, 1, 0, 0]
+    assert [args[-3:-1] for _, args in calls] == [(512, 3), (256, 5),
+                                                  (512, 3), (128, 2)]
+    too_big = SMEM_BYTES // 4
+    assert fused_topk._fused(q, plane, None, None, 1, too_big,
+                             route="mma")[0].shape == (4, 1, 1)
+    with pytest.raises(ValueError, match="above what one thread block"):
+        fused_topk._fused(q, plane, None, None, 1, too_big, route="dp4a")
+    answer[0] = 0
+    with pytest.raises(ValueError, match="does not take B = 4, D/2 = 32, "
+                                         "block_n = 512, k = 3"):
+        fused_topk._fused(q, plane, None, None, 3, 512, route="mma")
+    with pytest.raises(ValueError, match="route must be one of"):
+        fused_topk._fused(q, plane, None, None, 3, 512, route="wgmma")
+    assert len(calls) == 5
 
 
 def test_exact_plain_is_the_int8_dot_product():
@@ -225,11 +275,13 @@ def test_wrappers_raise_for_devices_without_a_kernel():
                            block_rows=2)
 
 
-def _capture_launches(monkeypatch, mma_lanes: int = 0) -> list:
+def _capture_launches(monkeypatch, mma_lanes: int = 0,
+                      fused_lanes: int = 0) -> list:
     """Runs the wrappers' CUDA branch on CPU tensors up to the launch: every
     check a CUDA tensor meets runs, and each launch is recorded (counter,
     C arguments) instead of reaching a kernel. The tensor-core plane
-    launcher answers `mma_lanes` for every shape it is asked about."""
+    launcher answers `mma_lanes` for every shape it is asked about, the
+    tensor-core fused launcher `fused_lanes`."""
     calls = []
     for mod in (stage1_int4, stage1_gather, stage2_int8, stage0_sign,
                 fused_topk):
@@ -237,6 +289,8 @@ def _capture_launches(monkeypatch, mma_lanes: int = 0) -> list:
     monkeypatch.setattr(_build, "function", lambda *a: None)
     monkeypatch.setattr(stage1_int4, "_mma_lanes",
                         lambda b, d2, rows: mma_lanes)
+    monkeypatch.setattr(fused_topk, "_fused_mma_lanes",
+                        lambda b, d2, block_n, k: fused_lanes)
     monkeypatch.setattr(_build, "launch",
                         lambda counter, fn, *args, device: calls.append(
                             (counter, args)))
@@ -324,7 +378,8 @@ def test_launch_counters_reset_and_do_not_count_the_plain_path():
         "stage1_plane": 0, "stage1_rows": 0, "stage2_exact": 0,
         "stage1_gather": 0, "stage0_sign_gather": 0, "stage1_single": 0,
         "stage2_single": 0, "stage0_sign_plane": 0, "fused_topk": 0,
-        "fused_topk_single": 0, "stage1_plane_mma": 0, "stage2_by_id": 0}
+        "fused_topk_single": 0, "stage1_plane_mma": 0, "stage2_by_id": 0,
+        "fused_topk_mma": 0}
 
 
 # ---------------------------------------------------------------------------
