@@ -16,7 +16,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
                rows, gather, exact and fused kernels); times from CUDA
                events (median of 20 after warm-up). The plane scan on both
                of its kernels (tensor-core and dp4a, and their times at
-               B = 2, 4, 8: the crossover), the exact rescore in both forms
+               B = 2, 4, 8: the crossover), the block gather on both of its
+               kernels (TMA and dp4a, held to each other, and both timed
+               with the L2 flushed before each call as well), the exact
+               rescore in both forms
                (gathered rows and by id, held to each other).
   5. main    — B = 32 query batches through `RetrievalEngine.retrieve`
                with the Plain (cosine, MIPS), Masked (512 tenants) and
@@ -57,9 +60,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
                `RetrievalEngine.retrieve` with `ClusterPolicy(nprobe=8)`:
                cosine, MIPS, and cosine with the sign prescreen at
                C0 = 2048; counted, checked against the plain backend and
-               the planted gold like the main phase, then freed.
+               the planted gold like the main phase; then cluster MIPS
+               with the block gather on its TMA kernel and on dp4a in
+               turns in this one process (the redesign end to end).
 
-Then the exact wrappers' host microseconds per call (`host_us_per_call`).
+Then the exact wrappers' and the block gather's host microseconds per
+call (`host_us_per_call`).
 The line before the last is a JSON object describing every kernel
 (launches: the sum over the main, autotune and cluster paths); the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
@@ -75,6 +81,7 @@ import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import torch
 
@@ -88,7 +95,7 @@ from repro_torch.core.engine import (ClusterPolicy,  # noqa: E402
 from repro_torch.core.retrieval import RetrievalConfig  # noqa: E402
 from repro_torch.core.similarity import stable_topk  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    _build, autotune, fused_topk, ops, ref, stage1_int4)
+    _build, autotune, fused_topk, ops, ref, stage1_gather, stage1_int4)
 from repro_torch.kernels.fused_topk import (  # noqa: E402
     fused_topk_batched, fused_topk_single)
 from repro_torch.kernels.stage0_sign import (  # noqa: E402
@@ -112,9 +119,10 @@ CLUSTERS, CLUSTER_ROWS, SPREAD = 1024, 1024, 0.2
 BLOCK_ROWS, NPROBE, PRESCREEN_C0 = 64, 8, 2048
 MAIN_KERNELS = ("stage1_plane_mma", "stage1_rows", "stage2_by_id")
 # Kernels the main and cluster paths must not launch: at B = 32, D = 512
-# the plane scan takes the tensor-core kernel, and the exact stage reads
-# candidates by id (no gathered-rows form, so no index gathers before it).
-OFF_PATH_KERNELS = ("stage1_plane", "stage2_exact")
+# the plane scan takes the tensor-core kernel, the block gather the TMA
+# kernel, and the exact stage reads candidates by id (no gathered-rows
+# form, so no index gathers before it).
+OFF_PATH_KERNELS = ("stage1_plane", "stage2_exact", "stage1_gather_dp4a")
 # The autotune path: the autotuner and the single-query entry points.
 TUNE_KERNELS = ("stage1_plane", "stage1_plane_mma", "stage1_rows",
                 "stage1_single", "stage2_single", "stage0_sign_plane",
@@ -209,14 +217,16 @@ def phase_card() -> None:
 # The instances the D = 512 paths launch (mangled template arguments):
 # every instance of the tensor-core plane and fused kernels (rows per tile
 # x lane tile: 8, 16 or 32 lanes by B, at most 16 at 1024 rows), the dp4a
-# plane kernel's 32- and 1-lane ones.
+# plane kernel's 32- and 1-lane ones, the TMA gather (no template: its
+# name ends in E).
 MAIN_INSTANCES = tuple(
     f"{kernel}_kernelILi{rows}ELi{nt}EE"
     for kernel in ("plane_mma", "fused_mma")
     for rows in (256, 128, 512, 1024) for nt in (4, 2, 1)
     if rows < 1024 or nt < 4) + (
     "plane_kernelILi32ELi256ELi0ELb0EE", "plane_kernelILi1ELi256ELi0ELb0EE",
-    "rows_kernelILi256ELi0ELb0EE", "gather_kernelILi0ELb0EE",
+    "rows_kernelILi256ELi0ELb0EE", "gather_tma_kernelE",
+    "gather_kernelILi0ELb0EE",
     "exact_kernelILi1EE", "sign_gather_kernelILi16EE",
     "sign_plane_kernelILi32ELi256ELi16EE", "fused_kernelILi32ELi0ELb0EE",
     "fused_kernelILi1ELi0ELb0EE")
@@ -231,9 +241,9 @@ def phase_build() -> None:
         regs, spills, kernel = {}, [], ""
         for line in text.splitlines():
             entry = re.search(r"((?:plane_wide|sign_plane|plane_mma|plane|"
-                              r"rows|sign_gather|gather|exact|fused_mma|"
-                              r"fused)"
-                              r"_kernelI.*?EE)", line)
+                              r"rows|sign_gather|gather_tma|gather|exact|"
+                              r"fused_mma|fused)"
+                              r"_kernel(?:I.*?EE|E))", line)
             if "Compiling entry function" in line and entry:
                 kernel = entry.group(1)
             used = re.search(r"Used (\d+) registers", line)
@@ -502,52 +512,94 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
 
     _check_widths(gen, dev)
 
-    # -- gather: stage 1 over the cluster path's per-lane block tables -----
+    # -- gather: stage 1 over the cluster path's per-lane block tables, on --
+    # the TMA kernel (the route at D = 512, 64-row blocks) and on dp4a.
     ids = _cluster_like_ids(gen, dev)
     j = ids.shape[1]
     r_view = j * BLOCK_ROWS
     view = bitplanar.expand_block_rows(ids, BLOCK_ROWS)
     uniq_rows = int(torch.unique(view[view < N]).numel())
+    if not stage1_gather._tma_takes(N, d2, BLOCK_ROWS):
+        raise AssertionError(f"the block gather at D={D} BR={BLOCK_ROWS} "
+                             "does not take the TMA kernel")
 
-    def gather(qe, plane, block_ids):
-        return stage1_int4_gather(qe, plane, block_ids,
-                                  block_rows=BLOCK_ROWS)
+    def gather_on(route):
+        def run(qe, plane, block_ids, br=BLOCK_ROWS):
+            return stage1_gather._gather(qe, plane, block_ids, br,
+                                         route=route)
+        return run
 
-    def gather_plain(qe, plane, block_ids):
-        return ref.stage1_gather_batched_ref(qe, plane, block_ids, BLOCK_ROWS)
+    gather_tma, gather_dp4a = gather_on("tma"), gather_on("dp4a")
 
-    err = _check_kernel("stage1_gather", gather, gather_plain,
-                        (q_eo, db.msb_plane, ids),
-                        f"B={B} J={j} BR={BLOCK_ROWS} D={D}")
+    def gather_plain(qe, plane, block_ids, br=BLOCK_ROWS):
+        return ref.stage1_gather_batched_ref(qe, plane, block_ids, br)
+
+    gather_args = (q_eo, db.msb_plane, ids)
+    errs = {name: _check_kernel(name, fn, gather_plain, gather_args,
+                                f"B={B} J={j} BR={BLOCK_ROWS} D={D}")
+            for name, fn in (("stage1_gather", gather_tma),
+                             ("stage1_gather_dp4a", gather_dp4a))}
+    if not torch.equal(gather_tma(*gather_args), gather_dp4a(*gather_args)):
+        raise AssertionError("the TMA gather disagrees with the dp4a gather "
+                             f"at B={B} J={j} BR={BLOCK_ROWS} D={D}")
     for bb, nn, dd, br in ((1, 1000, 64, 64), (3, 4099, 200, 8),
-                           (33, 777, 512, 32), (3, 300, 512, 64)):
+                           (33, 777, 512, 32), (3, 300, 512, 64),
+                           (33, 4099, 512, 128), (32, 777, 64, 256),
+                           (3, 1000, 800, 64)):
         p = torch.randint(0, 256, (nn, dd // 2), generator=gen, device=dev,
                           dtype=torch.uint8)
         qe = torch.randint(-8, 8, (bb, 2, dd // 2), generator=gen,
                            device=dev, dtype=torch.int8)
-        _check_kernel("stage1_gather",
-                      lambda a, b_, c: stage1_int4_gather(a, b_, c,
-                                                          block_rows=br),
-                      lambda a, b_, c: ref.stage1_gather_batched_ref(
-                          a, b_, c, br),
-                      (qe, p, _ragged_ids(gen, dev, bb, nn, br)),
-                      f"B={bb} N={nn} D={dd} BR={br}")
+        args = (qe, p, _ragged_ids(gen, dev, bb, nn, br))
+        takes = stage1_gather._tma_takes(nn, dd // 2, br)
+        routes = (("stage1_gather", gather_tma),) if takes else ()
+        for name, fn in routes + (("stage1_gather_dp4a", gather_dp4a),):
+            _check_kernel(name, lambda a, b_, c: fn(a, b_, c, br),
+                          lambda a, b_, c: gather_plain(a, b_, c, br), args,
+                          f"B={bb} N={nn} D={dd} BR={br}")
+        log(f"kernel stage1_gather: B={bb} N={nn} D={dd} BR={br} route "
+            f"{'tma' if takes else 'dp4a'}: bit-exact"
+            f"{', and equal to dp4a' if takes else ''}")
     gathered, _ = bitplanar.gather_blocks(db.msb_plane, ids, BLOCK_ROWS)
     gat_f = bitplanar.unpack_nibble_plane_signed(
         gathered.reshape(B * r_view, d2)).reshape(B, r_view, D).float()
     lib_ms = _library_ms("stage1_gather", lambda: torch.bmm(gat_f, q_col),
-                         gather(q_eo, db.msb_plane, ids))
+                         gather_tma(*gather_args))
     del gathered, gat_f
     t_bound, by = bound_ms(2 * B * d2 + B * j * 4 + uniq_rows * d2
                            + B * r_view * 4, 2 * B * r_view * D)
-    rows.append(dict(
-        name="stage1_gather", route="cuda",
-        source="src/repro_torch/csrc/stage1_int4.cu",
-        replaces="src/repro/kernels/stage1_gather.py:65",
-        max_abs_err=err,
-        ms=time_ms(lambda: gather(q_eo, db.msb_plane, ids)),
-        plain_ms=time_ms(lambda: gather_plain(q_eo, db.msb_plane, ids)),
-        bound_ms=t_bound, bound_by=by, library_ms=lib_ms))
+    plain_ms = time_ms(lambda: gather_plain(*gather_args))
+    for name, fn, source in (
+            ("stage1_gather", gather_tma,
+             "src/repro_torch/csrc/stage1_gather.cu"),
+            ("stage1_gather_dp4a", gather_dp4a,
+             "src/repro_torch/csrc/stage1_int4.cu")):
+        rows.append(dict(
+            name=name, route="cuda", source=source,
+            replaces="src/repro/kernels/stage1_gather.py:65",
+            max_abs_err=errs[name], ms=time_ms(lambda: fn(*gather_args)),
+            plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+            library_ms=lib_ms))
+    # Both gathers with none of their inputs in L2: a 256 MiB write (the
+    # H100's L2 holds 50 MB) before each call, outside the timed kernel.
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def cold(fn):
+        def run():
+            flush.zero_()
+            return fn(*gather_args)
+        return run
+
+    cold_us = {name: kernel_device_us(cold(fn), symbol)
+               for name, fn, symbol in (
+                   ("tma", gather_tma, "gather_tma_kernel"),
+                   ("dp4a", gather_dp4a, "::gather_kernel<"))}
+    del flush
+    all_rows_ms, _ = bound_ms(2 * B * d2 + B * j * 4 + B * r_view * d2
+                              + B * r_view * 4, 0)
+    log(f"kernel stage1_gather cold L2: device_only_us {cold_us['tma']} "
+        f"(dp4a {cold_us['dp4a']}; every gathered row read once from "
+        f"device memory: {all_rows_ms * 1e3:.2f} us)")
 
     # -- sign gather: the prescreen over the same block tables -------------
     q_sign = ops.pack_query_signs(q)
@@ -608,7 +660,9 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
         "stage2_by_id": kernel_device_us(
             lambda: stage2_int8_by_id(*by_id_args), "exact_kernel"),
         "stage1_gather": kernel_device_us(
-            lambda: gather(q_eo, db.msb_plane, ids), "gather_kernel"),
+            lambda: gather_tma(*gather_args), "gather_tma_kernel"),
+        "stage1_gather_dp4a": kernel_device_us(
+            lambda: gather_dp4a(*gather_args), "::gather_kernel<"),
         "stage0_sign_gather": kernel_device_us(
             lambda: sign(q_sign, db.sign_plane, ids), "sign_gather_kernel"),
     }
@@ -617,6 +671,8 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
                             "pre-unpacked int8 plane)",
         "stage1_plane": " (the dp4a kernel, which the main path no longer "
                         "takes at this shape; same yardstick)",
+        "stage1_gather_dp4a": " (the dp4a kernel, which the cluster path no "
+                              "longer takes at this shape; same yardstick)",
         "stage2_by_id": " (library yardstick: the two index gathers of the "
                         "candidate rows, then torch.bmm on their pre-rebuilt "
                         "INT8 rows)"}
@@ -669,13 +725,18 @@ def _check_widths(gen, dev) -> None:
                               lambda a, b_: ref.fused_topk_batched_ref(
                                   a, b_, blk, 5), (qe, p),
                               f"B={bb} N=1000 D={dd} block_n={blk} k=5")
-            _check_kernel("stage1_gather",
-                          lambda a, b_, c: stage1_int4_gather(
-                              a, b_, c, block_rows=64),
-                          lambda a, b_, c: ref.stage1_gather_batched_ref(
-                              a, b_, c, 64),
-                          (qe, p, _ragged_ids(gen, dev, bb, 1000, 64)),
-                          f"B={bb} N=1000 D={dd} BR=64")
+            tma = stage1_gather._tma_takes(1000, d2, 64)
+            for label, fn in (
+                    (f"auto: {'tma' if tma else 'dp4a'}",
+                     lambda a, b_, c: stage1_int4_gather(a, b_, c,
+                                                         block_rows=64)),
+                    ("dp4a", lambda a, b_, c: stage1_gather._gather(
+                        a, b_, c, 64, route="dp4a"))):
+                _check_kernel(f"stage1_gather ({label})", fn,
+                              lambda a, b_, c: ref.stage1_gather_batched_ref(
+                                  a, b_, c, 64),
+                              (qe, p, _ragged_ids(gen, dev, bb, 1000, 64)),
+                              f"B={bb} N=1000 D={dd} BR=64")
             r = torch.randint(0, 256, (bb, 77, d2), generator=gen,
                               device=dev, dtype=torch.uint8)
             _check_kernel("stage1_rows", stage1_int4_rows,
@@ -696,7 +757,8 @@ def _check_widths(gen, dev) -> None:
                           ref.stage2_scores_by_id_ref, (q8, p, p, ids),
                           f"B={bb} C=13 N=1000 D={dd}")
     log(f"widths: plane (tensor-core and dp4a), fused (block_n = 300 on dp4a, "
-        f"256 on the tensor cores where D/2 % 16 == 0 and B > 1), gather, "
+        f"256 on the tensor cores where D/2 % 16 == 0 and B > 1), gather "
+        f"(TMA where D/2 % 16 == 0, and dp4a), "
         f"rows, exact and by-id exact kernels bit-exact at D in {WIDTHS} "
         "(B = 1, 5; "
         "B = 40 at D = 8192)")
@@ -1325,16 +1387,47 @@ def phase_cluster(dev) -> dict[str, int]:
     ]
     launches = _serve("cluster", variants, CLUSTER_KERNELS, qdb, db, q_codes,
                       gold, dev)
+    _gather_in_turns(variants[1], db, q_codes, dev)
     del qdb, db, q_codes, gold, codebook, policy, variants
     torch.cuda.empty_cache()
     return launches
 
 
-# Host cost of the exact wrappers: HOST_CALLS back-to-back calls at the
-# main path's shapes (B = 32, C = 50, D = 512; one query for the single
-# form), one synchronize at the end, microseconds per call; beside them
-# torch.bmm and torch.mv, the yardsticks' calls. The median of three
-# rounds.
+def _gather_in_turns(variant, db, q_codes, dev, rounds: int = 10) -> None:
+    """p50 of BATCHES batches of one cluster variant per round, the block
+    gather on its TMA kernel and (the launcher's answer patched to 0) on
+    dp4a, in turns (TMA first in even rounds): the redesign end to end,
+    free of the spread between processes. After the path's counts were
+    read, so these launches count nowhere."""
+    name, cfg, policy_for = variant
+    engine = RetrievalEngine(cfg, dev)
+    p50 = {"tma": [], "dp4a": []}
+    for rnd in range(rounds):
+        for route in ("tma", "dp4a") if rnd % 2 == 0 else ("dp4a", "tma"):
+            lat = []
+            with mock.patch.object(stage1_gather, "_tma_takes",
+                                   side_effect=lambda *a, tma=(
+                                       route == "tma"): tma):
+                for i in range(BATCHES):
+                    sl = slice(i * B, (i + 1) * B)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    engine.retrieve(q_codes[sl], db, policy_for(sl))
+                    torch.cuda.synchronize()
+                    lat.append(time.perf_counter() - t0)
+            p50[route].append(round(statistics.median(lat) * 1e3, 3))
+    wins = sum(t < d for t, d in zip(p50["tma"], p50["dp4a"], strict=True))
+    log(f"{name} in turns ({rounds} rounds of {BATCHES} batches per "
+        f"kernel): p50_batch_ms on the TMA gather {p50['tma']}, on dp4a "
+        f"{p50['dp4a']}; TMA faster in {wins} of {rounds}")
+
+
+# Host cost of the exact wrappers and of the block gather on each of its
+# kernels: HOST_CALLS back-to-back calls at the main path's shapes (B = 32,
+# C = 50, D = 512; one query for the single form; one lane and one block
+# for the gathers), one synchronize at the end, microseconds per call;
+# beside them torch.bmm and torch.mv, the yardsticks' calls. The median of
+# three rounds.
 def phase_host_us(dev) -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
 
@@ -1350,9 +1443,16 @@ def phase_host_us(dev) -> None:
     docs = torch.randn(B, C, D, device=dev, generator=gen)
     col = torch.randn(B, D, 1, device=dev, generator=gen)
     docs1, col1 = docs[0].contiguous(), col[0, :, 0].contiguous()
+    # The gathers at one lane and one block: the wrapper's host cost, not
+    # the kernel's device time, sets the time per call.
+    q_g, ids_g = q8[:1].contiguous(), ids[:1, :1] // BLOCK_ROWS
     fns = {"stage2_int8_batched": lambda: stage2_int8_batched(q8, mr, lr),
            "stage2_int8_single": lambda: stage2_int8_single(q1, mr1, lr1),
            "stage2_int8_by_id": lambda: stage2_int8_by_id(q8, msb, lsb, ids),
+           "stage1_int4_gather": lambda: stage1_int4_gather(
+               q_g, msb, ids_g, block_rows=BLOCK_ROWS),
+           "stage1_gather_dp4a": lambda: stage1_gather._gather(
+               q_g, msb, ids_g, BLOCK_ROWS, route="dp4a"),
            "torch.bmm": lambda: torch.bmm(docs, col),
            "torch.mv": lambda: torch.mv(docs1, col1)}
     us = {}

@@ -1,6 +1,9 @@
 // The TMA ring and int8 tensor-core scoring of the MSB-nibble plane, shared
 // by the plane scan (stage1_mma.cu, `plane_mma_kernel`) and the fused
-// score + per-block top-k (fused_topk.cu, `fused_mma_kernel`).
+// score + per-block top-k (fused_topk.cu, `fused_mma_kernel`). The block
+// gather (stage1_gather.cu, `gather_tma_kernel`) uses the plane map, the
+// barriers, the loads, the product (`mma_kstep`, with its B fragments in
+// registers) and the grid, with a ring of its own.
 //
 // - The product: mma.sync m16n8k32 s8 x s8 -> s32, M = plane rows, N =
 //   query lanes (8 per n-tile, up to 4 n-tiles), K = 32 bytes of a packed
@@ -158,14 +161,42 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
 }
 
 // acc[mt][nt] += the warp's 64 rows (from row0 of a swizzled box) . lane
-// n-tile nt, over k-steps [0, ksteps) of slab s.
+// n-tile nt over k-step kk of the box's slab: be[nt] / bo[nt] are the
+// thread's B-fragment registers of the even and odd panel (words
+// 8 kk + t and 8 kk + t + 4 of the slab, t = lane % 4).
+template <int NT>
+__device__ __forceinline__ void mma_kstep(uint32_t box, int row0, int kk,
+                                          int lane, const uint2 (&be)[NT],
+                                          const uint2 (&bo)[NT],
+                                          int (&acc)[4][NT][4]) {
+  const int mat = lane >> 3, r = lane & 7;   // ldmatrix: matrix, its row
+  const int chunk = 2 * kk + (mat >> 1);     // 16-byte chunk in the row
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    const int row = row0 + mt * 16 + r + 8 * (mat & 1);
+    uint32_t a[4];
+    ldmatrix_x4(a, box + row * kSlab + ((chunk ^ (row & 7)) << 4));
+    uint32_t v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = (a[i] << 4) & 0xF0F0F0F0u;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mma_s8(acc[mt][nt], v, be[nt].x, be[nt].y);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = a[i] & 0xF0F0F0F0u;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mma_s8(acc[mt][nt], v, bo[nt].x, bo[nt].y);
+  }
+}
+
+// acc[mt][nt] += the warp's 64 rows (from row0 of a swizzled box) . lane
+// n-tile nt, over k-steps [0, ksteps) of slab s, the B fragments read from
+// the lane tile's panels.
 template <int NT>
 __device__ __forceinline__ void mma_box(uint32_t box, int row0,
                                         const uint8_t* panel, int pitch,
                                         int s, int ksteps, int lane,
                                         int (&acc)[4][NT][4]) {
   const int g = lane >> 2, t = lane & 3;
-  const int mat = lane >> 3, r = lane & 7;   // ldmatrix: matrix, its row
   const uint8_t* pe = panel + g * pitch + s * kSlab + 8 * t;
   const uint8_t* po = pe + NT * 8 * pitch;
 #pragma unroll
@@ -177,22 +208,7 @@ __device__ __forceinline__ void mma_box(uint32_t box, int row0,
       be[nt] = *reinterpret_cast<const uint2*>(pe + nt * 8 * pitch + kk * 32);
       bo[nt] = *reinterpret_cast<const uint2*>(po + nt * 8 * pitch + kk * 32);
     }
-    const int chunk = 2 * kk + (mat >> 1);   // 16-byte chunk in the row
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const int row = row0 + mt * 16 + r + 8 * (mat & 1);
-      uint32_t a[4];
-      ldmatrix_x4(a, box + row * kSlab + ((chunk ^ (row & 7)) << 4));
-      uint32_t v[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = (a[i] << 4) & 0xF0F0F0F0u;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) mma_s8(acc[mt][nt], v, be[nt].x, be[nt].y);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = a[i] & 0xF0F0F0F0u;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) mma_s8(acc[mt][nt], v, bo[nt].x, bo[nt].y);
-    }
+    mma_kstep<NT>(box, row0, kk, lane, be, bo, acc);
   }
 }
 

@@ -58,13 +58,14 @@
 // The gather scan is the rows scan with one change: view row r of lane b is
 // plane row ids[b, r / BR] * BR + r % BR, read in place (the Pallas kernel
 // streams the same blocks through scalar prefetch). View rows at or past N
-// score 0 and are never read, so a ragged plane is not padded. At the
-// cluster path's shapes (B = 32 lanes x 8192 view rows, D = 512) it reads
-// 64 MiB of plane rows and writes 1 MiB: about 20 us at 3.35 TB/s, bound by
-// bytes (0.27 G int8 operations). Lanes that probe the same cluster read
-// the same blocks, which may then come from L2. Each thread block owns a
-// run of 256 view rows of one lane; consecutive threads read consecutive
-// rows of a block and store consecutive scores.
+// score 0 and are never read, so a ragged plane is not padded. This dp4a
+// `gather_kernel` serves the shapes the TMA gather of stage1_gather.cu
+// (`gather_tma_kernel`, which the cluster path takes at D = 512, BR = 64)
+// refuses: D/2 % 16 != 0, block_rows not a multiple of 64, N >= 2^31.
+// Each thread block owns a run of 256 view rows of one lane, after it
+// copies the lane's panels to shared memory; thread t reads its own row,
+// so a warp's 16-byte load touches 32 rows. The bound counts the distinct
+// plane rows (17.8 us at the cluster shape, stage1_gather.cu).
 
 #include "nibble.cuh"
 

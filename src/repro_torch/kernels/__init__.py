@@ -3,7 +3,9 @@
   stage1_int4   — the stage-1 INT4 plane, single-query and rows scans
                   (the batched plane scan on the int8 tensor cores of
                   `stage1_mma.cu` where its shape allows)
-  stage1_gather — stage 1 over per-lane block tables (cluster cascade)
+  stage1_gather — stage 1 over per-lane block tables (cluster cascade;
+                  whole blocks by TMA onto the int8 tensor cores in
+                  `stage1_gather.cu` where its shape allows)
   stage2_int8   — the exact INT8 rescore: by candidate id, and on
                   gathered rows (batched and single-query)
   stage0_sign   — the 1-bit sign scans: dense plane and block gather

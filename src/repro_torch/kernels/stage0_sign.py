@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.stage1_gather import check_gather
+from repro_torch.kernels.stage1_gather import check_gather, check_gather_grid
 from repro_torch.kernels.stage1_int4 import (DEFAULT_ROWS, MAX_GRID_Y,
                                              _check, _on_cpu, check_rows,
                                              check_smem)
@@ -85,6 +85,7 @@ def stage0_sign_gather(q_sign: torch.Tensor, sign_plane: torch.Tensor,
     d = _check_signs("sign gather", q_sign, sign_plane, dev)
     n, b = sign_plane.shape[0], q_sign.shape[0]
     j = check_gather(block_ids, b, block_rows, dev)
+    check_gather_grid(b, j, block_rows)
     out = torch.empty((b, j * block_rows), dtype=torch.int32, device=dev)
     if out.numel():
         fn = _build.function("stage0_sign", "stage0_sign_gather_launch",

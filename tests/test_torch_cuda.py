@@ -23,7 +23,7 @@ from repro_torch.kernels.fused_topk import (fused_topk_batched,
 from repro_torch.kernels.stage0_sign import (stage0_sign_batched,
                                              stage0_sign_gather)
 from repro_torch.kernels.stage1_gather import stage1_int4_gather
-from repro_torch.kernels import stage1_int4
+from repro_torch.kernels import stage1_gather, stage1_int4
 from repro_torch.kernels.stage1_int4 import (DEFAULT_ROWS, ROWS_CHOICES,
                                              stage1_int4_batched,
                                              stage1_int4_rows,
@@ -37,7 +37,8 @@ ZERO_COUNTS = {"stage1_plane": 0, "stage1_rows": 0, "stage2_exact": 0,
                "stage1_single": 0, "stage2_single": 0,
                "stage0_sign_plane": 0, "fused_topk": 0,
                "fused_topk_single": 0, "stage1_plane_mma": 0,
-               "stage2_by_id": 0, "fused_topk_mma": 0}
+               "stage2_by_id": 0, "fused_topk_mma": 0,
+               "stage1_gather_dp4a": 0}
 INT32_MIN = -(2 ** 31)
 
 
@@ -247,11 +248,15 @@ def test_kernels_take_every_width(cuda_device, b, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,br,d,n", [(1, 64, 512, 1000), (3, 8, 200, 777),
-                                      (33, 32, 64, 4099), (8, 64, 40, 300)])
+                                      (33, 32, 64, 4099), (8, 64, 40, 300),
+                                      (3, 128, 512, 777), (33, 256, 64, 4099),
+                                      (32, 64, 512, 20000), (5, 64, 36, 700)])
 def test_gather_kernels_match_plain(cuda_device, b, br, d, n):
-    """Both gather kernels over a ragged plane whose last block reads past
-    N, against their plain versions; the resident forms over a plane of
-    whole blocks."""
+    """Both gather kernels (the stage-1 gather on the route its launcher
+    names for the shape: TMA at D/2 % 16 == 0 and block_rows % 64 == 0,
+    else dp4a; and the sign gather) over a ragged plane whose last block
+    reads past N, against their plain versions; the resident forms over a
+    plane of whole blocks."""
     gen = torch.Generator(device=cuda_device).manual_seed(b * n + d)
     codes = torch.randint(-128, 128, (n, d), generator=gen,
                           device=cuda_device, dtype=torch.int8)
@@ -281,8 +286,136 @@ def test_gather_kernels_match_plain(cuda_device, b, br, d, n):
         ref.stage1_gather_resident_ref(q_eo, db.msb_plane[:whole], ids_w, br))
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    assert counts["stage1_gather"] == 2
+    key = ("stage1_gather" if stage1_gather._tma_takes(n, d // 2, br)
+           else "stage1_gather_dp4a")
+    assert (br % 64 == 0 and d % 32 == 0) == (key == "stage1_gather")
+    assert counts[key] == 2
+    assert counts["stage1_gather"] + counts["stage1_gather_dp4a"] == 2
     assert counts["stage0_sign_gather"] == (db.sign_plane is not None)
+
+
+@pytest.mark.gpu
+def test_gather_route_by_shape(cuda_device):
+    """The TMA gather's launcher takes D/2 % 16 == 0, block_rows a
+    multiple of 64 and 0 < N < 2^31, whatever B and J, and answers no for
+    every other shape (those go to the dp4a gather_kernel); the wrapper
+    launches the kernel it names, and refuses to force the TMA kernel on a
+    shape it does not take."""
+    takes = stage1_gather._tma_takes
+    assert takes(1 << 20, 256, 64)
+    assert takes(1, 16, 64) and takes(4099, 32, 256) and takes(77, 768, 512)
+    assert takes((1 << 31) - 1, 256, 64)
+    assert not takes(1 << 31, 256, 64)
+    assert not takes(0, 256, 64)
+    for d2 in (4, 18, 20, 100, 125, 8):
+        assert not takes(1000, d2, 64)
+    for br in (1, 8, 32, 96, 100):
+        assert not takes(1000, 256, br)
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(11),
+                 cuda_device)
+    for n, d2, br, b in ((1000, 256, 64, 32), (1000, 256, 32, 3),
+                         (1000, 100, 64, 3), (300, 16, 128, 1),
+                         (1000, 18, 64, 33)):
+        plane = rand((n, d2), 0, 256, torch.uint8)
+        q_eo = rand((b, 2, d2), -8, 8, torch.int8)
+        ids = rand((b, 4), 0, -(-n // br), torch.int32)
+        ops.reset_launch_counts()
+        got = stage1_int4_gather(q_eo, plane, ids, block_rows=br)
+        torch.cuda.synchronize()
+        key = "stage1_gather" if takes(n, d2, br) else "stage1_gather_dp4a"
+        assert ops.launch_counts() == dict(ZERO_COUNTS, **{key: 1})
+        assert torch.equal(got, ref.stage1_gather_batched_ref(q_eo, plane,
+                                                              ids, br))
+    q_eo = torch.zeros((2, 2, 18), dtype=torch.int8, device=cuda_device)
+    plane = torch.zeros((100, 18), dtype=torch.uint8, device=cuda_device)
+    ids = torch.zeros((2, 1), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="does not take N = 100, D/2 = 18"):
+        stage1_gather._gather(q_eo, plane, ids, 64, route="tma")
+
+
+def _shared_ids(rand, b: int, j: int, nb: int) -> torch.Tensor:
+    """(b, j) block ids over nb blocks in which lanes share blocks: lane i
+    takes lane i // 2's table rotated by one slot (the same blocks at other
+    slots), every third lane repeats lane 0's at the same slots, and the
+    last slot is the final, partial block."""
+    ids = rand((b, j), 0, nb, torch.int32)
+    for i in range(1, b):
+        ids[i] = ids[0] if i % 3 == 0 else torch.roll(ids[i // 2], 1)
+    ids[:, -1] = nb - 1
+    return ids
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("br", [64, 128, 256])
+@pytest.mark.parametrize("b", [1, 3, 32, 33])
+def test_gather_tma_kernel_matches_plain_and_dp4a(cuda_device, br, b):
+    """The TMA gather kernel, bit for bit against the
+    plain version and the dp4a gather_kernel: a ragged plane whose last
+    block is partial (an id on it in every lane; at 128 and 256 rows whole
+    64-row pieces lie past N), J = 1 and J = 7, tables in which lanes share
+    blocks, widths of one partial slab (D = 32), two slabs (512) and a
+    partial last slab (D = 800: 400 bytes a row), the s8 operand's extremes,
+    and the resident form over a plane of whole blocks."""
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(br * b),
+                 cuda_device)
+    for d in (32, 512, 800):
+        n = 40 * br + 17
+        nb = -(-n // br)
+        plane = rand((n, d // 2), 0, 256, torch.uint8)
+        for j in (1, 7):
+            q_eo = rand((b, 2, d // 2), -8, 8, torch.int8)
+            ids = _shared_ids(rand, b, j, nb)
+            want = ref.stage1_gather_batched_ref(q_eo, plane, ids, br)
+            dp4a = stage1_gather._gather(q_eo, plane, ids, br, route="dp4a")
+            assert torch.equal(dp4a, want), (d, j)
+            ops.reset_launch_counts()
+            got = stage1_gather._gather(q_eo, plane, ids, br, route="tma")
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["stage1_gather"] == 1
+            assert torch.equal(got, want), (d, j)
+        whole = plane[: (n // br) * br]
+        ids_w = torch.clamp(ids, max=n // br - 1)
+        q = rand((b, d), -128, 128, torch.int8)
+        assert torch.equal(
+            ops.stage1_scores_gather_resident(q >> 4, whole, ids_w,
+                                              block_rows=br),
+            ref.stage1_gather_resident_ref(ops.pack_queries_even_odd(q >> 4),
+                                           whole, ids_w, br))
+    plane = torch.full((3 * br, 256), 0x88, dtype=torch.uint8,
+                       device=cuda_device)
+    ids = torch.tensor([[2, 0, 1]] * b, dtype=torch.int32, device=cuda_device)
+    for fill in (-8, 7):
+        q_eo = torch.full((b, 2, 256), fill, dtype=torch.int8,
+                          device=cuda_device)
+        got = stage1_gather._gather(q_eo, plane, ids, br, route="tma")
+        assert int(got[0, 0]) == 2 * 256 * (-8) * fill
+        assert torch.equal(got, stage1_gather._gather(q_eo, plane, ids, br,
+                                                      route="dp4a"))
+
+
+@pytest.mark.gpu
+def test_gather_tma_kernel_at_the_cluster_shape(cuda_device):
+    """B = 32 lanes x 128 blocks of 64 rows over a 2^20 x 512 plane, laid
+    out as the cluster path lays them (8 probed clusters of 16 blocks per
+    lane, some clusters probed by several lanes), and the same tables
+    over a plane of N = 2^20 - 40 rows whose last block is partial: TMA
+    = dp4a = plain."""
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(2025),
+                 cuda_device)
+    n, d2 = 1 << 20, 256
+    plane = rand((n, d2), 0, 256, torch.uint8)
+    q_eo = rand((32, 2, d2), -8, 8, torch.int8)
+    picks = rand((32, 8), 0, 1024, torch.int64)
+    picks[1::4] = picks[0::4]
+    ids = (picks[:, :, None] * 16 + torch.arange(16, device=cuda_device)
+           ).reshape(32, 128).to(torch.int32)
+    for rows in (n, n - 40):
+        p = plane[:rows]
+        want = ref.stage1_gather_batched_ref(q_eo, p, ids, 64)
+        assert torch.equal(stage1_gather._gather(q_eo, p, ids, 64,
+                                                 route="dp4a"), want)
+        assert torch.equal(stage1_gather._gather(q_eo, p, ids, 64,
+                                                 route="tma"), want)
 
 
 @pytest.mark.gpu

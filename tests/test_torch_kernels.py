@@ -275,13 +275,19 @@ def test_wrappers_raise_for_devices_without_a_kernel():
                            block_rows=2)
 
 
+def _tma_rule(n: int, d2: int, block_rows: int) -> bool:
+    """The TMA gather launcher's rule (stage1_gather_tma_takes)."""
+    return d2 % 16 == 0 and block_rows % 64 == 0 and 0 < n < 2 ** 31
+
+
 def _capture_launches(monkeypatch, mma_lanes: int = 0,
-                      fused_lanes: int = 0) -> list:
+                      fused_lanes: int = 0, gather_tma=_tma_rule) -> list:
     """Runs the wrappers' CUDA branch on CPU tensors up to the launch: every
     check a CUDA tensor meets runs, and each launch is recorded (counter,
     C arguments) instead of reaching a kernel. The tensor-core plane
     launcher answers `mma_lanes` for every shape it is asked about, the
-    tensor-core fused launcher `fused_lanes`."""
+    tensor-core fused launcher `fused_lanes`, the TMA gather launcher
+    `gather_tma(n, d2, block_rows)`."""
     calls = []
     for mod in (stage1_int4, stage1_gather, stage2_int8, stage0_sign,
                 fused_topk):
@@ -291,13 +297,14 @@ def _capture_launches(monkeypatch, mma_lanes: int = 0,
                         lambda b, d2, rows: mma_lanes)
     monkeypatch.setattr(fused_topk, "_fused_mma_lanes",
                         lambda b, d2, block_n, k: fused_lanes)
+    monkeypatch.setattr(stage1_gather, "_tma_takes", gather_tma)
     monkeypatch.setattr(_build, "launch",
                         lambda counter, fn, *args, device: calls.append(
                             (counter, args)))
     return calls
 
 
-@pytest.mark.parametrize("d", [36, 250, 262144, 512])
+@pytest.mark.parametrize("d", [36, 250, 262144, 512, 32, 800])
 def test_width_limits_name_themselves(monkeypatch, d):
     """The widths the JAX Pallas backend serves reach the kernels: D % 8 !=
     0 with D even (rows of D/2 bytes that are not whole words) and D whose
@@ -305,9 +312,13 @@ def test_width_limits_name_themselves(monkeypatch, d):
     panels). Every nibble wrapper launches with D/2 bytes per row; the
     batched plane scan takes the tensor-core kernel where its launcher
     takes the shape (answered here as the launcher answers: at D = 512
-    only, where D/2 % 16 == 0 and the panels fit); the sign kernels take
-    D % 8 == 0, and their one limit (a lane's packed signs in one block)
-    raises with a message that names it."""
+    only, where D/2 % 16 == 0 and the panels fit); the block gather takes
+    the TMA kernel where its launcher's rule holds (D/2 % 16 == 0,
+    block_rows % 64 == 0, 0 < N < 2^31; counted `stage1_gather`), else
+    dp4a (`stage1_gather_dp4a`), and only the dp4a route is held to the
+    dp4a grid's limits; the sign kernels take D % 8 == 0, and their one
+    limit (a lane's packed signs in one block) raises with a message that
+    names it."""
     calls = _capture_launches(monkeypatch, mma_lanes=8 if d == 512 else 0)
     d2 = d // 2
     q = torch.zeros((3, d), dtype=torch.int8)
@@ -319,17 +330,52 @@ def test_width_limits_name_themselves(monkeypatch, d):
     assert ops.stage1_scores_rows(q, rows).shape == (3, 4)
     assert ops.stage1_scores_gather(q, plane, ids,
                                     block_rows=4).shape == (3, 8)
+    assert ops.stage1_scores_gather(q, plane, ids,
+                                    block_rows=64).shape == (3, 128)
     assert ops.stage2_scores_batched(q, rows, rows).shape == (3, 4)
     assert ops.stage2_scores(q[0], plane, plane).shape == (5,)
     assert ops.stage2_scores_by_id(q, plane, plane, ids).shape == (3, 2)
     s, i = fused_topk.fused_topk_batched(ops.pack_queries_even_odd(q), plane,
                                          k=2, block_n=4)
     assert s.shape == i.shape == (3, 2, 2)
+    tma = d2 % 16 == 0
     assert [c for c, _ in calls] == [
         "stage1_plane_mma" if d == 512 else "stage1_plane", "stage1_single",
-        "stage1_rows", "stage1_gather", "stage2_exact", "stage2_single",
-        "stage2_by_id", "fused_topk"]
+        "stage1_rows", "stage1_gather_dp4a",
+        "stage1_gather" if tma else "stage1_gather_dp4a", "stage2_exact",
+        "stage2_single", "stage2_by_id", "fused_topk"]
     assert all(d2 in args for _, args in calls)
+    q_eo = ops.pack_queries_even_odd(q)
+    with pytest.raises(ValueError, match="route must be one of"):
+        stage1_gather._gather(q_eo, plane, ids, 64, route="mma")
+    if not tma:
+        with pytest.raises(ValueError, match=f"does not take N = 5, "
+                           f"D/2 = {d2}, block_rows = 64"):
+            stage1_gather._gather(q_eo, plane, ids, 64, route="tma")
+    # the dp4a grid's limits (B <= 65535 lanes, ceil(J * BR / 256) < 2^31
+    # blocks), on tensors that hold no memory; the TMA launcher's int
+    # arguments take B = 65536 and J = 2^31 - 1, not J = 2^31
+    meta = {"dtype": torch.int8, "device": "meta"}
+    wide_q = torch.empty((65536, 2, d2), **meta)
+    meta_plane = torch.empty((5, d2), dtype=torch.uint8, device="meta")
+
+    def meta_ids(b, j):
+        return torch.empty((b, j), dtype=torch.int32, device="meta")
+
+    for args in ((wide_q, meta_plane, meta_ids(65536, 1)),
+                 (wide_q[:1], meta_plane, meta_ids(1, 2 ** 33))):
+        with pytest.raises(ValueError, match="exceed.* the kernel's grid"):
+            stage1_gather._gather(*args, 64, route="dp4a")
+    if tma:
+        for args in ((wide_q, meta_plane, meta_ids(65536, 1)),
+                     (wide_q[:1], meta_plane, meta_ids(1, 2 ** 31 - 1))):
+            del calls[:]
+            assert stage1_gather._gather(*args, 64).shape == (
+                args[0].shape[0], args[2].shape[1] * 64)
+            assert [c for c, _ in calls] == ["stage1_gather"]
+        with pytest.raises(ValueError, match="launcher's int arguments"):
+            stage1_gather._gather(wide_q[:1], meta_plane, meta_ids(1, 2 ** 31),
+                                  64)
     with pytest.raises(ValueError, match="empty plane"):
         ops.stage2_scores_by_id(q, plane[:0], plane[:0], ids)
     with pytest.raises(TypeError, match="ids must be torch.int32"):
@@ -379,7 +425,7 @@ def test_launch_counters_reset_and_do_not_count_the_plain_path():
         "stage1_gather": 0, "stage0_sign_gather": 0, "stage1_single": 0,
         "stage2_single": 0, "stage0_sign_plane": 0, "fused_topk": 0,
         "fused_topk_single": 0, "stage1_plane_mma": 0, "stage2_by_id": 0,
-        "fused_topk_mma": 0}
+        "fused_topk_mma": 0, "stage1_gather_dp4a": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -429,6 +475,38 @@ def test_gather_plain_matches_pallas(b, br, d, n):
                                       br).numpy(),
         np.asarray(jref.stage1_gather_batched_ref(
             jnp.asarray(q_eo), jnp.asarray(msb), jnp.asarray(ids), br)))
+
+
+# (B, BR, D, N, J) at the TMA gather's shapes (D/2 % 16 == 0, BR a
+# multiple of 64): one block (J = 1), 128- and 256-row blocks whose last
+# block holds whole 64-row pieces past N, a partial last 128-byte slab
+# (D = 800), 33 lanes.
+TMA_GATHER_SHAPES = [(1, 64, 512, 1000, 1), (3, 128, 512, 777, 5),
+                     (33, 256, 64, 700, 3), (5, 64, 800, 300, 4)]
+
+
+@pytest.mark.parametrize("b,br,d,n,j", TMA_GATHER_SHAPES)
+def test_gather_plain_matches_pallas_at_the_tma_shapes(b, br, d, n, j):
+    """The port's plain gather against the Pallas kernel in interpret mode
+    at the TMA kernel's shapes, with tables in which lanes share blocks
+    (every other lane repeats lane 0's) and every lane reaches the final,
+    partial block. The Pallas kernel reads the plane zero-padded to a
+    block multiple (its wrapper's contract); the port reads it unpadded."""
+    rng = np.random.default_rng(b * br + d + n)
+    msb = rng.integers(0, 256, (n, d // 2)).astype(np.uint8)
+    q_eo = rng.integers(-8, 8, (b, 2, d // 2)).astype(np.int8)
+    nb = -(-n // br)
+    ids = rng.integers(0, nb, (b, j)).astype(np.int32)
+    ids[::2] = ids[0]
+    ids[:, -1] = nb - 1
+    padded = np.concatenate([msb, np.zeros((-n % br, d // 2), np.uint8)])
+    want = np.asarray(stage1_int4_gather_pallas(
+        jnp.asarray(q_eo), jnp.asarray(padded), jnp.asarray(ids),
+        block_rows=br, interpret=True))
+    got = stage1_int4_gather(_t(q_eo), _t(msb), _t(ids), block_rows=br)
+    assert got.dtype == torch.int32 and got.shape == (b, j * br)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[:, -br:][:, n % br:] == 0).all()
 
 
 @pytest.mark.parametrize("b,br,d,n", GATHER_SHAPES)
