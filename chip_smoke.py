@@ -40,9 +40,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
                batched fused top-k on both of its kernels (tensor-core and
                dp4a: each against the plain version and the other, and
                timed masked and unmasked at k = 8 and k = 1, which splits
-               scoring from selection); the fused candidates (k_per_block =
-               c = 50, on the tensor-core kernel) against the stable top-c
-               of the masked plane-kernel scores. Then, with the
+               scoring from selection); the dense sign scan on both of
+               its kernels (tensor-core and popcount: each against the
+               plain version and the other, at the main shape and at
+               ragged shapes each takes, and timed); the fused
+               candidates (k_per_block = c = 50, on the tensor-core
+               kernel) against the stable top-c of the masked
+               plane-kernel scores. Then, with the
                launch counts set to 0: `autotune.autotune` over N = 2^20 x
                D = 512 at B = 1, 8, 32 (reps 5) and 12 single queries
                through `ops.fused_candidates`, `ops.stage1_scores` and
@@ -95,7 +99,8 @@ from repro_torch.core.engine import (ClusterPolicy,  # noqa: E402
 from repro_torch.core.retrieval import RetrievalConfig  # noqa: E402
 from repro_torch.core.similarity import stable_topk  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    _build, autotune, fused_topk, ops, ref, stage1_gather, stage1_int4)
+    _build, autotune, fused_topk, ops, ref, stage0_sign, stage1_gather,
+    stage1_int4)
 from repro_torch.kernels.fused_topk import (  # noqa: E402
     fused_topk_batched, fused_topk_single)
 from repro_torch.kernels.stage0_sign import (  # noqa: E402
@@ -126,7 +131,8 @@ OFF_PATH_KERNELS = ("stage1_plane", "stage2_exact", "stage1_gather_dp4a")
 # The autotune path: the autotuner and the single-query entry points.
 TUNE_KERNELS = ("stage1_plane", "stage1_plane_mma", "stage1_rows",
                 "stage1_single", "stage2_single", "stage0_sign_plane",
-                "fused_topk", "fused_topk_single", "fused_topk_mma")
+                "stage0_sign_plane_mma", "fused_topk", "fused_topk_single",
+                "fused_topk_mma")
 # The batches at which the tensor-core and dp4a plane kernels are compared.
 CROSSOVER_BATCHES = (2, 4, 8)
 HOST_CALLS = 1000
@@ -215,15 +221,16 @@ def phase_card() -> None:
 
 
 # The instances the D = 512 paths launch (mangled template arguments):
-# every instance of the tensor-core plane and fused kernels (rows per tile
-# x lane tile: 8, 16 or 32 lanes by B, at most 16 at 1024 rows), the dp4a
-# plane kernel's 32- and 1-lane ones, the TMA gather (no template: its
-# name ends in E).
+# every instance of the tensor-core plane, fused and sign kernels (rows
+# per tile x lane tile: 8, 16 or 32 lanes by B; the plane and fused
+# kernels at most 16 at 1024 rows, the sign kernel 16 at 512 and 8 at
+# 1024), the dp4a plane kernel's 32- and 1-lane ones, the TMA gather (no
+# template: its name ends in E).
 MAIN_INSTANCES = tuple(
     f"{kernel}_kernelILi{rows}ELi{nt}EE"
-    for kernel in ("plane_mma", "fused_mma")
+    for kernel in ("plane_mma", "fused_mma", "sign_mma")
     for rows in (256, 128, 512, 1024) for nt in (4, 2, 1)
-    if rows < 1024 or nt < 4) + (
+    if rows * nt <= (1024 if kernel == "sign_mma" else 2048)) + (
     "plane_kernelILi32ELi256ELi0ELb0EE", "plane_kernelILi1ELi256ELi0ELb0EE",
     "rows_kernelILi256ELi0ELb0EE", "gather_tma_kernelE",
     "gather_kernelILi0ELb0EE",
@@ -240,7 +247,8 @@ def phase_build() -> None:
     for name, (text, secs) in built.items():
         regs, spills, kernel = {}, [], ""
         for line in text.splitlines():
-            entry = re.search(r"((?:plane_wide|sign_plane|plane_mma|plane|"
+            entry = re.search(r"((?:plane_wide|sign_plane|sign_mma|"
+                              r"plane_mma|plane|"
                               r"rows|sign_gather|gather_tma|gather|exact|"
                               r"fused_mma|fused)"
                               r"_kernel(?:I.*?EE|E))", line)
@@ -812,7 +820,7 @@ def phase_new_kernels(db, q_codes, gold, dev) -> list[dict]:
     plain versions on the card, bit-exact at the arena corpus's full width
     and at ragged shapes (N not a block multiple, B = 1, 3, 33, k above the
     live rows and above block_n, D % 8 != 0), timed like the first
-    slices' kernels."""
+    slices' kernels; #7 and #9 on both of their kernels."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
 
     def rand(shape, lo, hi, dtype):
@@ -910,33 +918,68 @@ def phase_new_kernels(db, q_codes, gold, dev) -> list[dict]:
         plain_ms=time_ms(lambda: ref.stage2_scores_ref(q81, mr, lr)),
         bound_ms=t_bound, bound_by=by, library_ms=lib_ms))
 
-    # -- stage0_sign_plane: the dense sign scan (#7) -----------------------
+    # -- stage0_sign_plane: the dense sign scan (#7), on both of its
+    # kernels: tensor-core (the route at B = 32, D = 512) and popcount.
     q_sign = ops.pack_query_signs(q)
-    err = _check_kernel("stage0_sign_plane", stage0_sign_batched,
-                        ref.stage0_sign_batched_ref, (q_sign, db.sign_plane),
-                        f"B={B} N={N} D={D}")
-    for bb, nn, dd in ((1, 1000, 512), (3, 4099, 40), (33, 777, 96)):
-        _check_kernel("stage0_sign_plane", stage0_sign_batched,
-                      ref.stage0_sign_batched_ref,
-                      (ops.pack_query_signs(rand((bb, dd), -128, 128,
-                                                 torch.int8)),
-                       rand((nn, dd // 8), 0, 256, torch.uint8)),
-                      f"B={bb} N={nn} D={dd}")
+    ops.reset_launch_counts()
+    auto = stage0_sign_batched(q_sign, db.sign_plane)
+    if ops.launch_counts()["stage0_sign_plane_mma"] != 1:
+        raise AssertionError(f"the dense sign scan at B={B} D={D} did not "
+                             "take the tensor-core kernel")
+
+    def sign_on(route):
+        def run(a, p, tile_rows=DEFAULT_ROWS):
+            return stage0_sign._sign_plane(a, p, tile_rows, route=route)
+        return run
+
+    sign_mma, sign_popc = sign_on("mma"), sign_on("popc")
+    sign_routes = (("stage0_sign_plane_mma", sign_mma, "sign_mma_kernel"),
+                   ("stage0_sign_plane", sign_popc, "sign_plane_kernel"))
+    errs = {name: _check_kernel(name, fn, ref.stage0_sign_batched_ref,
+                                (q_sign, db.sign_plane), f"B={B} N={N} D={D}")
+            for name, fn, _ in sign_routes}
+    if not torch.equal(auto, sign_popc(q_sign, db.sign_plane)):
+        raise AssertionError("stage0_sign_plane_mma disagrees with the "
+                             f"popcount kernel at B={B} N={N} D={D}")
+    for tile_rows in stage1_int4.ROWS_CHOICES:
+        if not torch.equal(sign_mma(q_sign, db.sign_plane, tile_rows), auto):
+            raise AssertionError("stage0_sign_plane_mma at "
+                                 f"{tile_rows} rows per tile changed a "
+                                 "result")
+    for bb, nn, dd in ((1, 1000, 512), (3, 4099, 40), (33, 777, 96),
+                       (2, 1, 128), (3, 4099, 384), (33, 20001, 640),
+                       (9, 3001, 1152), (32, 5001, 4096)):
+        qs = ops.pack_query_signs(rand((bb, dd), -128, 128, torch.int8))
+        p = rand((nn, dd // 8), 0, 256, torch.uint8)
+        takes = bool(stage0_sign._mma_lanes(bb, nn, dd // 8, DEFAULT_ROWS))
+        for name, fn, _ in sign_routes[0 if takes else 1:]:
+            _check_kernel(name, fn, ref.stage0_sign_batched_ref, (qs, p),
+                          f"B={bb} N={nn} D={dd}")
+        if takes and not torch.equal(sign_mma(qs, p), sign_popc(qs, p)):
+            raise AssertionError("stage0_sign_plane_mma disagrees with the "
+                                 f"popcount kernel at B={bb} N={nn} D={dd}")
+        log(f"kernel stage0_sign_plane: B={bb} N={nn} D={dd} route "
+            f"{'mma' if takes else 'popc'}: bit-exact"
+            f"{', and equal to popcount' if takes else ''}")
     sgn_f = bitplanar.unpack_sign_pm1(db.sign_plane).float()    # (N, D)
     q_sign_f = q_sign.float()
     lib_ms = _library_ms("stage0_sign_plane",
-                         lambda: torch.mm(q_sign_f, sgn_f.t()),
-                         stage0_sign_batched(q_sign, db.sign_plane))
+                         lambda: torch.mm(q_sign_f, sgn_f.t()), auto)
     del sgn_f
     t_bound, by = bound_ms(B * D + N * D // 8 + B * N * 4, 2 * B * N * D)
-    rows.append(dict(
-        name="stage0_sign_plane", route="cuda",
-        source="src/repro_torch/csrc/stage0_sign.cu",
-        replaces="src/repro/kernels/stage0_sign.py:73", max_abs_err=err,
-        ms=time_ms(lambda: stage0_sign_batched(q_sign, db.sign_plane)),
-        plain_ms=time_ms(lambda: ref.stage0_sign_batched_ref(
-            q_sign, db.sign_plane)),
-        bound_ms=t_bound, bound_by=by, library_ms=lib_ms))
+    plain_ms = time_ms(lambda: ref.stage0_sign_batched_ref(q_sign,
+                                                           db.sign_plane))
+    for name, fn, _ in sign_routes:
+        rows.append(dict(
+            name=name, route="cuda",
+            source=("src/repro_torch/csrc/stage0_sign_mma.cu"
+                    if fn is sign_mma else
+                    "src/repro_torch/csrc/stage0_sign.cu"),
+            replaces="src/repro/kernels/stage0_sign.py:73",
+            max_abs_err=errs[name],
+            ms=time_ms(lambda: fn(q_sign, db.sign_plane)),
+            plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+            library_ms=lib_ms))
 
     # -- fused_topk: the batched fused scan, masked and unmasked (#9), on
     # both of its kernels: tensor-core (the route at B = 32, D = 512,
@@ -1067,9 +1110,8 @@ def phase_new_kernels(db, q_codes, gold, dev) -> list[dict]:
             lambda: fused1(q1, db.msb_plane), "fused_kernel"),
         "stage2_single": kernel_device_us(
             lambda: stage2_int8_single(q81, mr, lr), "exact_kernel"),
-        "stage0_sign_plane": kernel_device_us(
-            lambda: stage0_sign_batched(q_sign, db.sign_plane),
-            "sign_plane_kernel"),
+        **{name: kernel_device_us(lambda: fn(q_sign, db.sign_plane), symbol)
+           for name, fn, symbol in sign_routes},
         "fused_topk_mma": kernel_device_us(
             lambda: fused_mma(q_eo, db.msb_plane), "::fused_mma_kernel<"),
         "fused_topk": kernel_device_us(
@@ -1081,6 +1123,9 @@ def phase_new_kernels(db, q_codes, gold, dev) -> list[dict]:
         note = {"fused_topk_mma": yardstick,
                 "fused_topk": " (the dp4a kernel, which this shape no longer "
                               "takes; same yardstick)",
+                "stage0_sign_plane": " (the popcount kernel, which this "
+                                     "shape no longer takes; same "
+                                     "yardstick)",
                 "fused_topk_single": " (library yardstick: the plane kernel "
                                      "at B = 1, then torch.topk of each "
                                      "block)"}.get(r["name"], "")

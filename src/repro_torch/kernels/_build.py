@@ -27,7 +27,7 @@ import torch
 _SRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[1] / "build"
 SOURCES = ("stage1_int4", "stage1_mma", "stage1_gather", "stage2_int8",
-           "stage0_sign", "fused_topk")
+           "stage0_sign", "stage0_sign_mma", "fused_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,7 +37,8 @@ LAUNCHES: dict[str, int] = {"stage1_plane": 0, "stage1_rows": 0,
                             "stage2_single": 0, "stage0_sign_plane": 0,
                             "fused_topk": 0, "fused_topk_single": 0,
                             "stage1_plane_mma": 0, "stage2_by_id": 0,
-                            "fused_topk_mma": 0, "stage1_gather_dp4a": 0}
+                            "fused_topk_mma": 0, "stage1_gather_dp4a": 0,
+                            "stage0_sign_plane_mma": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, Callable[..., int]] = {}

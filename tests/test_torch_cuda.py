@@ -17,7 +17,7 @@ from repro_torch.core.engine import (MaskedPolicy, PlainPolicy,
                                      RetrievalEngine, WindowedPolicy)
 from repro_torch.core.retrieval import RetrievalConfig, cluster_pruned_retrieve
 from repro_torch.data import retrieval_corpus
-from repro_torch.kernels import autotune, fused_topk, ops, ref
+from repro_torch.kernels import autotune, fused_topk, ops, ref, stage0_sign
 from repro_torch.kernels.fused_topk import (fused_topk_batched,
                                             fused_topk_single)
 from repro_torch.kernels.stage0_sign import (stage0_sign_batched,
@@ -38,7 +38,7 @@ ZERO_COUNTS = {"stage1_plane": 0, "stage1_rows": 0, "stage2_exact": 0,
                "stage0_sign_plane": 0, "fused_topk": 0,
                "fused_topk_single": 0, "stage1_plane_mma": 0,
                "stage2_by_id": 0, "fused_topk_mma": 0,
-               "stage1_gather_dp4a": 0}
+               "stage1_gather_dp4a": 0, "stage0_sign_plane_mma": 0}
 INT32_MIN = -(2 ** 31)
 
 
@@ -636,8 +636,95 @@ def test_sign_plane_and_single_kernels_match_plain(cuda_device, b, n, d):
     assert torch.equal(stage2_int8_single(q8, plane, lsb),
                        ref.stage2_scores_ref(q8, plane, lsb))
     torch.cuda.synchronize()
-    assert ops.launch_counts() == dict(ZERO_COUNTS, stage0_sign_plane=1,
-                                       stage1_single=1, stage2_single=1)
+    sign_key = ("stage0_sign_plane_mma"
+                if stage0_sign._mma_lanes(b, n, d // 8, DEFAULT_ROWS)
+                else "stage0_sign_plane")
+    assert ops.launch_counts() == dict(ZERO_COUNTS, stage1_single=1,
+                                       stage2_single=1, **{sign_key: 1})
+
+
+@pytest.mark.gpu
+def test_sign_mma_lane_tile_by_shape(cuda_device):
+    """The tensor-core sign launcher takes B >= 2, D % 128 == 0 (D/8 % 16
+    == 0) and 0 < N < 2^31 with the smallest of 8, 16, 32 lanes that covers
+    B (16 at most at 512 rows per tile, 8 at 1024), shrunk until a block's
+    ring, eight sub-panels and staging fit in shared memory, and answers 0
+    for every other shape (those go to the popcount kernel); the wrapper
+    launches the kernel it names, and refuses to force one it answers 0
+    for."""
+    lanes = stage0_sign._mma_lanes
+    assert lanes(1, 1000, 64, 256) == 0
+    assert lanes(2, 1000, 64, 256) == 8
+    assert lanes(9, 1000, 64, 256) == 16
+    assert lanes(32, 1000, 64, 256) == 32
+    assert lanes(33, 1000, 64, 256) == 32
+    assert lanes(33, 1000, 64, 512) == 16
+    assert lanes(33, 1000, 64, 1024) == 8
+    assert lanes(32, 1000, 512, 256) == 16     # D = 4096: 32 lanes too wide
+    assert lanes(32, 1000, 512, 1024) == 8
+    assert lanes(32, 1000, 1 << 11, 256) == 0  # panels past shared memory
+    for d8 in (5, 8, 12, 48 + 8):               # D % 128 != 0
+        assert lanes(32, 1000, d8, 256) == 0
+    for n in (0, 2 ** 31):
+        assert lanes(32, n, 64, 256) == 0
+    assert lanes(32, 2 ** 31 - 1, 64, 256) == 32
+    assert lanes(32, 1000, 64, 64) == 0
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(8),
+                 cuda_device)
+    plane = rand((1000, 64), 0, 256, torch.uint8)
+    for b in (1, 2, 32, 33):
+        q_sign = ops.pack_query_signs(rand((b, 512), -128, 128, torch.int8))
+        ops.reset_launch_counts()
+        got = stage0_sign_batched(q_sign, plane)
+        key = ("stage0_sign_plane_mma" if b >= 2 else "stage0_sign_plane")
+        assert ops.launch_counts() == dict(ZERO_COUNTS, **{key: 1})
+        assert torch.equal(got, ref.stage0_sign_batched_ref(q_sign, plane))
+    q_sign = torch.ones((4, 96), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="does not take B = 4, N = 1000, "
+                                         "D = 96"):
+        stage0_sign._sign_plane(q_sign, plane[:, :12].contiguous(), 256,
+                                route="mma")
+
+
+# B: one lane tile at 8 and 32 lanes, padding lanes in a second tile.
+SIGN_MMA_BATCHES = (2, 3, 32, 33)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", ROWS_CHOICES)
+@pytest.mark.parametrize("d", [128, 384, 512, 640, 1152, 4096])
+def test_sign_mma_kernel_matches_plain_and_popc(cuda_device, rows, d):
+    """The tensor-core sign kernel, bit-exact against the plain version and
+    the popcount kernel on the same +-1 queries, and against the plain
+    version on random int8 queries (the s8 floor -128 against an
+    all-negative row included), at every rows-per-tile instance, B = 2, 3,
+    32, 33, ragged N (below, at and past an m-tile; N % 4 != 0 for the
+    16-byte stores) and widths of one half-live chunk (D = 128), partial
+    and several slabs (384-1152) and a lane tile that halves (4096)."""
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(rows + d),
+                 cuda_device)
+    for n in MMA_ROWS:
+        plane = rand((n, d // 8), 0, 256, torch.uint8)
+        plane[0] = 0xFF
+        for b in SIGN_MMA_BATCHES:
+            codes = rand((b, d), -128, 128, torch.int8)
+            codes[0] = -128
+            q_sign = ops.pack_query_signs(codes)
+            assert stage0_sign._mma_lanes(b, n, d // 8, rows)
+            ops.reset_launch_counts()
+            got = stage0_sign._sign_plane(q_sign, plane, rows, route="mma")
+            torch.cuda.synchronize()
+            assert ops.launch_counts() == dict(ZERO_COUNTS,
+                                               stage0_sign_plane_mma=1)
+            note = (b, n, d, rows)
+            assert torch.equal(got, ref.stage0_sign_batched_ref(
+                q_sign, plane)), note
+            assert torch.equal(got, stage0_sign._sign_plane(
+                q_sign, plane, rows, route="popc")), note
+            got = stage0_sign._sign_plane(codes, plane, rows, route="mma")
+            want = ref.stage0_sign_batched_ref(codes, plane)
+            assert int(want[0, 0]) == 128 * d
+            assert torch.equal(got, want), note
 
 
 @pytest.mark.gpu

@@ -223,6 +223,48 @@ def test_fused_topk_routes_on_the_launchers_answer(monkeypatch):
     assert len(calls) == 5
 
 
+def test_sign_plane_routes_on_the_launchers_answer(monkeypatch):
+    """The dense sign scan asks the tensor-core launcher for its lane tile
+    (`_mma_lanes`, with B, N, D/8 and rows) and launches that kernel
+    (counted `stage0_sign_plane_mma`) when the answer is not 0, else the
+    popcount kernel, both with the same C arguments (D, not D/8); a forced
+    popcount route never asks. Asking for the tensor-core kernel at a
+    shape it does not take, or for a route that does not exist, raises
+    naming it."""
+    calls = _capture_launches(monkeypatch)
+    asked, answer = [], [0]
+
+    def lanes(b, n, d8, rows):
+        asked.append((b, n, d8, rows))
+        return answer[0]
+    monkeypatch.setattr(stage0_sign, "_mma_lanes", lanes)
+    q = torch.ones((4, 256), dtype=torch.int8)
+    plane = torch.zeros((5, 32), dtype=torch.uint8)
+    assert stage0_sign.stage0_sign_batched(q, plane, rows=512).shape == (4, 5)
+    answer[0] = 8
+    assert ops.stage0_sign_scores_batched(q, plane,
+                                          block_n=1024).shape == (4, 5)
+    assert stage0_sign._sign_plane(q, plane, 256,
+                                   route="popc").shape == (4, 5)
+    assert stage0_sign._sign_plane(q, plane[:0], 256,
+                                   route="mma").shape == (4, 0)
+    assert asked == [(4, 5, 32, 512), (4, 5, 32, 1024), (4, 0, 32, 256)]
+    assert [c for c, _ in calls] == ["stage0_sign_plane",
+                                     "stage0_sign_plane_mma",
+                                     "stage0_sign_plane"]
+    assert [args[-3:] for _, args in calls] == [(5, 256, 512),
+                                                (5, 256, 1024), (5, 256, 256)]
+    answer[0] = 0
+    with pytest.raises(ValueError, match="does not take B = 4, N = 5, "
+                                         "D = 256 at 256 rows per tile"):
+        stage0_sign._sign_plane(q, plane, 256, route="mma")
+    with pytest.raises(ValueError, match="route must be one of"):
+        stage0_sign._sign_plane(q, plane, 256, route="dp4a")
+    with pytest.raises(ValueError, match="rows per thread block"):
+        stage0_sign.stage0_sign_batched(q, plane, rows=2048)
+    assert len(calls) == 3
+
+
 def test_exact_plain_is_the_int8_dot_product():
     rng = np.random.default_rng(5)
     codes = rng.integers(-128, 128, size=(4, 50, 512)).astype(np.int8)
@@ -281,13 +323,15 @@ def _tma_rule(n: int, d2: int, block_rows: int) -> bool:
 
 
 def _capture_launches(monkeypatch, mma_lanes: int = 0,
-                      fused_lanes: int = 0, gather_tma=_tma_rule) -> list:
+                      fused_lanes: int = 0, gather_tma=_tma_rule,
+                      sign_lanes: int = 0) -> list:
     """Runs the wrappers' CUDA branch on CPU tensors up to the launch: every
     check a CUDA tensor meets runs, and each launch is recorded (counter,
     C arguments) instead of reaching a kernel. The tensor-core plane
     launcher answers `mma_lanes` for every shape it is asked about, the
     tensor-core fused launcher `fused_lanes`, the TMA gather launcher
-    `gather_tma(n, d2, block_rows)`."""
+    `gather_tma(n, d2, block_rows)`, the tensor-core sign launcher
+    `sign_lanes`."""
     calls = []
     for mod in (stage1_int4, stage1_gather, stage2_int8, stage0_sign,
                 fused_topk):
@@ -298,6 +342,8 @@ def _capture_launches(monkeypatch, mma_lanes: int = 0,
     monkeypatch.setattr(fused_topk, "_fused_mma_lanes",
                         lambda b, d2, block_n, k: fused_lanes)
     monkeypatch.setattr(stage1_gather, "_tma_takes", gather_tma)
+    monkeypatch.setattr(stage0_sign, "_mma_lanes",
+                        lambda b, n, d8, rows: sign_lanes)
     monkeypatch.setattr(_build, "launch",
                         lambda counter, fn, *args, device: calls.append(
                             (counter, args)))
@@ -425,7 +471,8 @@ def test_launch_counters_reset_and_do_not_count_the_plain_path():
         "stage1_gather": 0, "stage0_sign_gather": 0, "stage1_single": 0,
         "stage2_single": 0, "stage0_sign_plane": 0, "fused_topk": 0,
         "fused_topk_single": 0, "stage1_plane_mma": 0, "stage2_by_id": 0,
-        "fused_topk_mma": 0, "stage1_gather_dp4a": 0}
+        "fused_topk_mma": 0, "stage1_gather_dp4a": 0,
+        "stage0_sign_plane_mma": 0}
 
 
 # ---------------------------------------------------------------------------
