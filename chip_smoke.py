@@ -67,11 +67,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
                the planted gold like the main phase; then cluster MIPS
                with the block gather on its TMA kernel and on dp4a in
                turns in this one process (the redesign end to end).
+  8. tenancy — the multi-tenant streaming index at full width through
+               `MultiTenantIndex` on the card: 512 tenants x 2048 docs
+               ingested online (float embeddings, the arena's fixed scale)
+               into one 2^20-row arena in 4 rounds, so every tenant is 4
+               runs; B = 32 batches of 32 distinct tenants on the Masked
+               policy and 12 single queries; 256 docs of each tenant
+               deleted; compact(), then Windowed (2048); then a second,
+               clustered index (64 shared planted centres, 64 codebook
+               clusters, nprobe 8, 64-row blocks) served cosine, MIPS and
+               with the sign prescreen at C0 = 256. Checks: the policy
+               each batch takes, no cross-tenant leak, no tombstoned id,
+               recall@5, exact scores, bit-identical to the plain backend,
+               online ingest equal to a rebuild after compact(), no
+               rebuild, and the Prometheus round trip of the metrics every
+               retrieve publishes; the trace goes to build/.
 
 Then the exact wrappers' and the block gather's host microseconds per
 call (`host_us_per_call`).
 The line before the last is a JSON object describing every kernel
-(launches: the sum over the main, autotune and cluster paths); the last
+(launches: the sum over the main, autotune, cluster and tenancy paths);
+the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
 """
@@ -87,12 +103,15 @@ import sys
 import time
 from unittest import mock
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch.core import bitplanar, clustering, quantization  # noqa: E402
+from repro_torch import obs  # noqa: E402
+from repro_torch.core import (bitplanar, clustering, energy,  # noqa: E402
+                              quantization)
 from repro_torch.core.engine import (ClusterPolicy,  # noqa: E402
                                      MaskedPolicy, PlainPolicy,
                                      RetrievalEngine, WindowedPolicy)
@@ -111,6 +130,7 @@ from repro_torch.kernels.stage1_int4 import (  # noqa: E402
     DEFAULT_ROWS, stage1_int4_batched, stage1_int4_rows, stage1_int4_single)
 from repro_torch.kernels.stage2_int8 import (  # noqa: E402
     stage2_int8_batched, stage2_int8_by_id, stage2_int8_single)
+from repro_torch.tenancy import MultiTenantIndex  # noqa: E402
 
 SEED = 20251027
 N, D = 1 << 20, 512
@@ -1467,6 +1487,447 @@ def _gather_in_turns(variant, db, q_codes, dev, rounds: int = 10) -> None:
         f"{p50['dp4a']}; TMA faster in {wins} of {rounds}")
 
 
+# The tenancy path: 512 tenants x 2048 docs (the paper's 1 MB of INT8 per
+# user) ingested online into one 2^20-row arena in 4 rounds of 512 rows per
+# tenant, so every tenant is 4 runs until compact(); 256 docs of each
+# tenant deleted; then a second, clustered index (64 shared planted centres,
+# 64 codebook clusters, 8 probes, 64-row blocks).
+TENANTS, TENANT_DOCS, INGEST_ROUNDS, TENANT_DELETES = 512, 2048, 4, 256
+T_CLUSTERS, T_NPROBE, T_BLOCK_ROWS, T_PRESCREEN_C0 = 64, 8, 64, 256
+# Bytes per arena slot: the two nibble planes, the sign plane, norm, owner.
+SLOT_BYTES = D // 2 + D // 2 + D // 8 + 4 + 4
+TENANCY_KERNELS = ("stage1_plane_mma", "stage1_plane", "stage1_rows",
+                   "stage2_by_id", "stage1_gather", "stage0_sign_gather")
+PUBLISH_REPS = 200
+
+
+class _Tenancy:
+    """One tenancy run's shared state: the launch counts of the path (each
+    segment driven with the counts set to 0 just before it and read just
+    after), the metrics registry and tracer every retrieve publishes into,
+    and the plans whose bytes the registry must add up to."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.launches: dict[str, int] = {}
+        self.registry = obs.MetricsRegistry()
+        self.tracer = obs.Tracer()
+        self.plans = []
+
+    def path(self, fn):
+        ops.reset_launch_counts()
+        out = fn()
+        for key, n in ops.launch_counts().items():
+            self.launches[key] = self.launches.get(key, 0) + n
+        return out
+
+    def span(self, name, fn, **attrs):
+        """`fn()` inside a span that closes after the card has finished."""
+        with self.tracer.span(name, **attrs):
+            out = fn()
+            torch.cuda.synchronize()
+        return out
+
+    def publish(self, plan, queries: int) -> None:
+        plan.publish(self.registry)
+        energy.observe_cost(self.registry,
+                            energy.cost_cascade(plan.stages, D,
+                                                batch=plan.batch),
+                            queries=queries)
+        self.plans.append(plan)
+
+
+def _tenant_docs(gen, dev, centres=None):
+    """(TENANTS, TENANT_DOCS, D) seeded unit vectors; with `centres`, each
+    drawn around a random one of them (spread SPREAD)."""
+    noise = _unit(torch.randn(TENANTS * TENANT_DOCS, D, generator=gen,
+                              device=dev))
+    if centres is None:
+        return noise.reshape(TENANTS, TENANT_DOCS, D)
+    pick = torch.randint(0, centres.shape[0], (TENANTS * TENANT_DOCS,),
+                         generator=gen, device=dev)
+    return _unit(centres[pick] + SPREAD * noise).reshape(TENANTS,
+                                                         TENANT_DOCS, D)
+
+
+def _tenant_queries(docs, gen, rng):
+    """BATCHES batches of B lanes, B distinct tenants per batch; each query
+    one of its tenant's docs plus NOISE. Returns (tenant ids (BATCHES, B),
+    gold doc of each lane (BATCHES, B), query codes per batch)."""
+    tids = np.stack([rng.permutation(TENANTS)[:B] for _ in range(BATCHES)])
+    gold = rng.integers(0, TENANT_DOCS, (BATCHES, B))
+    t, g = (torch.from_numpy(a.reshape(-1)).to(docs.device)
+            for a in (tids, gold))
+    noise = _unit(torch.randn(B * BATCHES, D, generator=gen,
+                              device=docs.device))
+    queries = _unit(docs[t, g] + NOISE * noise)
+    q_codes, _ = quantization.quantize_int8(queries, per_vector=True)
+    return tids.astype(np.int32), gold, list(q_codes.split(B))
+
+
+def _ingest(run, index, docs, label) -> np.ndarray:
+    """INGEST_ROUNDS rounds in which every tenant in turn ingests its next
+    TENANT_DOCS / INGEST_ROUNDS docs; returns slots (TENANTS, TENANT_DOCS)."""
+    per = TENANT_DOCS // INGEST_ROUNDS
+    slots = np.empty((TENANTS, TENANT_DOCS), np.int64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in range(INGEST_ROUNDS):
+        rows = slice(r * per, (r + 1) * per)
+        for t in range(TENANTS):
+            slots[t, rows] = run.span(
+                "ingest", lambda: index.ingest(t, docs[t, rows]), tid=t,
+                rows=per)
+    secs = time.perf_counter() - t0
+    calls = INGEST_ROUNDS * TENANTS
+    log(f"tenancy {label} ingest: {calls} ingest calls of {per} rows in "
+        f"{secs:.3f} s ({calls * per / secs:.0f} rows/s, "
+        f"{secs / calls * 1e3:.3f} ms per call, each synchronized)")
+    return slots
+
+
+def _serve_index(run, index, label, kind, q_codes, tids):
+    """BATCHES batches through `index.retrieve`, timed on the host clock
+    around retrieve + synchronize; every plan published after its batch."""
+    lat, outs = [], []
+    for i in range(BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run.span("retrieve", lambda: index.retrieve(q_codes[i],
+                                                          tids[i]),
+                       policy=label)
+        lat.append(time.perf_counter() - t0)
+        plan = index.last_plan
+        if plan.kind != kind:
+            raise AssertionError(f"tenancy {label}: the index chose the "
+                                 f"{plan.kind} policy, not {kind}")
+        run.publish(plan, B)
+        outs.append(res)
+    return lat, outs
+
+
+def _check_served(index, label, outs, tids, gold_slots, q_codes, slot_codes,
+                  recall_lanes=None) -> float:
+    """No cross-tenant leak, exact scores, bit-identical to the plain
+    backend on the card (the index re-planned with backend="torch");
+    returns recall@K against the gold slots over `recall_lanes`."""
+    owner = index.arena.owner
+    cfg = index.cfg
+    index.cfg = dataclasses.replace(cfg, backend="torch")
+    try:
+        plain = [index.retrieve(q_codes[i], tids[i]) for i in range(BATCHES)]
+    finally:
+        index.cfg = cfg
+    hits = lanes = 0
+    for i, (res, want) in enumerate(zip(outs, plain, strict=True)):
+        for field in ("indices", "scores", "candidate_indices"):
+            if not torch.equal(getattr(res, field), getattr(want, field)):
+                raise AssertionError(f"tenancy {label} batch {i}: {field} "
+                                     "differs from the plain backend")
+        t = torch.from_numpy(tids[i]).to(owner.device)
+        for ids in (res.indices, res.candidate_indices):
+            safe = ids.long().clamp(min=0)
+            if bool(((ids >= 0) & (owner[safe] != t[:, None])).any()):
+                raise AssertionError(f"tenancy {label} batch {i}: a "
+                                     "returned id belongs to another tenant")
+        idx = res.indices.long()
+        if bool((idx < 0).any()):
+            raise AssertionError(f"tenancy {label}: unfilled positions")
+        exact = (slot_codes(idx).to(torch.int32)
+                 * q_codes[i][:, None, :].to(torch.int32)).sum(
+                     -1, dtype=torch.int32)
+        if not torch.equal(exact, res.scores):
+            raise AssertionError(f"tenancy {label}: scores are not the exact "
+                                 "INT8 dot products")
+        found = (idx.cpu().numpy() == gold_slots[i][:, None]).any(axis=1)
+        keep = (np.ones(B, bool) if recall_lanes is None
+                else recall_lanes[i])
+        hits += int(found[keep].sum())
+        lanes += int(keep.sum())
+    return hits / lanes
+
+
+def _report(index, label, lat, recall, q_codes, tids) -> None:
+    p50 = statistics.median(lat)
+    kernels = device_profile(lambda: index.retrieve(q_codes[0], tids[0]))
+    busy = sum(t for _, t, _ in kernels) * 1e-6
+    launched = sum(n for _, _, n in kernels)
+    top = ", ".join(f"{n[:48]} {t:.1f}us" for n, t, _ in kernels[:4])
+    log(f"tenancy {label}: recall@{K} {recall:.4f} p50_batch_ms "
+        f"{p50 * 1e3:.3f} queries_per_s {B / p50:.1f} device_busy_ms "
+        f"{busy * 1e3:.3f} idle_share {1 - busy / p50:.3f} launches_per_batch "
+        f"{launched:.0f} (B={B}, {BATCHES} batches of {B} distinct tenants, "
+        f"plain-backend bit-identical, 0 leaks); top: {top}")
+    if recall < 0.95:
+        raise AssertionError(f"tenancy {label}: recall@{K} {recall} < 0.95")
+
+
+def _masked_arena(run, dev, gen, rng) -> None:
+    """Fragmented ingest -> Masked, single queries, delete -> Masked,
+    compact -> Windowed, on one index that is freed before returning."""
+    docs = _tenant_docs(gen, dev)
+    tids, gold, q_codes = _tenant_queries(docs, gen, rng)
+    index = MultiTenantIndex(N, D, RetrievalConfig(k=K), device=dev)
+    slots = run.path(lambda: _ingest(run, index, docs, "arena"))
+    codes = index.arena.quantize(docs.reshape(-1, D)).reshape(
+        TENANTS, TENANT_DOCS, D)
+    del docs
+    doc_of = np.full(N, -1, np.int64)           # slot -> t * TENANT_DOCS + j
+    doc_of[slots.reshape(-1)] = np.arange(TENANTS * TENANT_DOCS)
+    flat = codes.reshape(-1, D)
+
+    def slot_codes(idx):
+        return flat[torch.from_numpy(doc_of).to(dev)[idx]]
+
+    gold_slots = slots[tids, gold]
+    lat, outs = run.path(lambda: _serve_index(run, index, "masked", "masked",
+                                              q_codes, tids))
+    def single(i):
+        one = run.span("retrieve", lambda: index.retrieve(
+            q_codes[0][i], int(tids[0][i])), policy="single")
+        if index.last_plan.kind != "masked":
+            raise AssertionError("tenancy: a single query was not masked")
+        run.publish(index.last_plan, 1)
+        return one
+
+    singles = run.path(lambda: [single(i) for i in range(SINGLE_QUERIES)])
+    for i, one in enumerate(singles):
+        if not all(torch.equal(getattr(one, f), getattr(outs[0], f)[i])
+                   for f in ("indices", "scores", "candidate_indices")):
+            raise AssertionError(f"tenancy single query {i} differs from "
+                                 f"lane {i} of the batched result")
+    recall = _check_served(index, "masked", outs, tids, gold_slots, q_codes,
+                           slot_codes)
+    if index.arena.stats.rebuilds:
+        raise AssertionError("tenancy: the online path rebuilt the arena")
+    _report(index, f"masked ({TENANTS} tenants, {INGEST_ROUNDS} runs each)",
+            lat, recall, q_codes, tids)
+    log(f"tenancy single queries: {SINGLE_QUERIES} retrieve(q, tenant) "
+        f"calls equal lanes 0-{SINGLE_QUERIES - 1} of the batched masked "
+        "result")
+
+    # Delete 256 of each tenant's docs (every 8th), golds of some lanes too.
+    dead_local = np.arange(TENANT_DOCS) % (TENANT_DOCS // TENANT_DELETES) == 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run.path(lambda: [run.span("delete", lambda: index.delete(
+        t, slots[t, dead_local]), tid=t) for t in range(TENANTS)])
+    secs = time.perf_counter() - t0
+    lost = dead_local[gold]
+    if not lost.any():
+        raise AssertionError("tenancy: no lane's gold was deleted")
+    if index.num_live != N - TENANTS * TENANT_DELETES:
+        raise AssertionError(f"tenancy: num_live {index.num_live} after the "
+                             "deletes")
+    log(f"tenancy delete: {TENANTS} delete calls of {TENANT_DELETES} slots "
+        f"in {secs:.3f} s ({secs / TENANTS * 1e3:.3f} ms per call, each "
+        f"synchronized); num_live {index.num_live}; the gold of "
+        f"{int(lost.sum())} of {lost.size} lanes deleted")
+    dead = torch.zeros(N, dtype=torch.bool, device=dev)
+    dead[torch.from_numpy(slots[:, dead_local].reshape(-1)).to(dev)] = True
+    lat, outs = run.path(lambda: _serve_index(
+        run, index, "masked_after_delete", "masked", q_codes, tids))
+    for res in outs:
+        for ids in (res.indices, res.candidate_indices):
+            if bool(((ids >= 0) & dead[ids.long().clamp(min=0)]).any()):
+                raise AssertionError("tenancy: a tombstoned id was returned")
+    recall = _check_served(index, "masked after delete", outs, tids,
+                           gold_slots, q_codes, slot_codes, ~lost)
+    _report(index, "masked after delete", lat, recall, q_codes, tids)
+
+    # Compact: every tenant one run, the planes a rebuild's.
+    live = TENANTS * (TENANT_DOCS - TENANT_DELETES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mapping = run.path(lambda: run.span("compact", index.compact))
+    secs = time.perf_counter() - t0
+    least = (live + N) * SLOT_BYTES / HBM_BYTES_PER_S
+    log(f"tenancy compact: {secs * 1e3:.3f} ms (host clock, synchronized) "
+        f"against its least time {least * 1e3:.4f} ms ({live} live rows "
+        f"read + {N} rows written x {SLOT_BYTES} bytes at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    if any(len(index.table.segments(t)) != 1 for t in range(TENANTS)):
+        raise AssertionError("tenancy: a tenant is not one run after compact")
+    survivors = flat.reshape(TENANTS, TENANT_DOCS, D)[:, ~dead_local]
+    survivors = survivors.reshape(-1, D)
+    rebuilt = bitplanar.BitPlanarDB.from_quantized(quantization.QuantizedDB(
+        values=survivors, scale=index.arena.scale,
+        norms_sq=(survivors.to(torch.int32) ** 2).sum(-1, dtype=torch.int32)))
+    arena = index.arena
+    for name in ("msb_plane", "lsb_plane", "sign_plane", "norms_sq"):
+        mine = getattr(arena, name)
+        if not (torch.equal(mine[:live], getattr(rebuilt, name))
+                and not bool(mine[live:].any())):
+            raise AssertionError(f"tenancy: the compacted {name} is not a "
+                                 "rebuild of the surviving codes")
+    owners = torch.arange(TENANTS, device=dev, dtype=torch.int32)
+    if not (torch.equal(arena.owner[:live], owners.repeat_interleave(
+            TENANT_DOCS - TENANT_DELETES))
+            and bool((arena.owner[live:] == -1).all())):
+        raise AssertionError("tenancy: the compacted owner map is wrong")
+    log("tenancy compact: every tenant one contiguous run; planes, sign "
+        "plane, norms and owner equal BitPlanarDB.from_quantized of the "
+        "surviving codes in tenant order (online ingest = a rebuild)")
+    moved = np.full(N, -1, np.int64)
+    moved[mapping[mapping >= 0]] = doc_of[mapping >= 0]
+    doc_of[:] = moved
+    gold_slots = mapping[gold_slots]
+
+    lat, outs = run.path(lambda: _serve_index(
+        run, index, "windowed", "windowed", q_codes, tids))
+    if index.last_plan.rows_scanned != TENANT_DOCS:
+        raise AssertionError(f"tenancy: window {index.last_plan.rows_scanned}"
+                             f", not {TENANT_DOCS}")
+    for i, res in enumerate(outs):
+        want = index.engine.retrieve(q_codes[i], arena.db(), MaskedPolicy(
+            owner=arena.owner,
+            tenant_ids=torch.from_numpy(tids[i]).to(dev)))
+        for field in ("indices", "scores", "candidate_indices"):
+            if not torch.equal(getattr(res, field), getattr(want, field)):
+                raise AssertionError(f"tenancy windowed batch {i}: {field} "
+                                     "differs from the masked scan")
+    recall = _check_served(index, "windowed", outs, tids, gold_slots, q_codes,
+                           slot_codes, ~lost)
+    _report(index, f"windowed ({TENANT_DOCS}) after compact", lat, recall,
+            q_codes, tids)
+    log("tenancy windowed: bit-identical to the masked scan over the same "
+        f"arena; arena rebuilds {arena.stats.rebuilds}")
+    del index, codes, flat, survivors, rebuilt, arena, dead
+    torch.cuda.empty_cache()
+
+
+def _clustered_arena(run, dev, gen, rng) -> None:
+    centres = _unit(torch.randn(T_CLUSTERS, D, generator=gen, device=dev))
+    docs = _tenant_docs(gen, dev, centres)
+    tids, gold, q_codes = _tenant_queries(docs, gen, rng)
+    index = MultiTenantIndex(
+        N, D, RetrievalConfig(k=K), device=dev,
+        clusters=clustering.ClusterParams(T_CLUSTERS, nprobe=T_NPROBE,
+                                          block_rows=T_BLOCK_ROWS))
+    slots = run.path(lambda: _ingest(run, index, docs, "clustered"))
+    codes = index.arena.quantize(docs.reshape(-1, D)).reshape(
+        TENANTS, TENANT_DOCS, D)
+    del docs, centres
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mapping = run.path(lambda: run.span("compact", index.compact))
+    log(f"tenancy clustered compact: {(time.perf_counter() - t0) * 1e3:.3f} "
+        f"ms; codebook generation {index.clusters.generation}")
+    doc_of = np.full(N, -1, np.int64)
+    doc_of[mapping[slots.reshape(-1)]] = np.arange(TENANTS * TENANT_DOCS)
+    flat = codes.reshape(-1, D)
+
+    def slot_codes(idx):
+        return flat[torch.from_numpy(doc_of).to(dev)[idx]]
+
+    gold_slots = mapping[slots[tids, gold]]
+    base = index.cfg
+    for label, cfg in (("cluster_cosine", base),
+                       ("cluster_mips", dataclasses.replace(base,
+                                                            metric="mips")),
+                       (f"cluster_prescreen_{T_PRESCREEN_C0}",
+                        dataclasses.replace(base,
+                                            prescreen_c0=T_PRESCREEN_C0))):
+        index.cfg = cfg
+        lat, outs = run.path(lambda: _serve_index(run, index, label,
+                                                  "cluster", q_codes, tids))
+        view = index.last_plan.rows_scanned
+        recall = _check_served(index, label, outs, tids, gold_slots, q_codes,
+                               slot_codes)
+        _report(index, f"{label} ({view} stage-1 rows per lane)", lat,
+                recall, q_codes, tids)
+    # The host work a batch of new tenant ids costs before any launch:
+    # the per-lane block tables and the labels upload (a rolled tuple
+    # misses the index's layout cache).
+    lay = []
+    for i in range(BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index.cluster_layout(np.roll(tids[i], 1))
+        torch.cuda.synchronize()
+        lay.append(time.perf_counter() - t0)
+    log(f"tenancy cluster layout: p50 {statistics.median(lay) * 1e3:.3f} ms "
+        f"per batch of {B} new tenant ids (block tables + labels upload, "
+        "host clock)")
+    del index, codes, flat
+    torch.cuda.empty_cache()
+
+
+def _check_obs(run) -> None:
+    """The Prometheus export parses back to the registry's counters, the
+    byte counters add up to the plans', and the trace is written; then the
+    host cost of publishing one batch's plan and energy, on and off."""
+    text = obs.prometheus_text(run.registry)
+    parsed = obs.parse_prometheus(text)
+    counters = [m for kind, m in run.registry.metrics() if kind == "counter"]
+    for m in counters:
+        if (dict((k, str(v)) for k, v in m.labels), float(m.value)) not in \
+                parsed.get(m.name, []):
+            raise AssertionError(f"obs: counter {m.name}{m.labels} did not "
+                                 "round-trip through the Prometheus text")
+    want: dict[str, int] = {}
+    for plan in run.plans:
+        for st in plan.stages:
+            want[st.name] = want.get(st.name, 0) + st.bytes_hbm
+    got = {dict(m.labels)["stage"]: m.value for m in counters
+           if m.name == "stage_bytes_hbm"}
+    if got != want:
+        raise AssertionError(f"obs: stage_bytes_hbm {got} != the plans' "
+                             f"{want}")
+    out_dir = os.path.join(ROOT, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "tenancy_trace.json")
+    events = obs.write_chrome_trace(path, run.tracer)
+    spans = {}
+    for ev in run.tracer.spans():
+        spans.setdefault(ev.name, []).append(ev.dur)
+    summary = ", ".join(f"{name} {len(d)} spans p50 "
+                        f"{statistics.median(d) * 1e3:.3f} ms"
+                        for name, d in spans.items())
+    log(f"obs: {len(counters)} counters round-trip through the Prometheus "
+        f"text ({len(text.splitlines())} lines); stage_bytes_hbm equals the "
+        f"{len(run.plans)} plans' bytes {want}; {events} trace events "
+        f"written to build/tenancy_trace.json ({summary})")
+    us = {}
+    plans = run.plans[:BATCHES]
+    for label, reg in (("enabled", obs.MetricsRegistry()),
+                       ("null", obs.NULL_REGISTRY)):
+        t0 = time.perf_counter()
+        for _ in range(PUBLISH_REPS):
+            for plan in plans:
+                plan.publish(reg)
+                energy.observe_cost(reg, energy.cost_cascade(
+                    plan.stages, D, batch=plan.batch), queries=B)
+        us[label] = round((time.perf_counter() - t0)
+                          / (PUBLISH_REPS * len(plans)) * 1e6, 2)
+    log(f"obs: host us per batch of publish + observe_cost: registry "
+        f"enabled {us['enabled']}, NULL_REGISTRY {us['null']}")
+
+
+def phase_tenancy(dev) -> dict[str, int]:
+    """The multi-tenant streaming index at full width through its entry
+    points (`MultiTenantIndex.ingest`, `delete`, `compact`, `retrieve`):
+    Masked, Windowed and Cluster policies, the obs layer around them."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rng = np.random.default_rng(SEED + 4)
+    run = _Tenancy(dev)
+    _masked_arena(run, dev, gen, rng)
+    _clustered_arena(run, dev, gen, rng)
+    _check_obs(run)
+    log(f"tenancy path launches: {run.launches}; the phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for key in TENANCY_KERNELS:
+        if run.launches.get(key, 0) <= 0:
+            raise AssertionError(f"kernel {key} was not launched by the "
+                                 "tenancy path")
+    for key in ("stage2_exact", "stage1_gather_dp4a"):
+        if run.launches.get(key, 0):
+            raise AssertionError(f"kernel {key} was launched by the tenancy "
+                                 "path, which should not take it")
+    return run.launches
+
+
 # Host cost of the exact wrappers and of the block gather on each of its
 # kernels: HOST_CALLS back-to-back calls at the main path's shapes (B = 32,
 # C = 50, D = 512; one query for the single form; one lane and one block
@@ -1532,10 +1993,11 @@ def main() -> int:
     del qdb, db, q_codes, gold
     torch.cuda.empty_cache()
     cluster_launches = phase_cluster(dev)
+    tenancy_launches = phase_tenancy(dev)
     kernels += new_kernels
     for k in kernels:
-        k["launches"] = sum(counts[k["name"]] for counts in (
-            launches, tune_launches, cluster_launches))
+        k["launches"] = sum(counts.get(k["name"], 0) for counts in (
+            launches, tune_launches, cluster_launches, tenancy_launches))
     phase_host_us(dev)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
 """State carried across from the JAX package: numpy leaves -> the port.
 
 The reference's `QuantizedDB`, `BitPlanarDB` and `ClusterCodebook` are
-pytrees of arrays; a caller turns their leaves into numpy (``np.asarray``)
-and hands them here to get the port's objects on a chosen device. This
-module imports no JAX.
+pytrees of arrays, and its `Arena` and `ClusterIndex` hold arrays plus
+host counters; a caller turns their leaves into numpy (``np.asarray``)
+and hands them here to get the port's objects on a chosen device, so a
+history begun on the reference continues on the port. This module
+imports no JAX.
 """
 from __future__ import annotations
 
@@ -12,8 +14,9 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.bitplanar import BitPlanarDB
-from repro_torch.core.clustering import ClusterCodebook
+from repro_torch.core.clustering import ClusterCodebook, ClusterIndex
 from repro_torch.core.quantization import QuantizedDB
+from repro_torch.tenancy.arena import Arena, ArenaStats
 
 
 def _tensor(a, dtype: np.dtype, name: str, dev: torch.device) -> torch.Tensor:
@@ -63,3 +66,64 @@ def cluster_codebook(codes, msb_plane, norms_sq, *,
 def query_codes(codes, *, device=None) -> torch.Tensor:
     """(..., D) int8 query codes -> an int8 tensor on `device`."""
     return _tensor(codes, np.int8, "query codes", resolve_device(device))
+
+
+def arena(msb_plane, lsb_plane, sign_plane, norms_sq, owner, cluster_labels,
+          *, next_slot: int, tombstones: int, generation: int, stats: dict,
+          scale, device=None) -> Arena:
+    """The reference `Arena`'s state: planes (N, D//2) uint8, sign_plane
+    (N, D//8) uint8 or None, norms_sq and owner (N,) int32,
+    cluster_labels (N,) int32, its `_next`, `_tombstones` and
+    `generation`, `stats` as a dict of ArenaStats' counts, and its f32
+    scale. The port's arena holds the same rows and continues the same
+    slot allocation."""
+    planes = np.asarray(msb_plane)
+    capacity, dim = planes.shape[0], planes.shape[1] * 2
+    out = Arena(capacity, dim, scale=np.float32(np.asarray(scale)),
+                device=device)
+    dev = out.device
+    given = [(out.msb_plane, msb_plane, np.uint8, "msb_plane"),
+             (out.lsb_plane, lsb_plane, np.uint8, "lsb_plane"),
+             (out.norms_sq, norms_sq, np.int32, "norms_sq"),
+             (out.owner, owner, np.int32, "owner")]
+    if (sign_plane is None) != (out.sign_plane is None):
+        raise ValueError("sign_plane is given exactly when dim % 8 == 0")
+    if sign_plane is not None:
+        given.append((out.sign_plane, sign_plane, np.uint8, "sign_plane"))
+    for dst, src, dtype, name in given:
+        t = _tensor(src, dtype, name, dev)
+        if t.shape != dst.shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(t)
+    labels = np.asarray(cluster_labels)
+    if labels.dtype != np.int32 or labels.shape != (capacity,):
+        raise TypeError(f"cluster_labels must be ({capacity},) int32")
+    out.cluster_labels = labels.copy()
+    out._next = int(next_slot)
+    out._tombstones = int(tombstones)
+    out.generation = int(generation)
+    out.stats = ArenaStats(**stats)
+    return out
+
+
+def cluster_index(centroids, sums, counts, *, generation: int, seed: int = 0,
+                  iters: int = 8, device=None) -> ClusterIndex:
+    """The reference `ClusterIndex`'s state: its centroids (K, D) int8
+    (None while untrained), running sums (K, D) float64, counts (K,)
+    int64 and generation."""
+    sums = np.asarray(sums)
+    counts = np.asarray(counts)
+    if sums.dtype != np.float64 or counts.dtype != np.int64:
+        raise TypeError("sums must be float64 and counts int64")
+    out = ClusterIndex(sums.shape[0], sums.shape[1], seed=seed, iters=iters,
+                       device=device)
+    if centroids is not None:
+        cents = np.asarray(centroids)
+        if cents.dtype != np.int8 or cents.shape != sums.shape:
+            raise TypeError(f"centroids must be {sums.shape} int8")
+        out._centroids = cents.copy()
+    out._sums = sums.copy()
+    out._counts = counts.copy()
+    out.generation = int(generation)
+    return out

@@ -154,8 +154,13 @@ def block_table(labels, num_clusters: int, block_rows: int, *,
         labs = labels[rows]
         keep = (labs >= 0) & (labs < num_clusters)
         rows, labs = rows[keep], labs[keep]
-    # unique (label, block) pairs, lexicographically sorted by label
-    labs, blocks = np.unique(np.stack([labs, rows // block_rows]), axis=1)
+    # unique (label, block) pairs, sorted by label then block: one int64
+    # key per pair, so the sort is a plain 1-D one (the reference's
+    # `np.unique(..., axis=1)` sorts the same pairs as records, ~20x slower)
+    blocks = rows // block_rows
+    width = int(blocks.max()) + 1 if blocks.size else 1
+    key = np.unique(labs.astype(np.int64) * width + blocks)
+    labs, blocks = key // width, key % width
     counts = np.bincount(labs, minlength=num_clusters)
     mb = max(min_blocks, int(counts.max()) if counts.size else 0)
     if pad_pow2:
@@ -229,17 +234,29 @@ class ClusterIndex:
             self.generation += 1
         else:
             labels = assign_codes(codes_np, self._centroids)
-        np.add.at(self._sums, labels, codes_np.astype(np.float64))
-        np.add.at(self._counts, labels, 1)
+        self._fold(codes_np, labels, 1)
         return labels
 
     def remove(self, codes, labels) -> None:
         """Retire deleted rows (given their codes and labels) from the
         sums."""
-        codes_np = np.asarray(codes, np.int8)
-        labels = np.asarray(labels, np.int32)
-        np.subtract.at(self._sums, labels, codes_np.astype(np.float64))
-        np.subtract.at(self._counts, labels, 1)
+        self._fold(np.asarray(codes, np.int8), np.asarray(labels, np.int32),
+                   -1)
+
+    def _fold(self, codes_np: np.ndarray, labels: np.ndarray,
+              sign: int) -> None:
+        """sums[labels[i]] += sign * codes[i] and counts[labels[i]] += sign,
+        as the reference's `np.add.at` / `np.subtract.at` but grouped: every
+        partial sum is an integer far below 2**53, so the float64 sums do
+        not depend on the order of the additions."""
+        if not labels.size:
+            return
+        order = np.argsort(labels, kind="stable")
+        labs, start = np.unique(labels[order], return_index=True)
+        self._sums[labs] += sign * np.add.reduceat(
+            codes_np[order].astype(np.float64), start, axis=0)
+        self._counts += sign * np.bincount(labels,
+                                           minlength=self.num_clusters)
 
     def refresh(self) -> None:
         """Re-derive centroids from the running sums (no corpus re-read).

@@ -12,6 +12,7 @@ bit-identical to the reference for the same float32 input.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -19,6 +20,7 @@ import torch
 from repro_torch._device import resolve_device
 
 INT8_MAX = 127
+INT4_MAX = 7
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,12 +62,46 @@ def quantize_int8(x: torch.Tensor, *, per_vector: bool = False
     return codes, scale.squeeze(-1) if per_vector else scale
 
 
+def quantize_int4(x: torch.Tensor, *, per_vector: bool = False
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric INT4 quantization. Returns (codes widened to int8 in
+    [-8, 7], scale f32)."""
+    x = x.to(torch.float32)
+    if per_vector:
+        amax = x.abs().amax(dim=-1, keepdim=True)
+    else:
+        amax = x.abs().amax()
+    scale = torch.clamp(amax, min=1e-12) / INT4_MAX
+    codes = torch.clamp(torch.round(x / scale.expand_as(x)),
+                        -INT4_MAX - 1, INT4_MAX).to(torch.int8)
+    return codes, scale.squeeze(-1) if per_vector else scale
+
+
+def unit_norm_scale(dim: int) -> float:
+    """Default fixed scale for L2-normalized embeddings of dimension `dim`.
+
+    The max-abs coordinate of a random unit vector concentrates near
+    sqrt(2 ln D / D); 4/sqrt(D) covers it with slack, so codes use most of
+    the INT8 range and only extreme outlier coordinates saturate.
+    """
+    return 4.0 / (INT8_MAX * math.sqrt(dim))
+
+
 def quantize_int8_fixed(x: torch.Tensor, scale: float) -> torch.Tensor:
     """Symmetric INT8 quantization with a fixed, caller-supplied scale."""
     x = x.to(torch.float32)
     s = torch.full_like(x, np.float32(scale))
     return torch.clamp(torch.round(x / s), -INT8_MAX - 1,
                        INT8_MAX).to(torch.int8)
+
+
+def dequantize(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """INT8 codes back to float32: codes * scale (per-vector scales
+    broadcast over rows)."""
+    scale = torch.as_tensor(scale, device=codes.device)
+    if scale.ndim == 1:
+        scale = scale[:, None]
+    return codes.to(torch.float32) * scale
 
 
 def msb_nibble(codes_int8: torch.Tensor) -> torch.Tensor:
@@ -76,6 +112,12 @@ def msb_nibble(codes_int8: torch.Tensor) -> torch.Tensor:
 def lsb_nibble(codes_int8: torch.Tensor) -> torch.Tensor:
     """Least-significant nibble in [0, 15], returned as int8."""
     return codes_int8.to(torch.int8) & 0xF
+
+
+def reconstruct_from_nibbles(msb: torch.Tensor,
+                             lsb: torch.Tensor) -> torch.Tensor:
+    """Exact inverse of the (msb, lsb) split."""
+    return (msb.to(torch.int16) * 16 + lsb.to(torch.int16)).to(torch.int8)
 
 
 def build_database(embeddings, *, per_vector: bool = False,

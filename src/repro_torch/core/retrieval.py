@@ -116,6 +116,21 @@ def batched_retrieve(query_codes: torch.Tensor, db: bitplanar.BitPlanarDB,
     return _engine.RetrievalEngine(cfg, device).retrieve(query_codes, db)
 
 
+def two_stage_retrieve_masked(query_codes: torch.Tensor,
+                              db: bitplanar.BitPlanarDB, owner: torch.Tensor,
+                              tenant_id, cfg: RetrievalConfig, *,
+                              device=None) -> RetrievalResult:
+    """One (D,) int8 query restricted to one tenant's arena rows: a B=1
+    lane of the masked batched engine over the whole arena. Rows with
+    ``owner != tenant_id`` are never returned; positions the tenant cannot
+    fill come back as -1 with score 0."""
+    tids = torch.as_tensor(tenant_id, dtype=torch.int32,
+                           device=owner.device).reshape(1)
+    policy = _engine.MaskedPolicy(owner=owner, tenant_ids=tids)
+    return _engine.RetrievalEngine(cfg, device).retrieve_single(
+        query_codes, db, policy)
+
+
 def batched_retrieve_masked(query_codes: torch.Tensor,
                             db: bitplanar.BitPlanarDB, owner: torch.Tensor,
                             tenant_ids: torch.Tensor, cfg: RetrievalConfig,

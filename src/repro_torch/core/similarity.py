@@ -20,6 +20,12 @@ import torch
 # Exact integer products
 # ---------------------------------------------------------------------------
 
+def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer dot product of int8 codes -> int32. a, b: (..., D)."""
+    return (a.to(torch.int32) * b.to(torch.int32)).sum(dim=-1,
+                                                        dtype=torch.int32)
+
+
 def int_matvec(db: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """(N, D) int8 x (D,) int8 -> (N,) int32 scores, exact."""
     return (db.double() @ q.double()).to(torch.int32)
@@ -167,3 +173,11 @@ def rerank_dense_comparator(scores: torch.Tensor, norms_sq: torch.Tensor,
                                          device=scores.device)
     _, idx = stable_topk(order_key, k)
     return idx, torch.gather(scores, -1, idx)
+
+
+def topk_mips(scores: torch.Tensor, k: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k by raw integer dot product (MIPS), ties toward the lower
+    index. Returns (values, int32 indices), as `jax.lax.top_k` does."""
+    values, idx = stable_topk(scores, k)
+    return values, idx.to(torch.int32)

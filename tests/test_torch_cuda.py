@@ -31,6 +31,7 @@ from repro_torch.kernels.stage1_int4 import (DEFAULT_ROWS, ROWS_CHOICES,
 from repro_torch.kernels.stage2_int8 import (stage2_int8_batched,
                                              stage2_int8_by_id,
                                              stage2_int8_single)
+from repro_torch.tenancy import Arena, MultiTenantIndex
 
 ZERO_COUNTS = {"stage1_plane": 0, "stage1_rows": 0, "stage2_exact": 0,
                "stage1_gather": 0, "stage0_sign_gather": 0,
@@ -777,3 +778,71 @@ def test_autotune_on_the_card(cuda_device):
             q, plane, c=16, k_per_block=16), cand)
     finally:
         autotune.clear_installed()
+
+
+def _tenant_indices(cuda_device, **kw):
+    return [MultiTenantIndex(1024, 64, RetrievalConfig(k=3), device=dev,
+                             **kw) for dev in (cuda_device, "cpu")]
+
+
+def _same_state(gpu, cpu):
+    for name in ("msb_plane", "lsb_plane", "sign_plane", "norms_sq",
+                 "owner"):
+        assert torch.equal(getattr(gpu.arena, name).cpu(),
+                           getattr(cpu.arena, name)), name
+    assert np.array_equal(gpu.arena.cluster_labels, cpu.arena.cluster_labels)
+    assert gpu.arena.generation == cpu.arena.generation
+
+
+def _same_batch(gpu, cpu, q, tids, kind):
+    res = [idx.retrieve(q, tids) for idx in (gpu, cpu)]
+    assert gpu.last_plan == cpu.last_plan and gpu.last_plan.kind == kind
+    for field in ("indices", "scores", "candidate_indices"):
+        assert torch.equal(getattr(res[0], field).cpu(),
+                           getattr(res[1], field)), field
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clustered", [False, True])
+def test_multi_tenant_index_on_the_card_matches_the_cpu(cuda_device,
+                                                        clustered):
+    """Interleaved ingests (masked), deletes, then compaction (windowed or
+    the cluster cascade): the index on the card gives the CPU index's
+    state and results bit for bit after every step."""
+    kw = (dict(clusters=clustering.ClusterParams(4, nprobe=2, block_rows=64))
+          if clustered else {})
+    gpu, cpu = _tenant_indices(cuda_device, **kw)
+    docs, queries, gold = retrieval_corpus(
+        240, 64, num_queries=12, seed=4, noise=0.05,
+        cluster_size=20 if clustered else 1)
+    tenant = np.arange(240) // 20 % 4
+    for lo in range(0, 240, 20):              # 12 runs: 3 per tenant
+        for idx in (gpu, cpu):
+            idx.ingest(int(tenant[lo]), docs[lo:lo + 20])
+        _same_state(gpu, cpu)
+    q, _ = quantize_int8(torch.from_numpy(queries), per_vector=True)
+    tids = tenant[gold].astype(np.int32)
+    _same_batch(gpu, cpu, q.numpy(), tids, "cluster" if clustered
+                else "masked")
+    for t in range(4):
+        victims = cpu.table.slots(t)[::7]
+        for idx in (gpu, cpu):
+            idx.delete(t, victims)
+        _same_state(gpu, cpu)
+    assert np.array_equal(gpu.compact(), cpu.compact())
+    _same_state(gpu, cpu)
+    _same_batch(gpu, cpu, q.numpy(), tids, "cluster" if clustered
+                else "windowed")
+    one = [idx.retrieve(q[0].numpy(), int(tids[0])) for idx in (gpu, cpu)]
+    assert torch.equal(one[0].indices.cpu(), one[1].indices)
+    assert gpu.arena.stats.rebuilds == 0
+
+
+def test_multi_tenant_index_needs_cuda_or_an_explicit_cpu():
+    if torch.cuda.is_available():
+        assert MultiTenantIndex(64, 64).arena.owner.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MultiTenantIndex(64, 64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Arena(64, 64)

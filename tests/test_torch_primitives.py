@@ -68,7 +68,8 @@ def test_quantize_int8_matches_reference(per_vector):
 def test_quantize_fixed_and_nibbles_match_reference():
     rng = np.random.default_rng(4)
     x = rng.normal(size=(32, 64)).astype(np.float32) * 0.2
-    scale = jqz.unit_norm_scale(64)
+    scale = tqz.unit_norm_scale(64)
+    assert scale == jqz.unit_norm_scale(64)
     _eq(tqz.quantize_int8_fixed(torch.from_numpy(x), scale),
         jqz.quantize_int8_fixed(jnp.asarray(x), scale))
     every = np.arange(-128, 128, dtype=np.int8)
@@ -77,6 +78,39 @@ def test_quantize_fixed_and_nibbles_match_reference():
     _eq(tqz.lsb_nibble(t), jqz.lsb_nibble(jnp.asarray(every)))
     _eq((tqz.msb_nibble(t).to(torch.int16) * 16
          + tqz.lsb_nibble(t)).to(torch.int8), every)
+
+
+@pytest.mark.parametrize("per_vector", [False, True])
+def test_int4_and_dequantize_match_reference(per_vector):
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(40, 24)).astype(np.float32)
+    x[2, 3] = 0.0
+    codes, scale = tqz.quantize_int4(torch.from_numpy(x),
+                                     per_vector=per_vector)
+    jc, js = jqz.quantize_int4(jnp.asarray(x), per_vector=per_vector)
+    _eq(codes, jc)
+    _eq(scale, js)
+    assert int(codes.min()) >= -8 and int(codes.max()) <= 7
+    _eq(tqz.dequantize(codes, scale), jqz.dequantize(jc, js))
+    for d in (8, 64, 384, 512):
+        assert tqz.unit_norm_scale(d) == jqz.unit_norm_scale(d)
+
+
+def test_reconstruct_int_dot_and_topk_mips_match_reference():
+    every = np.arange(-128, 128, dtype=np.int8)
+    t = torch.from_numpy(every)
+    _eq(tqz.reconstruct_from_nibbles(tqz.msb_nibble(t), tqz.lsb_nibble(t)),
+        jqz.reconstruct_from_nibbles(jqz.msb_nibble(jnp.asarray(every)),
+                                     jqz.lsb_nibble(jnp.asarray(every))))
+    a, b = _codes(7, 512, 8), _codes(7, 512, 9)
+    _eq(tsim.int_dot(torch.from_numpy(a), torch.from_numpy(b)),
+        jsim.int_dot(jnp.asarray(a), jnp.asarray(b)))
+    scores = np.random.default_rng(10).integers(-5, 5, 300).astype(np.int32)
+    for k in (1, 7, 300):
+        got = tsim.topk_mips(torch.from_numpy(scores), k)
+        want = jsim.topk_mips(jnp.asarray(scores), k)
+        _eq(got[0], want[0])
+        _eq(got[1], want[1])
 
 
 @pytest.mark.parametrize("per_vector", [False, True])
