@@ -82,25 +82,51 @@ Phases, each of which fails the run (non-zero exit) on any error:
                online ingest equal to a rebuild after compact(), no
                rebuild, and the Prometheus round trip of the metrics every
                retrieve publishes; the trace goes to build/.
+  9. serving — `ServingRuntime` over the tenancy phase's clustered index:
+               a session trace (32 tenants x 48 turns, after the reference
+               bench's `_session_trace`) cold, warm (preload), under a
+               quarter of the warm budget, warm at async_depth 0, and with
+               the sign prescreen; `CrossTenantBatchScheduler` over the
+               tenancy phase's Masked arena (run from inside that phase,
+               before its deletes); two open loops of 1536 requests from
+               all 512 tenants; the resident gathers (#6 and #8 over the
+               slab's combined plane) against their plain versions. Checks:
+               every run bit-identical to cold, cold to `index.retrieve`
+               and to the plain backend, the facade to `index.retrieve`,
+               fewer stage-1 bytes warm than cold, the byte ledgers equal
+               to the launches' plans, no cross-tenant row, every
+               open-loop request resolved once, and the path's launches
+               (the TMA gather, the sign gather, the exact rescore by id
+               and both resident routes; never the dp4a gather or the
+               gathered-rows rescore). Per run it prints per-turn p50 and
+               max, queries/s, hit rate, stage-1 bytes from device memory
+               and from the slab, device busy and idle share, host syncs
+               per dispatch and the host's own time by function.
 
 Then the exact wrappers' and the block gather's host microseconds per
 call (`host_us_per_call`).
 The line before the last is a JSON object describing every kernel
-(launches: the sum over the main, autotune, cluster and tenancy paths);
-the last
+(launches: the sum over the main, autotune, cluster, tenancy and serving
+paths; `stage1_gather_resident` and `stage0_sign_gather_resident` are
+counted by the resident wrappers where they launch, which only the
+serving phase's cached segments call); the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import cProfile
 import dataclasses
 import json
 import os
+import pstats
 import re
 import statistics
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -114,7 +140,8 @@ from repro_torch.core import (bitplanar, clustering, energy,  # noqa: E402
                               quantization)
 from repro_torch.core.engine import (ClusterPolicy,  # noqa: E402
                                      MaskedPolicy, PlainPolicy,
-                                     RetrievalEngine, WindowedPolicy)
+                                     RetrievalEngine, WindowedPolicy,
+                                     select_clusters, stage_fns)
 from repro_torch.core.retrieval import RetrievalConfig  # noqa: E402
 from repro_torch.core.similarity import stable_topk  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
@@ -130,7 +157,10 @@ from repro_torch.kernels.stage1_int4 import (  # noqa: E402
     DEFAULT_ROWS, stage1_int4_batched, stage1_int4_rows, stage1_int4_single)
 from repro_torch.kernels.stage2_int8 import (  # noqa: E402
     stage2_int8_batched, stage2_int8_by_id, stage2_int8_single)
-from repro_torch.tenancy import MultiTenantIndex  # noqa: E402
+from repro_torch.serve import (HotClusterCache, RuntimeConfig,  # noqa: E402
+                               ServingRuntime)
+from repro_torch.tenancy import (CrossTenantBatchScheduler,  # noqa: E402
+                                 MultiTenantIndex)
 
 SEED = 20251027
 N, D = 1 << 20, 512
@@ -1539,15 +1569,17 @@ class _Tenancy:
 
 def _tenant_docs(gen, dev, centres=None):
     """(TENANTS, TENANT_DOCS, D) seeded unit vectors; with `centres`, each
-    drawn around a random one of them (spread SPREAD)."""
+    drawn around a random one of them (spread SPREAD), and then also the
+    (TENANTS, TENANT_DOCS) centre of each doc."""
     noise = _unit(torch.randn(TENANTS * TENANT_DOCS, D, generator=gen,
                               device=dev))
     if centres is None:
         return noise.reshape(TENANTS, TENANT_DOCS, D)
     pick = torch.randint(0, centres.shape[0], (TENANTS * TENANT_DOCS,),
                          generator=gen, device=dev)
-    return _unit(centres[pick] + SPREAD * noise).reshape(TENANTS,
+    docs = _unit(centres[pick] + SPREAD * noise).reshape(TENANTS,
                                                          TENANT_DOCS, D)
+    return docs, pick.reshape(TENANTS, TENANT_DOCS).cpu().numpy()
 
 
 def _tenant_queries(docs, gen, rng):
@@ -1662,9 +1694,10 @@ def _report(index, label, lat, recall, q_codes, tids) -> None:
         raise AssertionError(f"tenancy {label}: recall@{K} {recall} < 0.95")
 
 
-def _masked_arena(run, dev, gen, rng) -> None:
-    """Fragmented ingest -> Masked, single queries, delete -> Masked,
-    compact -> Windowed, on one index that is freed before returning."""
+def _masked_arena(run, dev, gen, rng, serving) -> None:
+    """Fragmented ingest -> Masked, single queries, the scheduler facade
+    (the serving phase's, counted there), delete -> Masked, compact ->
+    Windowed, on one index that is freed before returning."""
     docs = _tenant_docs(gen, dev)
     tids, gold, q_codes = _tenant_queries(docs, gen, rng)
     index = MultiTenantIndex(N, D, RetrievalConfig(k=K), device=dev)
@@ -1705,6 +1738,7 @@ def _masked_arena(run, dev, gen, rng) -> None:
     log(f"tenancy single queries: {SINGLE_QUERIES} retrieve(q, tenant) "
         f"calls equal lanes 0-{SINGLE_QUERIES - 1} of the batched masked "
         "result")
+    serving.facade(index, q_codes, tids)
 
     # Delete 256 of each tenant's docs (every 8th), golds of some lanes too.
     dead_local = np.arange(TENANT_DOCS) % (TENANT_DOCS // TENANT_DELETES) == 0
@@ -1796,9 +1830,11 @@ def _masked_arena(run, dev, gen, rng) -> None:
     torch.cuda.empty_cache()
 
 
-def _clustered_arena(run, dev, gen, rng) -> None:
+def _clustered_arena(run, dev, gen, rng):
+    """The clustered index: returned, with the serving phase's session
+    traces, for that phase to serve."""
     centres = _unit(torch.randn(T_CLUSTERS, D, generator=gen, device=dev))
-    docs = _tenant_docs(gen, dev, centres)
+    docs, pick = _tenant_docs(gen, dev, centres)
     tids, gold, q_codes = _tenant_queries(docs, gen, rng)
     index = MultiTenantIndex(
         N, D, RetrievalConfig(k=K), device=dev,
@@ -1807,12 +1843,14 @@ def _clustered_arena(run, dev, gen, rng) -> None:
     slots = run.path(lambda: _ingest(run, index, docs, "clustered"))
     codes = index.arena.quantize(docs.reshape(-1, D)).reshape(
         TENANTS, TENANT_DOCS, D)
-    del docs, centres
+    del centres
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     mapping = run.path(lambda: run.span("compact", index.compact))
     log(f"tenancy clustered compact: {(time.perf_counter() - t0) * 1e3:.3f} "
         f"ms; codebook generation {index.clusters.generation}")
+    traces = _serving_traces(docs, pick, mapping[slots], gen, rng)
+    del docs
     doc_of = np.full(N, -1, np.int64)
     doc_of[mapping[slots.reshape(-1)]] = np.arange(TENANTS * TENANT_DOCS)
     flat = codes.reshape(-1, D)
@@ -1849,8 +1887,10 @@ def _clustered_arena(run, dev, gen, rng) -> None:
     log(f"tenancy cluster layout: p50 {statistics.median(lay) * 1e3:.3f} ms "
         f"per batch of {B} new tenant ids (block tables + labels upload, "
         "host clock)")
-    del index, codes, flat
+    index.cfg = base
+    del codes, flat
     torch.cuda.empty_cache()
+    return index, traces
 
 
 def _check_obs(run) -> None:
@@ -1904,16 +1944,18 @@ def _check_obs(run) -> None:
         f"enabled {us['enabled']}, NULL_REGISTRY {us['null']}")
 
 
-def phase_tenancy(dev) -> dict[str, int]:
+def phase_tenancy(dev, serving):
     """The multi-tenant streaming index at full width through its entry
     points (`MultiTenantIndex.ingest`, `delete`, `compact`, `retrieve`):
-    Masked, Windowed and Cluster policies, the obs layer around them."""
+    Masked, Windowed and Cluster policies, the obs layer around them.
+    Returns the path's launches and, for the serving phase, the clustered
+    index and its session traces."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     rng = np.random.default_rng(SEED + 4)
     run = _Tenancy(dev)
-    _masked_arena(run, dev, gen, rng)
-    _clustered_arena(run, dev, gen, rng)
+    _masked_arena(run, dev, gen, rng, serving)
+    served = _clustered_arena(run, dev, gen, rng)
     _check_obs(run)
     log(f"tenancy path launches: {run.launches}; the phase took "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1925,7 +1967,651 @@ def phase_tenancy(dev) -> dict[str, int]:
         if run.launches.get(key, 0):
             raise AssertionError(f"kernel {key} was launched by the tenancy "
                                  "path, which should not take it")
-    return run.launches
+    return run.launches, served
+
+
+# -- the serving phase ---------------------------------------------------
+# The session trace of the reference bench (`_session_trace`): each turn,
+# SERVE_TENANTS session tenants each send one query, a noisy re-encoding of
+# one of their own docs around their focus centre; a focus is kept with
+# probability STICKY per turn, else redrawn from a Zipf(ZIPF_S) over the
+# T_CLUSTERS centres.
+SERVE_TENANTS, SERVE_TURNS, OPEN_TURNS = 32, 48, 3
+ZIPF_S, STICKY = 1.1, 0.8
+PRESCREEN_TURNS = 12
+FACADE_FLUSHES = 12
+OPEN_WAIT, OPEN_DEPTH = 0.005, 2
+FIELDS = ("indices", "scores", "candidate_indices")
+SERVING_KERNELS = ("stage1_gather", "stage0_sign_gather", "stage2_by_id",
+                   "stage1_gather_resident", "stage0_sign_gather_resident")
+SERVING_OFF_PATH = ("stage1_gather_dp4a", "stage2_exact")
+
+
+PLANE_GATHERS = ("stage1_gather", "stage0_sign_gather")
+RESIDENT_GATHERS = ("stage1_gather_resident", "stage0_sign_gather_resident")
+
+
+class _Serving:
+    """The serving phase's launch counts: each segment driven with the
+    counts set to 0 just before it and read just after. The resident
+    wrappers count their own launches (`stage1_gather_resident`,
+    `stage0_sign_gather_resident`), so a segment's counts say which route
+    its gathers took: a cached (slab) segment must launch only the
+    resident gathers, an uncached one only the plane gathers."""
+
+    def __init__(self):
+        self.launches: dict[str, int] = {}
+        self.last: dict[str, int] = {}
+
+    def path(self, fn, cached: bool = False):
+        ops.reset_launch_counts()
+        out = fn()
+        counts = ops.launch_counts()
+        wrong = [k for k in (PLANE_GATHERS if cached else RESIDENT_GATHERS)
+                 if counts[k]]
+        if wrong:
+            raise AssertionError(
+                f"serving: a{' cached' if cached else 'n uncached'} segment "
+                f"launched {', '.join(f'{k} x{counts[k]}' for k in wrong)}")
+        self.last = counts
+        for key, n in counts.items():
+            self.launches[key] = self.launches.get(key, 0) + n
+        return out
+
+    def facade(self, index, q_codes, tids) -> None:
+        """Run 5: `CrossTenantBatchScheduler(max_batch=B)` over the tenancy
+        phase's Masked arena, FACADE_FLUSHES flushes of B requests, each
+        equal to `index.retrieve` of the same batch."""
+        sched = CrossTenantBatchScheduler(index, max_batch=B)
+        hosts = [q.cpu().numpy() for q in q_codes[:FACADE_FLUSHES]]
+
+        def drive():
+            outs, lat = [], []
+            for i, q in enumerate(hosts):
+                t0 = time.perf_counter()
+                rids = [sched.submit(int(t), q[j])
+                        for j, t in enumerate(tids[i])]
+                out = sched.flush()
+                lat.append(time.perf_counter() - t0)
+                outs.append([out[r] for r in rids])
+            return outs, lat
+
+        outs, lat = self.path(drive)
+        if sched.launches != FACADE_FLUSHES or sched.pending():
+            raise AssertionError(f"serving facade: {sched.launches} launches "
+                                 f"for {FACADE_FLUSHES} flushes")
+        for i, lanes in enumerate(outs):
+            want = index.retrieve(q_codes[i], tids[i])
+            for f in FIELDS:
+                got = torch.stack([getattr(r, f) for r in lanes])
+                if not torch.equal(got, getattr(want, f).cpu()):
+                    raise AssertionError(f"serving facade flush {i}: {f} "
+                                         "differs from index.retrieve")
+        log(f"serving facade: CrossTenantBatchScheduler(max_batch={B}) over "
+            f"the Masked arena, {FACADE_FLUSHES} flushes of {B} tenants "
+            f"equal index.retrieve bit for bit; p50_flush_ms "
+            f"{statistics.median(lat) * 1e3:.3f}; stage1_bytes_streamed "
+            f"{sched.stage1_bytes_streamed}")
+
+
+def _zipf_turns(rng, n, turns):
+    """Each turn's focus centre per tenant (the reference's
+    `_session_trace`)."""
+    ranks = np.arange(1, T_CLUSTERS + 1, dtype=np.float64)
+    pops = 1.0 / ranks ** ZIPF_S
+    pops /= pops.sum()
+    focus = rng.choice(T_CLUSTERS, size=n, p=pops)
+    out = []
+    for _ in range(turns):
+        redraw = rng.random(n) >= STICKY
+        focus = np.where(redraw, rng.choice(T_CLUSTERS, size=n, p=pops),
+                         focus)
+        out.append(focus.copy())
+    return out
+
+
+def _serving_traces(docs, pick, gold_slots, gen, rng):
+    """(closed-loop turns, open-loop requests): each turn (tenant ids,
+    int8 query codes on the host, gold slots). The closed loop: the same
+    SERVE_TENANTS tenants for SERVE_TURNS turns. The open loop: all TENANTS
+    tenants for OPEN_TURNS turns, each turn's arrivals in a random order.
+    Queries are a doc plus relative noise NOISE, as the tenancy phase's."""
+    def turn(tenants, focus):
+        js = []
+        for t, f in zip(tenants, focus):
+            mine = np.flatnonzero(pick[t] == f)
+            js.append(int(rng.choice(mine)) if mine.size
+                      else int(rng.integers(TENANT_DOCS)))
+        js = np.asarray(js)
+        t_dev, j_dev = (torch.from_numpy(a).to(docs.device)
+                        for a in (tenants, js))
+        noise = _unit(torch.randn(len(tenants), D, generator=gen,
+                                  device=docs.device))
+        q, _ = quantization.quantize_int8(
+            _unit(docs[t_dev, j_dev] + NOISE * noise), per_vector=True)
+        return (tenants.astype(np.int32), q.cpu().numpy(),
+                gold_slots[tenants, js])
+
+    session = np.sort(rng.permutation(TENANTS)[:SERVE_TENANTS])
+    closed = [turn(session, f) for f in _zipf_turns(rng, SERVE_TENANTS,
+                                                    SERVE_TURNS)]
+    everyone = np.arange(TENANTS)
+    open_loop = []
+    for f in _zipf_turns(rng, TENANTS, OPEN_TURNS):
+        order = rng.permutation(TENANTS)
+        tids, q, gold = turn(everyone[order], f[order])
+        open_loop += list(zip(tids.tolist(), q, gold.tolist()))
+    return closed, open_loop
+
+
+def _one_turn(rt, turn):
+    tids, q, _ = turn
+    hs = [rt.submit(int(t), q[i]) for i, t in enumerate(tids)]
+    rt.flush()
+    return [h.result() for h in hs]
+
+
+def _closed_loop(serving, index, turns, cached, **cfg):
+    """Drive `turns` through a new runtime: submit every request of a turn,
+    flush(), then block on the results; host clock around each turn.
+    On the "cuda" backend each launch runs one gather (the sign gather
+    with the prescreen, else the stage-1 gather), on its resident route
+    iff `cached`; the plain backend launches none. Returns
+    (runtime, per-turn seconds, per-turn stacked results, each turn's
+    (plan, prefetch bytes))."""
+    rt = ServingRuntime(index, RuntimeConfig(max_batch=SERVE_TENANTS, **cfg))
+
+    def drive():
+        lat, outs, plans = [], [], []
+        prefetched = 0
+        for tids, q, _ in turns:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hs = [rt.submit(int(t), q[i]) for i, t in enumerate(tids)]
+            t1 = time.perf_counter()
+            rt.flush()
+            res = [h.result() for h in hs]
+            t2 = time.perf_counter()
+            lat.append((t2 - t0, t1 - t0))
+            plans.append((rt.last_plan, rt.prefetch_bytes - prefetched))
+            prefetched = rt.prefetch_bytes
+            outs.append(tuple(torch.stack([getattr(r, f) for r in res])
+                              for f in FIELDS))
+        return lat, outs, plans
+
+    lat, outs, plans = serving.path(drive, cached=cached)
+    if rt.launches != len(turns):
+        raise AssertionError(f"serving: {rt.launches} launches for "
+                             f"{len(turns)} turns")
+    key = (RESIDENT_GATHERS if cached else PLANE_GATHERS)[
+        index.cfg.prescreen_c0 is not None]
+    want = rt.launches if index.cfg.backend == "cuda" else 0
+    if serving.last[key] != want:
+        raise AssertionError(f"serving: {serving.last[key]} {key} launches "
+                             f"for {rt.launches} runtime launches on the "
+                             f"{index.cfg.backend} backend")
+    return rt, lat, outs, plans
+
+
+def _same_outs(label, got, want) -> None:
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        for f, a, b in zip(FIELDS, g, w):
+            if not torch.equal(a, b):
+                raise AssertionError(f"serving {label} turn {i}: {f} is not "
+                                     "bit-identical to the cold run")
+
+
+def _no_leak(label, owner, turns, outs) -> None:
+    for i, ((tids, _, _), res) in enumerate(zip(turns, outs)):
+        for ids in (res[0].numpy(), res[2].numpy()):
+            bad = (ids >= 0) & (owner[np.maximum(ids, 0)]
+                                != tids[:, None])
+            if bad.any():
+                raise AssertionError(f"serving {label} turn {i}: a lane "
+                                     "shows another tenant's row")
+
+
+def _reconcile(label, rt, plans) -> None:
+    """The runtime's stage-1 ledgers are the sum of its launches'
+    `cache_split_plan` ledgers, and each plan's approx stage carries them."""
+    plans = [p for p, _ in plans]
+    hbm = sum(p.stage1_bytes for p in plans)
+    sram = sum(p.stage1_bytes_sram for p in plans)
+    approx = [s for p in plans for s in p.stages if s.name == "approx"]
+    if ((rt.stage1_bytes_streamed, rt.stage1_bytes_sram) != (hbm, sram)
+            or sum(s.bytes_hbm for s in approx) != hbm
+            or sum(s.bytes_sram for s in approx) != sram
+            or rt.stage_bytes.get("approx", 0) != hbm
+            or rt.stage_bytes_sram.get("approx", 0) != sram):
+        raise AssertionError(f"serving {label}: stage-1 bytes do not "
+                             "reconcile with the launches' plans")
+
+
+def _split_check(label, index, turns, plans, all_hits) -> None:
+    """Each cached launch's hit/miss byte split against an account that
+    the runtime's `book` does not make: the lanes' probed clusters from
+    the cold path's own prune (`select_clusters` of the index's
+    `ClusterPolicy`, on the plain functions), a hit charged its packed
+    slab blocks (`HotClusterCache.entry_blocks` of the cluster's rows), a
+    miss its plane blocks in the host table. SRAM + (HBM - prefetch) of a
+    launch lies between the all-hit and the all-miss sums, and SRAM is at
+    most the all-hit sum; with `all_hits` (a preload that holds every
+    view) HBM - prefetch is 0 and SRAM is the all-hit sum exactly. For
+    launches without the prescreen, whose split is not prorated."""
+    fns = stage_fns("torch")
+    block_bytes = T_BLOCK_ROWS * (D // 2)
+    for i, ((tids, q, _), (plan, prefetched)) in enumerate(
+            zip(turns, plans, strict=True)):
+        policy, table = index.cluster_layout(tids)
+        q_msb = quantization.msb_nibble(torch.from_numpy(q).to(index.device))
+        probes = select_clusters(q_msb, policy, index.cfg,
+                                 fns).cpu().numpy()
+        packed = plane = 0
+        for lane, t in enumerate(tids.tolist()):
+            rows = index.cluster_rows(t)
+            for c in probes[lane].tolist():
+                packed += HotClusterCache.entry_blocks(
+                    rows.get(c, ()), T_BLOCK_ROWS) * block_bytes
+                plane += int((table[lane, c] >= 0).sum()) * block_bytes
+        sram, streamed = plan.stage1_bytes_sram, plan.stage1_bytes - prefetched
+        if all_hits:
+            ok = streamed == 0 and sram == packed
+        else:
+            ok = streamed >= 0 and sram <= packed <= sram + streamed <= plane
+        if not ok:
+            raise AssertionError(
+                f"serving {label} turn {i}: slab bytes {sram} and streamed "
+                f"bytes {streamed} (prefetch {prefetched} apart) do not fit "
+                f"the probed clusters' {packed} packed / {plane} plane bytes")
+
+
+def _syncs_per_dispatch(rt, turn) -> tuple[int, str]:
+    """Host syncs in one dispatch: the turn's submits (the last one
+    launches the full batch) under torch.cuda.set_sync_debug_mode; returns
+    their count and, for each, the innermost Python frames that made it."""
+    tids, q, _ = turn
+    before = rt.launches
+    sites = []
+    probing = [False]     # not the warning switching the mode on may give
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if probing[0] and "synchroniz" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if os.path.basename(f.filename) != "warnings.py"][-4:]
+            sites.append(" <- ".join(
+                f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                for f in reversed(frames)))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        probing[0] = True
+        try:
+            for i, t in enumerate(tids):
+                rt.submit(int(t), q[i])
+        finally:
+            probing[0] = False
+            torch.cuda.set_sync_debug_mode(0)
+    if rt.launches != before + 1:
+        raise AssertionError("serving: the sync probe did not dispatch")
+    rt.flush()
+    return len(sites), "; ".join(sites)
+
+
+def _host_top(rt, turn, n=6) -> str:
+    """The functions with the most own host time over 4 more turns
+    (cProfile), as `name ms per turn`."""
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(4):
+        _one_turn(rt, turn)
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:n]
+    return ", ".join(f"{os.path.basename(fn)}:{line} {name} "
+                     f"{tt / 4 * 1e3:.2f}"
+                     for (fn, line, name), (_, _, tt, _, _) in top)
+
+
+def _report_run(label, rt, lat, turns, recall=None) -> dict:
+    """Print one closed-loop run's line: its ledgers first, then host syncs
+    of one more dispatch, device busy of one more profiled turn and the
+    host's own time by function over four more."""
+    lat, dispatch = [t for t, _ in lat], [d for _, d in lat]
+    stats = rt.cache_stats()
+    hits, misses = stats.get("hits", 0), stats.get("misses", 0)
+    hit_rate = hits / (hits + misses) if hits + misses else float("nan")
+    counters = {k: stats[k] for k in ("entries", "bytes_used", "evictions",
+                                      "stale_evictions", "rejected",
+                                      "fill_bytes", "fill_dispatches")
+                if k in stats}
+    ledger = (f"hbm_stage1_bytes {rt.stage1_bytes_streamed} "
+              f"sram_stage1_bytes {rt.stage1_bytes_sram} prefetch_bytes "
+              f"{rt.prefetch_bytes} launches_per_turn "
+              f"{rt.launches / len(lat):.2f}")
+    syncs, sites = _syncs_per_dispatch(rt, turns[-1])
+    kernels = device_profile(lambda: _one_turn(rt, turns[-1]))
+    host = _host_top(rt, turns[-1])
+    busy = sum(t for _, t, _ in kernels) * 1e-6
+    launched = sum(n for _, _, n in kernels)
+    p50 = statistics.median(lat)
+    qps = SERVE_TENANTS * len(lat) / sum(lat)
+    log(f"serving {label}: p50_turn_ms {p50 * 1e3:.3f} max_turn_ms "
+        f"{max(lat) * 1e3:.3f} (submits and dispatch p50_ms "
+        f"{statistics.median(dispatch) * 1e3:.3f}) queries_per_s {qps:.1f} "
+        f"hit_rate "
+        f"{hit_rate:.4f} (hits {hits}, misses {misses}) cache {counters} "
+        f"{ledger} device_busy_ms {busy * 1e3:.3f} idle_share "
+        f"{1 - busy / p50:.3f} kernel_launches_per_turn {launched:.0f} "
+        f"host_syncs_per_dispatch {syncs}"
+        + (f" (at {sites})" if syncs else "")
+        + ("" if recall is None else f" recall@{K} {recall:.4f}")
+        + f" ({len(lat)} turns of {SERVE_TENANTS} session tenants); host "
+        f"own ms per turn: {host}")
+    return dict(p50=p50, qps=qps)
+
+
+def _in_turns(cold_rt, warm_rt, turns) -> None:
+    """The cold and the warm runtime serving the same turns alternately in
+    this one process (cold, warm, warm, cold, ...): per-turn p50 of each
+    and the rounds in which the warm turn was the faster."""
+    times = {"cold": [], "warm": []}
+    for i, turn in enumerate(turns):
+        order = (("cold", cold_rt), ("warm", warm_rt))
+        for label, rt in (order if i % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _one_turn(rt, turn)
+            times[label].append(time.perf_counter() - t0)
+    faster = sum(w < c for c, w in zip(times["cold"], times["warm"]))
+    log(f"serving cold/warm in turns: p50_turn_ms cold "
+        f"{statistics.median(times['cold']) * 1e3:.3f} warm "
+        f"{statistics.median(times['warm']) * 1e3:.3f}; warm faster in "
+        f"{faster} of {len(turns)} rounds (same process, alternating)")
+
+
+def _recall(turns, outs) -> float:
+    hits = sum(int((res[0].numpy() == gold[:, None]).any(axis=1).sum())
+               for (_, _, gold), res in zip(turns, outs))
+    return hits / sum(len(t[0]) for t in turns)
+
+
+def _open_loop(serving, index, requests, rate, label, **cfg) -> None:
+    """Run 6: `requests` arrive at `rate` per second on the host clock;
+    `submit(now=...)`, then `poll(now=...)` until the next arrival is due,
+    then poll until everything resolved. A request's latency runs from
+    its arrival to the first poll that finds it resolved."""
+    reg = obs.MetricsRegistry()
+    rt = ServingRuntime(index, RuntimeConfig(
+        max_batch=SERVE_TENANTS, max_wait=OPEN_WAIT,
+        async_depth=OPEN_DEPTH, **cfg), registry=reg)
+    resolved_ctr = reg.counter("serve_requests_resolved")
+    arrive, done_at, handles = {}, {}, []
+    outstanding: list = []
+    seen = [0]
+
+    def harvest(now):
+        if resolved_ctr.value == seen[0]:
+            return
+        seen[0] = resolved_ctr.value
+        keep = []
+        for h in outstanding:
+            if h.state == "resolved":
+                if h.request_id in done_at:
+                    raise AssertionError(f"serving {label}: request "
+                                         f"{h.request_id} resolved twice")
+                done_at[h.request_id] = now
+            else:
+                keep.append(h)
+        outstanding[:] = keep
+
+    def drive():
+        t_start = time.monotonic()
+        for i, (t, q, _) in enumerate(requests):
+            due = t_start + i / rate
+            now = time.monotonic()
+            while now < due:
+                rt.poll(now=now)
+                harvest(time.monotonic())
+                now = time.monotonic()
+            h = rt.submit(t, q, now=now)
+            arrive[h.request_id] = now
+            outstanding.append(h)
+            handles.append(h)
+            harvest(time.monotonic())
+        while outstanding:
+            rt.poll(now=time.monotonic())
+            harvest(time.monotonic())
+        return time.monotonic() - t_start
+
+    secs = serving.path(drive, cached=cfg.get("cache_bytes", 0) > 0)
+    n = len(requests)
+    if (len(done_at) != n or rt.queries_served != n or rt.pending()
+            or rt.in_flight() or resolved_ctr.value != n
+            or any(h.state != "resolved" for h in handles)):
+        raise AssertionError(f"serving {label}: {len(done_at)} of {n} "
+                             "requests resolved")
+    owner = index.arena.owner.cpu().numpy()
+    hits = 0
+    for h, (t, _, gold) in zip(handles, requests, strict=True):
+        ids = h.result().indices.numpy()
+        if ((ids >= 0) & (owner[np.maximum(ids, 0)] != t)).any():
+            raise AssertionError(f"serving {label}: a request shows another "
+                                 "tenant's row")
+        hits += int(gold in ids)
+    lat = sorted(done_at[h.request_id] - arrive[h.request_id]
+                 for h in handles)
+    p50, p99 = lat[len(lat) // 2], lat[min(len(lat) - 1,
+                                          int(len(lat) * 0.99))]
+    log(f"serving {label}: {n} requests from {TENANTS} tenants at "
+        f"{rate:.1f}/s (host clock), max_wait {OPEN_WAIT * 1e3:.0f} ms, "
+        f"max_batch {SERVE_TENANTS}, async_depth {OPEN_DEPTH}: latency "
+        f"p50_ms {p50 * 1e3:.3f} p99_ms {p99 * 1e3:.3f} max_ms "
+        f"{lat[-1] * 1e3:.3f}; {rt.launches} launches, mean occupancy "
+        f"{n / rt.launches:.2f}; served in {secs:.3f} s "
+        f"({n / secs:.1f} queries/s); recall@{K} {hits / n:.4f}; every "
+        "request resolved once, 0 leaks")
+
+
+def _resident_kernels(dev, cache, arena) -> list[dict]:
+    """The resident routes of #6 and #8 against their plain versions on the
+    warm run's combined plane (N + S * T_BLOCK_ROWS rows) and its sign
+    plane, B = 32 lanes of T_NPROBE * 4 blocks, half in the arena region
+    and half in the slab region; timed beside the same kernels over the
+    arena plane alone."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    comb = cache.slab_plane
+    sign_comb = cache.sign_plane
+    br = T_BLOCK_ROWS
+    nb, s = N // br, cache.num_slab_blocks
+    j = T_NPROBE * 4
+    ids = torch.cat([
+        torch.randint(0, nb, (B, j // 2), generator=gen, device=dev),
+        torch.randint(nb, nb + s, (B, j - j // 2), generator=gen,
+                      device=dev)], dim=1).to(torch.int32)
+    plane_ids = torch.randint(0, nb, (B, j), generator=gen, device=dev,
+                              dtype=torch.int32)
+    q = torch.randint(-128, 128, (B, D), generator=gen, device=dev,
+                      dtype=torch.int8)
+    q_msb = quantization.msb_nibble(q)
+    q_eo = ops.pack_queries_even_odd(q_msb)
+    q_sign = ops.pack_query_signs(q)
+    d2, d8, r_view = D // 2, D // 8, j * br
+    view = bitplanar.expand_block_rows(ids, br)
+    uniq = int(torch.unique(view).numel())
+    rows = []
+
+    def gather(qm, plane, block_ids):
+        return ops.stage1_scores_gather_resident(qm, plane, block_ids,
+                                                 block_rows=br)
+
+    def gather_plain(qm, plane, block_ids):
+        return ref.stage1_gather_resident_ref(ops.pack_queries_even_odd(qm),
+                                              plane, block_ids, br)
+
+    def sign(qs, plane, block_ids):
+        return ops.stage0_sign_scores_gather_resident(qs, plane, block_ids,
+                                                      block_rows=br)
+
+    def sign_plain(qs, plane, block_ids):
+        return ref.stage0_sign_gather_resident_ref(qs, plane, block_ids, br)
+
+    for name, fn, plain, args, kernel_src, replaces, symbol in (
+            ("stage1_gather_resident", gather, gather_plain,
+             (q_msb, comb, ids), "src/repro_torch/csrc/stage1_gather.cu",
+             "src/repro/kernels/stage1_gather.py:65", "gather_tma_kernel"),
+            ("stage0_sign_gather_resident", sign, sign_plain,
+             (q_sign, sign_comb, ids), "src/repro_torch/csrc/stage0_sign.cu",
+             "src/repro/kernels/stage0_sign.py:113", "sign_gather_kernel")):
+        err = _check_kernel(name, fn, plain, args,
+                            f"B={B} J={j} BR={br} D={D} on {comb.shape[0]} "
+                            "combined rows")
+        plane = args[1]
+        gathered = plane[view.long()]
+        if name == "stage1_gather_resident":
+            operand = bitplanar.unpack_nibble_plane_signed(
+                gathered.reshape(B * r_view, d2)).reshape(B, r_view, D)
+            col = q_msb.float()[:, :, None]
+            t_bound, by = bound_ms(2 * B * d2 + B * j * 4 + uniq * d2
+                                   + B * r_view * 4, 2 * B * r_view * D)
+            arena_args = (q_msb, arena.msb_plane, plane_ids)
+        else:
+            operand = bitplanar.unpack_sign_pm1(gathered)
+            col = q_sign.float()[:, :, None]
+            t_bound, by = bound_ms(B * D + B * j * 4 + uniq * d8
+                                   + B * r_view * 4, 2 * B * r_view * D)
+            arena_args = (q_sign, arena.sign_plane, plane_ids)
+        operand = operand.float()
+        lib_ms = _library_ms(name, lambda: torch.bmm(operand, col),
+                             fn(*args))
+        del gathered, operand
+        ms = time_ms(lambda: fn(*args))
+        dev_us = kernel_device_us(lambda: fn(*args), symbol)
+        arena_ms = time_ms(lambda: fn(*arena_args))
+        arena_us = kernel_device_us(lambda: fn(*arena_args), symbol)
+        rows.append(dict(
+            name=name, route="cuda", source=kernel_src, replaces=replaces,
+            max_abs_err=err, ms=ms,
+            plain_ms=time_ms(lambda: plain(*args)), bound_ms=t_bound,
+            bound_by=by, library_ms=lib_ms))
+        log(f"kernel {name}: kernel_ms {ms:.4f} device_only_us {dev_us} on "
+            f"the combined plane ({comb.shape[0]} rows, {s} slab slots, ids "
+            f"in both regions), beside the plane gather over the arena "
+            f"plane alone: kernel_ms {arena_ms:.4f} device_only_us "
+            f"{arena_us}; plain_ms {rows[-1]['plain_ms']:.4f} bound_us "
+            f"{t_bound * 1e3:.2f} ({by}) library_ms {lib_ms:.4f} (one "
+            "torch.bmm on the pre-gathered, pre-unpacked operand); bit-exact")
+    return rows
+
+
+def phase_serving(dev, serving, index, traces) -> list[dict]:
+    """The serving runtime at full width: the tenancy phase's clustered
+    index (512 tenants x 2048 docs, K = 64, nprobe 8, 64-row blocks,
+    compacted, cosine, k = 5) served through `ServingRuntime` on the
+    session trace, cold, warm, under pressure, warm synchronous, with the
+    sign prescreen cold and warm, then open loop; plus the resident gather
+    kernels on the warm run's combined plane. Returns those kernels'
+    rows."""
+    t0 = time.perf_counter()
+    closed, open_requests = traces
+    owner = index.arena.owner.cpu().numpy()
+    br, d2 = T_BLOCK_ROWS, D // 2
+    session = closed[0][0]
+    slots = sum(HotClusterCache.entry_blocks(rows, br)
+                for t in session.tolist()
+                for rows in index.cluster_rows(t).values())
+    demand = slots * br * d2
+    log(f"serving demand: the {SERVE_TENANTS} session tenants' packed views "
+        f"take {slots} slots of {br * d2} bytes = {demand} bytes "
+        f"({demand / SERVE_TENANTS / 2 ** 20:.3f} MiB per tenant)")
+    base = index.cfg
+    warm_cfg = dict(cache_bytes=demand, preload=True)
+
+    cold_rt, lat, cold, plans = _closed_loop(serving, index, closed, False)
+    recall = _recall(closed, cold)
+    for i, (tids, q, _) in enumerate(closed):
+        want = index.retrieve(torch.from_numpy(q).to(dev), tids)
+        _same_outs("cold against index.retrieve", [cold[i]],
+                   [tuple(getattr(want, f).cpu() for f in FIELDS)])
+    index.cfg = dataclasses.replace(base, backend="torch")
+    try:
+        _, _, plain, _ = _closed_loop(serving, index, closed, False)
+    finally:
+        index.cfg = base
+    _same_outs("cold on the plain backend", plain, cold)
+    _no_leak("cold", owner, closed, cold)
+    _reconcile("cold", cold_rt, plans)
+    cold_bytes = cold_rt.stage1_bytes_streamed
+    _report_run("cold (cache_bytes 0)", cold_rt, lat, closed, recall)
+    log("serving cold: bit-identical, lane for lane, to index.retrieve of "
+        "the same batch and to the runtime on the plain backend")
+
+    runs = {}
+    for label, cfg in (
+            ("warm", warm_cfg),
+            ("pressured", dict(cache_bytes=demand // 4, preload=True)),
+            ("warm_sync", dict(warm_cfg, async_depth=0))):
+        rt, lat, outs, plans = _closed_loop(serving, index, closed, True,
+                                            **cfg)
+        _same_outs(label, outs, cold)
+        _no_leak(label, owner, closed, outs)
+        _reconcile(label, rt, plans)
+        _split_check(label, index, closed, plans, label != "pressured")
+        if label == "warm" and not rt.stage1_bytes_streamed < cold_bytes:
+            raise AssertionError("serving warm: stage1_bytes_streamed "
+                                 f"{rt.stage1_bytes_streamed} not below the "
+                                 f"cold run's {cold_bytes}")
+        runs[label] = _report_run(f"{label} (cache_bytes {cfg['cache_bytes']}"
+                                  f", preload, async_depth "
+                                  f"{rt.cfg.async_depth})", rt, lat, closed)
+        if label == "warm":
+            warm_rt = rt
+        else:
+            del rt
+    log("serving warm, pressured, warm_sync: bit-identical to the cold run; "
+        "0 leaks; stage-1 bytes reconcile with every launch's plan; every "
+        "launch's hit/miss split fits its probed clusters (warm and "
+        "warm_sync: all hits)")
+    _in_turns(cold_rt, warm_rt, closed)
+
+    pre = closed[:PRESCREEN_TURNS]
+    index.cfg = dataclasses.replace(base, prescreen_c0=T_PRESCREEN_C0)
+    try:
+        pc_rt, lat_c, pcold, _ = _closed_loop(serving, index, pre, False)
+        for i, (tids, q, _) in enumerate(pre):
+            want = index.retrieve(torch.from_numpy(q).to(dev), tids)
+            _same_outs("prescreen cold against index.retrieve", [pcold[i]],
+                       [tuple(getattr(want, f).cpu() for f in FIELDS)])
+        pw_rt, lat_w, pwarm, plans = _closed_loop(serving, index, pre, True,
+                                                  **warm_cfg)
+        _same_outs("prescreen warm", pwarm, pcold)
+        _no_leak("prescreen warm", owner, pre, pwarm)
+        _reconcile("prescreen warm", pw_rt, plans)
+        _report_run(f"prescreen_{T_PRESCREEN_C0} cold", pc_rt, lat_c, pre)
+        _report_run(f"prescreen_{T_PRESCREEN_C0} warm", pw_rt, lat_w, pre)
+    finally:
+        index.cfg = base
+    del pc_rt, pw_rt
+
+    rate = runs["warm"]["qps"] / 2
+    _open_loop(serving, index, open_requests, rate, "open_loop cold")
+    _open_loop(serving, index, open_requests, rate,
+               "open_loop cached (prior warming)", cache_bytes=demand)
+
+    rows = _resident_kernels(dev, warm_rt.cache, index.arena)
+    del warm_rt
+    log(f"serving path launches: {serving.launches}; the phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for key in SERVING_KERNELS:
+        if serving.launches.get(key, 0) <= 0:
+            raise AssertionError(f"kernel {key} was not launched by the "
+                                 "serving path")
+    for key in SERVING_OFF_PATH:
+        if serving.launches.get(key, 0):
+            raise AssertionError(f"kernel {key} was launched by the serving "
+                                 "path, which should not take it")
+    return rows
 
 
 # Host cost of the exact wrappers and of the block gather on each of its
@@ -1993,11 +2679,15 @@ def main() -> int:
     del qdb, db, q_codes, gold
     torch.cuda.empty_cache()
     cluster_launches = phase_cluster(dev)
-    tenancy_launches = phase_tenancy(dev)
-    kernels += new_kernels
+    serving = _Serving()
+    tenancy_launches, served = phase_tenancy(dev, serving)
+    kernels += new_kernels + phase_serving(dev, serving, *served)
+    del served
+    torch.cuda.empty_cache()
     for k in kernels:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in (
-            launches, tune_launches, cluster_launches, tenancy_launches))
+            launches, tune_launches, cluster_launches, tenancy_launches,
+            serving.launches))
     phase_host_us(dev)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""Device selection shared by every entry point of the port."""
+"""Device selection and host-to-device copies shared by the port."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -14,3 +15,18 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the plain PyTorch path on the CPU")
     return dev
+
+
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A copy of a host array on `device`. To a CUDA device the copy goes
+    through page-locked memory and is queued on the current stream, so
+    the host does not wait for the card (a copy from pageable memory
+    synchronizes); the host array is copied once, into the page-locked
+    buffer."""
+    arr = np.asarray(arr)
+    if device.type != "cuda":
+        return torch.from_numpy(np.array(arr, copy=True)).to(device)
+    staged = torch.empty(arr.shape, pin_memory=True,
+                         dtype=torch.from_numpy(np.empty(0, arr.dtype)).dtype)
+    staged.numpy()[...] = arr
+    return staged.to(device, non_blocking=True)

@@ -5,7 +5,8 @@ from repro_torch.core.clustering import (ClusterCodebook, ClusterIndex,
                                          ClusterParams, block_table,
                                          cluster_grouped_order, kmeans_int8)
 from repro_torch.core.engine import (ClusterPolicy, MaskedPolicy, PlainPolicy,
-                                     RetrievalEngine, SchedulePlan, StagePlan,
+                                     RetrievalEngine, SchedulePlan,
+                                     SlabPolicy, StagePlan, ViewPolicy,
                                      WindowedPolicy, plan)
 from repro_torch.core.quantization import (QuantizedDB, build_database,
                                            dequantize, msb_nibble,

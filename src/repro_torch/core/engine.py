@@ -1,18 +1,22 @@
 """Batch-native retrieval engine: one staged cascade behind every variant.
 
-Port of `repro.core.engine` (the two-stage and cluster-pruned cascades),
-layered as:
+Port of `repro.core.engine` (the two-stage and cluster-pruned cascades
+and the serving runtime's slab and view policies), layered as:
 
   policy   — which rows each batch lane may touch, as data: `PlainPolicy`
              (every row), `MaskedPolicy` (rows whose arena owner matches
              the lane's tenant), `WindowedPolicy` (a per-lane contiguous
              arena window), `ClusterPolicy` (rows in the lane's
-             top-`nprobe` clusters of an INT8 centroid codebook).
+             top-`nprobe` clusters of an INT8 centroid codebook),
+             `SlabPolicy` (the cluster prune whose blocks come from the
+             arena plane or the serving cache's slab, one combined
+             plane) and `ViewPolicy` (a per-lane view the caller
+             gathered itself).
   schedule — the cascade: `(ApproxScan, ExactRescore)`, a batched INT4
              scan with a per-lane top-C and then a batched exact INT8
              rescore of the candidates, read by id, and a metric rerank;
-             the cluster policy prepends `CentroidPrune` and, with
-             `prescreen_c0`, `SignPrescreen`.
+             the cluster and slab policies prepend `CentroidPrune` and,
+             with `prescreen_c0`, `SignPrescreen`.
   backend  — the batched stage primitives, chosen by
              `RetrievalConfig.backend`: "torch" (plain PyTorch) or "cuda"
              (the kernel wrappers of `repro_torch.kernels.ops`, whose
@@ -98,7 +102,75 @@ class ClusterPolicy:
     block_rows: int
 
 
-Policy = PlainPolicy | MaskedPolicy | WindowedPolicy | ClusterPolicy
+@dataclasses.dataclass(frozen=True)
+class ViewPolicy:
+    """A per-lane stage-1 view the caller gathered itself.
+
+    rows: (B, R) global row ids of the view (-1 holes).
+    member: (B, R) bool visibility mask (tenant, cluster and holes).
+    msb_rows: (B, R, D//2) uint8 stage-1 plane rows of the view (holes may
+        hold any bytes: `member` masks them out of both stages).
+    """
+
+    rows: torch.Tensor
+    member: torch.Tensor
+    msb_rows: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabPolicy:
+    """A ClusterPolicy whose stage-1 blocks come from the arena plane
+    (misses) or the serving cache's slab (hits): the serving runtime's
+    cached path.
+
+    The slab extends the arena's plane: ``slab_plane = [arena msb_plane |
+    slab rows]``, so both sources are one block gather. `slab_blocks` is
+    the runtime's per-launch table, each entry a plane block id (a miss),
+    ``N / block_rows + slot`` (a hit) or -1 (a hole). Every id is checked
+    on the host against the combined plane's blocks before the upload.
+    Slab blocks are densely packed, so each combined-space block carries
+    `block_gid0` (the global row id of its first row) and `block_count`
+    (its live rows): ``block * block_rows`` and `block_rows` for a plane
+    block, written at fill time for a slab block.
+
+    `inv_norms` is the cosine key's ``rsqrt(max(norm, 1))`` per combined
+    row (0 for an empty row), computed once per arena generation;
+    `packed_labels` is `packed_membership` of the arena's owner and
+    cluster labels; `cluster_valid` the (B, K) selection validity the
+    plane table's first column gives, computed on the host so selection
+    is the same at any table width. `sign_plane`, when given, is the
+    combined sign plane (the prescreen reads it); else it is derived from
+    `slab_plane`. The results are the ClusterPolicy cascade's bit for bit.
+    """
+
+    packed_labels: torch.Tensor    # (N,) int32 packed (owner, label)
+    tenant_ids: torch.Tensor       # (B,) int32
+    centroid_msb: torch.Tensor     # (K, D//2) uint8
+    centroid_norms: torch.Tensor   # (K,) int32
+    cluster_valid: torch.Tensor    # (B, K) bool
+    slab_blocks: torch.Tensor      # (B, K, W) int32 combined-space blocks
+    block_gid0: torch.Tensor       # (NB + S,) int32 first global row
+    block_count: torch.Tensor      # (NB + S,) int32 live rows
+    slab_plane: torch.Tensor       # (N + S*br, D//2) uint8 plane + slab
+    inv_norms: torch.Tensor        # (N + S*br,) f32
+    nprobe: int
+    block_rows: int
+    sign_plane: torch.Tensor | None = None  # (N + S*br, D//8) uint8
+
+
+def packed_membership(owner: torch.Tensor, labels: torch.Tensor,
+                      num_clusters: int) -> torch.Tensor:
+    """Per-row (owner, cluster label) as one int32:
+    ``(owner + 1) * (K + 1) + label + 1``, injective for owner >= -1 and
+    label in [-1, K), so ``packed[row] == (t + 1) * (K + 1) + c + 1``
+    exactly when the row is tenant t's and in cluster c."""
+    k1 = num_clusters + 1
+    return ((owner.to(torch.int32) + 1) * k1
+            + labels.to(torch.int32) + 1)
+
+
+Policy = (PlainPolicy | MaskedPolicy | WindowedPolicy | ClusterPolicy
+          | ViewPolicy | SlabPolicy)
 
 
 # ---------------------------------------------------------------------------
@@ -114,15 +186,16 @@ class StageFns:
     gather:   stage-1 per-lane block gather (B, D) x plane + (B, J) ids
               -> (B, J * block_rows); rows past N score 0
     gather_resident: the gather over a plane of whole blocks whose every
-              id is live (no zero-row convention)
+              id is live (no zero-row convention): the slab policy's
+              combined plane
     centroid: stage-0 codebook scoring, the plane scan over (K, D/2)
     exact:    stage-2 INT8 rescore of candidate ids (B, D) x 2 (N, D/2)
               planes + (B, C) int32 ids -> (B, C); ids clamp to [0, N - 1]
               as JAX's indexing clamps (the reference's `jnp.take` fills;
               the engine never passes an id >= N)
     sign_gather / sign_gather_resident: the sign prescreen's block gathers
-              over the packed (N, D/8) sign plane; zero bytes score
-              sum(q_sign)
+              over the packed (N, D/8) sign plane (zero bytes score
+              sum(q_sign)) and over the slab policy's combined sign plane
     """
 
     plane: Callable
@@ -204,10 +277,12 @@ def _membership(owner: torch.Tensor, tenant_ids: torch.Tensor) -> torch.Tensor:
     return (owner == tenant_ids[:, None]) & (tenant_ids >= 0)[:, None]
 
 
-def probe_rows(policy: ClusterPolicy) -> int:
-    """Per-lane row count of the cluster policy's gathered view."""
+def probe_rows(policy: ClusterPolicy | SlabPolicy) -> int:
+    """Per-lane row count of the cluster or slab policy's gathered view."""
+    table = (policy.slab_blocks if isinstance(policy, SlabPolicy)
+             else policy.cluster_blocks)
     return (min(policy.nprobe, policy.centroid_msb.shape[0])
-            * policy.cluster_blocks.shape[-1] * policy.block_rows)
+            * table.shape[-1] * policy.block_rows)
 
 
 @dataclasses.dataclass
@@ -219,7 +294,11 @@ class _CascadeState:
         after ApproxScan.
     member: visibility mask aligned with `rows` (None = all visible).
     block_ids: (B, J) clamped block ids backing `rows` when the view is a
-        block gather (the gather kernels' table).
+        block gather (the gather kernels' table; combined-space under a
+        SlabPolicy).
+    comb_rows: (B, R) combined-space row ids aligned with `rows`, set by
+        the prescreen under a SlabPolicy (stage 1 then reads the
+        survivors from the combined plane, hits from the slab).
     top_clusters: (B, nprobe) cluster ids selected by a centroid prune.
     result: the final RetrievalResult, set by the terminal stage.
     """
@@ -227,6 +306,7 @@ class _CascadeState:
     rows: torch.Tensor | None = None
     member: torch.Tensor | None = None
     block_ids: torch.Tensor | None = None
+    comb_rows: torch.Tensor | None = None
     top_clusters: torch.Tensor | None = None
     result: RetrievalResult | None = None
 
@@ -246,17 +326,21 @@ class _CascadeCtx:
     q_sign: torch.Tensor | None = None
 
 
-def select_clusters(q_msb: torch.Tensor, policy: ClusterPolicy,
+def select_clusters(q_msb: torch.Tensor, policy: ClusterPolicy | SlabPolicy,
                     cfg: RetrievalConfig, fns: StageFns) -> torch.Tensor:
     """Score the K centroids and keep each lane's top-`nprobe` valid
     clusters (a cluster with no blocks for the lane, first block id -1,
-    spends no probe). Returns (B, nprobe) int32 cluster ids in rank
+    spends no probe; a SlabPolicy carries that validity as
+    `cluster_valid`). Returns (B, nprobe) int32 cluster ids in rank
     order, ties toward the lower id."""
     nprobe = min(policy.nprobe, policy.centroid_msb.shape[0])
     scores = fns.centroid(q_msb, policy.centroid_msb)            # (B, K)
-    table = policy.cluster_blocks
-    valid = (table[:, 0] >= 0)[None, :] if table.ndim == 2 \
-        else table[:, :, 0] >= 0
+    if isinstance(policy, SlabPolicy):
+        valid = policy.cluster_valid
+    else:
+        table = policy.cluster_blocks
+        valid = (table[:, 0] >= 0)[None, :] if table.ndim == 2 \
+            else table[:, :, 0] >= 0
     if cfg.metric == "cosine":
         key = similarity.cosine_key_f32(scores, policy.centroid_norms)
         key = key.masked_fill(~valid, float("-inf"))
@@ -298,6 +382,39 @@ def expand_cluster_view(policy: ClusterPolicy, top_clusters: torch.Tensor,
     return rows, member, clamped
 
 
+def expand_slab_view(policy: SlabPolicy, top_clusters: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The slab path's expansion of the selected clusters: (rows (B, R)
+    int32 global row ids, clamped to [0, N - 1] (holes and pads ride the
+    member mask), member (B, R) bool, comb_ids (B, J) int32 clamped
+    combined-space block ids for the gather). Row ids come from each
+    block's `block_gid0`/`block_count`, so plane blocks expand as the
+    cluster path's do and packed slab blocks to their run's rows."""
+    top = top_clusters.long()
+    w = policy.slab_blocks.shape[2]
+    comb = torch.gather(policy.slab_blocks, 1,
+                        top[:, :, None].expand(-1, -1, w))
+    b = comb.shape[0]
+    comb = comb.reshape(b, -1)                                   # (B, J)
+    br = policy.block_rows
+    hole = comb < 0
+    safe_blk = torch.clamp(comb, min=0)
+    gid0 = policy.block_gid0[safe_blk.long()]                    # (B, J)
+    cnt = policy.block_count[safe_blk.long()]
+    offs = torch.arange(br, dtype=torch.int32, device=comb.device)
+    rows = (gid0[:, :, None] + offs).reshape(b, -1)
+    live = (offs < cnt[:, :, None]).reshape(b, -1)
+    n = policy.packed_labels.shape[0]
+    rows = torch.clamp(rows, max=n - 1)      # tail pads stay gatherable
+    owning = top_clusters.repeat_interleave(w * br, dim=1)       # (B, R)
+    k1 = policy.centroid_msb.shape[0] + 1
+    expected = (policy.tenant_ids[:, None] + 1) * k1 + owning + 1
+    member = (~hole.repeat_interleave(br, dim=1) & live
+              & (policy.packed_labels[rows.long()] == expected)
+              & (policy.tenant_ids >= 0)[:, None])
+    return rows, member, safe_blk
+
+
 @dataclasses.dataclass(frozen=True)
 class CentroidPrune:
     """Stage 0: score the K centroids, keep the top-`nprobe` clusters'
@@ -308,6 +425,11 @@ class CentroidPrune:
     def run(self, state: _CascadeState, ctx: _CascadeCtx) -> _CascadeState:
         top_clusters = select_clusters(ctx.q_msb, ctx.policy, ctx.cfg,
                                        ctx.fns)
+        if isinstance(ctx.policy, SlabPolicy):
+            rows, member, comb = expand_slab_view(ctx.policy, top_clusters)
+            return dataclasses.replace(state, rows=rows, member=member,
+                                       block_ids=comb,
+                                       top_clusters=top_clusters)
         rows, member, clamped = expand_cluster_view(ctx.policy, top_clusters,
                                                     ctx.db.num_docs)
         return dataclasses.replace(state, rows=rows, member=member,
@@ -325,25 +447,47 @@ class SignPrescreen:
     the survivors are re-sorted into view order, so at c0 >= the view the
     cascade is bit-identical to the prescreen-off schedule. Non-members
     score INT32_MIN, so a lane with >= k live members never loses one to
-    a masked row."""
+    a masked row.
+
+    Under a SlabPolicy the sign bytes come from the combined sign plane
+    (hot clusters' sign rows beside their slab rows), and the survivors'
+    combined row ids go on as `comb_rows`, so stage 1 reads hits from the
+    slab."""
 
     c0: int
 
     def run(self, state: _CascadeState, ctx: _CascadeCtx) -> _CascadeState:
+        policy = ctx.policy
         c0 = ctx.cfg.prescreen_budget(state.rows.shape[1])
-        sign_plane = ctx.db.sign_plane
-        if sign_plane is None:
-            # Derived per call from the nibble plane, as the reference
-            # does; a DB built with its sign plane skips this.
-            sign_plane = bitplanar.sign_plane_from_msb(ctx.db.msb_plane)
-        scores = ctx.fns.sign_gather(ctx.q_sign, sign_plane, state.block_ids,
-                                     block_rows=ctx.policy.block_rows)
+        comb_rows = None
+        if isinstance(policy, SlabPolicy):
+            sign_plane = policy.sign_plane
+            if sign_plane is None:
+                sign_plane = bitplanar.sign_plane_from_msb(policy.slab_plane)
+            scores = ctx.fns.sign_gather_resident(
+                ctx.q_sign, sign_plane, state.block_ids,
+                block_rows=policy.block_rows)
+            comb_rows = bitplanar.expand_block_rows(state.block_ids,
+                                                    policy.block_rows)
+        else:
+            sign_plane = ctx.db.sign_plane
+            if sign_plane is None:
+                # Derived per call from the nibble plane, as the
+                # reference does; a DB built with its sign plane skips
+                # this.
+                sign_plane = bitplanar.sign_plane_from_msb(ctx.db.msb_plane)
+            scores = ctx.fns.sign_gather(ctx.q_sign, sign_plane,
+                                         state.block_ids,
+                                         block_rows=policy.block_rows)
         key0 = scores.masked_fill(~state.member, INT32_MIN)
         _, sel = similarity.stable_topk(key0, c0)
         sel, _ = torch.sort(sel, dim=1)      # survivors keep view order
+        if comb_rows is not None:
+            comb_rows = torch.gather(comb_rows, 1, sel)
         return dataclasses.replace(
             state, rows=torch.gather(state.rows, 1, sel),
-            member=torch.gather(state.member, 1, sel), block_ids=None)
+            member=torch.gather(state.member, 1, sel), block_ids=None,
+            comb_rows=comb_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -357,7 +501,48 @@ class ApproxScan:
         member = state.member
         view_rows = state.rows          # view-local -> global row id map
         base = None
-        if isinstance(policy, WindowedPolicy):
+        key1 = None                     # set directly by the slab branch
+        if isinstance(policy, SlabPolicy):
+            # One block gather over the combined plane: hits from the slab
+            # region, misses from the arena plane. The cosine key
+            # multiplies the per-generation rsqrt sidecar (the cold path's
+            # f32 bits); + 0.0 turns the sidecar's empty rows' -0.0 into
+            # the cold path's +0.0.
+            r = view_rows.shape[1]
+            if r < cfg.k:
+                raise ValueError(f"slab view holds {r} rows < k={cfg.k}: "
+                                 "raise nprobe or block_rows")
+            c = _candidate_budget(cfg, n, r)
+            if state.block_ids is not None:
+                scores = ctx.fns.gather_resident(
+                    ctx.q_msb, policy.slab_plane, state.block_ids,
+                    block_rows=policy.block_rows)
+                comb_rows = bitplanar.expand_block_rows(state.block_ids,
+                                                        policy.block_rows)
+            else:
+                # Prescreened view: the survivors' combined rows, scored by
+                # the per-lane rows primitive.
+                comb_rows = state.comb_rows
+                scores = ctx.fns.rows(ctx.q_msb,
+                                      policy.slab_plane[comb_rows.long()])
+            if cfg.metric == "cosine":
+                key1 = (scores.to(torch.float32)
+                        * policy.inv_norms[comb_rows.long()] + 0.0)
+                key1 = key1.masked_fill(~member, float("-inf"))
+            else:
+                key1 = scores.masked_fill(~member, INT32_MIN)
+        elif isinstance(policy, ViewPolicy):
+            # The caller's own view: the rows arrive as data.
+            r = policy.rows.shape[1]
+            if r < cfg.k:
+                raise ValueError(f"materialized view holds {r} rows < k="
+                                 f"{cfg.k}: raise nprobe or block_rows")
+            c = _candidate_budget(cfg, n, r)
+            scores = ctx.fns.rows(ctx.q_msb, policy.msb_rows)  # (B, R) int32
+            norms = db.norms_sq[torch.clamp(policy.rows, min=0).long()]
+            member = policy.member
+            view_rows = policy.rows
+        elif isinstance(policy, WindowedPolicy):
             if policy.window < cfg.k:
                 raise ValueError(f"window {policy.window} < k={cfg.k}: "
                                  "top-k over a window needs window >= k")
@@ -401,13 +586,13 @@ class ApproxScan:
                 member = _membership(policy.owner[None, :],
                                      policy.tenant_ids)
 
-        if cfg.metric == "cosine":
+        if key1 is None and cfg.metric == "cosine":
             # Tombstoned rows carry norm 0 (key 0), so even an inconsistent
             # membership mask cannot let a dead row win.
             key1 = similarity.cosine_key_f32(scores, norms)
             if member is not None:
                 key1 = key1.masked_fill(~member, float("-inf"))
-        else:
+        elif key1 is None:
             key1 = (scores if member is None
                     else scores.masked_fill(~member, INT32_MIN))
         _, cand_local = similarity.stable_topk(key1, c)        # (B, C) view
@@ -465,20 +650,16 @@ class ExactRescore:
 
 
 _PLAN_KINDS = {PlainPolicy: "plain", MaskedPolicy: "masked",
-               WindowedPolicy: "windowed", ClusterPolicy: "cluster"}
-
-
-def _check_ported(policy) -> None:
-    if type(policy) not in _PLAN_KINDS:
-        raise TypeError(f"policy {type(policy).__name__} is not ported")
+               WindowedPolicy: "windowed", ClusterPolicy: "cluster",
+               ViewPolicy: "view", SlabPolicy: "cluster"}
 
 
 def cascade_stages(policy: Policy, cfg: RetrievalConfig) -> tuple:
     """The stage specs one launch runs: the paper's two-stage cascade;
-    the cluster policy prepends the centroid prune and, with
-    `prescreen_c0`, the sign prescreen."""
-    _check_ported(policy)
-    if isinstance(policy, ClusterPolicy):
+    the cluster and slab policies prepend the centroid prune and, with
+    `prescreen_c0`, the sign prescreen. A ViewPolicy enters at the scan:
+    its prune ran before."""
+    if isinstance(policy, (ClusterPolicy, SlabPolicy)):
         head: tuple = (CentroidPrune(policy.nprobe),)
         if cfg.prescreen_c0 is not None:
             head += (SignPrescreen(cfg.prescreen_c0),)
@@ -705,12 +886,16 @@ class RetrievalEngine:
     def plan_for(self, db: bitplanar.BitPlanarDB, batch: int,
                  policy: Policy = PlainPolicy()) -> SchedulePlan:
         """The analytic SchedulePlan for one launch against `db`."""
-        _check_ported(policy)
+        if type(policy) not in _PLAN_KINDS:
+            raise TypeError(f"{type(policy).__name__} is not a retrieval "
+                            "policy")
         window = policy.window if isinstance(policy, WindowedPolicy) else None
         num_clusters = view_rows = None
-        if isinstance(policy, ClusterPolicy):
+        if isinstance(policy, (ClusterPolicy, SlabPolicy)):
             num_clusters = policy.centroid_msb.shape[0]
             view_rows = probe_rows(policy)
+        elif isinstance(policy, ViewPolicy):
+            view_rows = policy.rows.shape[1]
         return plan(self.cfg, num_docs=db.num_docs, dim=db.dim, batch=batch,
                     kind=_PLAN_KINDS[type(policy)], window=window,
                     num_clusters=num_clusters, view_rows=view_rows)

@@ -38,7 +38,9 @@ LAUNCHES: dict[str, int] = {"stage1_plane": 0, "stage1_rows": 0,
                             "fused_topk": 0, "fused_topk_single": 0,
                             "stage1_plane_mma": 0, "stage2_by_id": 0,
                             "fused_topk_mma": 0, "stage1_gather_dp4a": 0,
-                            "stage0_sign_plane_mma": 0}
+                            "stage0_sign_plane_mma": 0,
+                            "stage1_gather_resident": 0,
+                            "stage0_sign_gather_resident": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, Callable[..., int]] = {}

@@ -128,10 +128,11 @@ def stage1_scores_gather_resident(q_msb: torch.Tensor, plane: torch.Tensor,
                                   ) -> torch.Tensor:
     """The block gather over a resident plane that is a whole number of
     blocks and whose every id addresses a live block; raises on a partial
-    plane."""
+    plane. Its TMA launches count under `stage1_gather_resident`."""
     _check_resident(plane, block_rows, "plane")
     return stage1_int4_gather(pack_queries_even_odd(q_msb), plane,
-                              block_ids, block_rows=block_rows)
+                              block_ids, block_rows=block_rows,
+                              counter="stage1_gather_resident")
 
 
 def stage0_sign_scores_batched(q_sign: torch.Tensor, sign_plane: torch.Tensor,
@@ -162,10 +163,12 @@ def stage0_sign_scores_gather_resident(q_sign: torch.Tensor,
                                        block_rows: int = DEFAULT_BLOCK_ROWS
                                        ) -> torch.Tensor:
     """The sign gather over a resident sign plane that is a whole number of
-    blocks; raises on a partial plane."""
+    blocks; raises on a partial plane. Its launches count under
+    `stage0_sign_gather_resident`."""
     _check_resident(plane, block_rows, "sign plane")
     return stage0_sign_gather(q_sign, plane, block_ids,
-                              block_rows=block_rows)
+                              block_rows=block_rows,
+                              counter="stage0_sign_gather_resident")
 
 
 def centroid_scores_batched(q_msb: torch.Tensor,

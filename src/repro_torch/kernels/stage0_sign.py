@@ -122,11 +122,13 @@ def stage0_sign_batched(q_sign: torch.Tensor, sign_plane: torch.Tensor, *,
 
 
 def stage0_sign_gather(q_sign: torch.Tensor, sign_plane: torch.Tensor,
-                       block_ids: torch.Tensor, *,
-                       block_rows: int) -> torch.Tensor:
+                       block_ids: torch.Tensor, *, block_rows: int,
+                       counter: str = "stage0_sign_gather") -> torch.Tensor:
     """q_sign (B, D) int8 in {+1, -1}, sign_plane (N, D//8) uint8,
     block_ids (B, J) int32 clamped block ids -> (B, J * block_rows) int32
-    sign-agreement scores in block-table order."""
+    sign-agreement scores in block-table order. `counter`: the key the
+    launch counts under (the resident wrapper's is
+    `stage0_sign_gather_resident`)."""
     if _on_cpu(sign_plane):
         return ref.stage0_sign_gather_ref(q_sign, sign_plane, block_ids,
                                           block_rows)
@@ -139,7 +141,7 @@ def stage0_sign_gather(q_sign: torch.Tensor, sign_plane: torch.Tensor,
     if out.numel():
         fn = _build.function("stage0_sign", "stage0_sign_gather_launch",
                              _SIGN_GATHER_ARGS)
-        _build.launch("stage0_sign_gather", fn, q_sign.data_ptr(),
+        _build.launch(counter, fn, q_sign.data_ptr(),
                       sign_plane.data_ptr(), block_ids.data_ptr(),
                       out.data_ptr(), b, n, j, block_rows, d, device=dev)
     return out

@@ -16,6 +16,9 @@ on the int8 tensor cores) wherever its launcher takes the shape
 which includes the cluster path's D = 512, 64-row blocks; else the dp4a
 `gather_kernel` of `stage1_int4.cu` (counted `stage1_gather_dp4a`). Both
 give the same bits; a failed build or launch of the chosen one raises.
+The resident wrapper (`ops.stage1_scores_gather_resident`) passes
+`counter="stage1_gather_resident"`, so its TMA launches count apart from
+the plane gather's.
 `_gather(..., route=)` asks for one of them, for tests and measurements.
 
 Limits: the dp4a kernel's grid holds B <= 65535 lanes (grid.y) and
@@ -73,10 +76,12 @@ def check_gather_grid(b: int, j: int, block_rows: int) -> None:
 
 def _gather(q_eo: torch.Tensor, msb_plane: torch.Tensor,
             block_ids: torch.Tensor, block_rows: int, *,
-            route: str = "auto") -> torch.Tensor:
+            route: str = "auto",
+            counter: str = "stage1_gather") -> torch.Tensor:
     """Launches a gather kernel: (B, J * block_rows) int32. `route` "auto"
     takes the TMA kernel wherever its launcher takes the shape, else dp4a;
-    "tma" and "dp4a" ask for one. CUDA tensors only."""
+    "tma" and "dp4a" ask for one. A TMA launch counts under `counter`, a
+    dp4a one under `stage1_gather_dp4a`. CUDA tensors only."""
     if route not in _ROUTES:
         raise ValueError(f"route must be one of {_ROUTES}, got {route!r}")
     dev = msb_plane.device
@@ -110,7 +115,7 @@ def _gather(q_eo: torch.Tensor, msb_plane: torch.Tensor,
     if route == "tma":
         fn = _build.function("stage1_gather", "stage1_gather_tma_launch",
                              _GATHER_ARGS)
-        _build.launch("stage1_gather", fn, *args, device=dev)
+        _build.launch(counter, fn, *args, device=dev)
     else:
         fn = _build.function("stage1_int4", "stage1_gather_launch",
                              _GATHER_ARGS)
@@ -119,13 +124,14 @@ def _gather(q_eo: torch.Tensor, msb_plane: torch.Tensor,
 
 
 def stage1_int4_gather(q_eo: torch.Tensor, msb_plane: torch.Tensor,
-                       block_ids: torch.Tensor, *,
-                       block_rows: int) -> torch.Tensor:
+                       block_ids: torch.Tensor, *, block_rows: int,
+                       counter: str = "stage1_gather") -> torch.Tensor:
     """q_eo (B, 2, D//2) int8 per-lane [even; odd] nibble panels,
     msb_plane (N, D//2) uint8, block_ids (B, J) int32 ids of
     `block_rows`-row plane blocks (clamped: no -1 holes) ->
-    (B, J * block_rows) int32 in block-table order."""
+    (B, J * block_rows) int32 in block-table order. `counter`: the key a
+    TMA launch counts under."""
     if _on_cpu(msb_plane):
         return ref.stage1_gather_batched_ref(q_eo, msb_plane, block_ids,
                                              block_rows)
-    return _gather(q_eo, msb_plane, block_ids, block_rows)
+    return _gather(q_eo, msb_plane, block_ids, block_rows, counter=counter)

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import resolve_device, upload
 from repro_torch.core import clustering, engine, retrieval
 from repro_torch.tenancy.arena import Arena, _as_tensor
 
@@ -214,7 +214,7 @@ class MultiTenantIndex:
         return self._layout_cache
 
     def _on_device(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.array(arr, np.int32)).to(self.device)
+        return upload(np.asarray(arr, np.int32), self.device)
 
     def _contiguous_layout(self, tenant_ids
                            ) -> tuple[torch.Tensor, torch.Tensor, int] | None:

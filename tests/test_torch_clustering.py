@@ -259,15 +259,32 @@ def test_cluster_plan_for_matches_reference(c0):
 
 
 def test_unported_policies_raise_type_error():
-    class ViewPolicy:
+    """Every retrieval policy of the reference is ported (the slab and view
+    policies with the serving runtime): what is left unported is a type
+    that is no retrieval policy, and the engine refuses it by name."""
+    class ForeignPolicy:
         pass
     eng = tengine.RetrievalEngine(RetrievalConfig(), "cpu")
     db = BitPlanarDB.from_quantized(build_database(
         np.ones((8, 16), np.float32), device="cpu"))
-    with pytest.raises(TypeError, match="ViewPolicy is not ported"):
-        eng.plan_for(db, 2, ViewPolicy())
-    with pytest.raises(TypeError, match="ViewPolicy is not ported"):
-        tengine.cascade_stages(ViewPolicy(), RetrievalConfig())
+    with pytest.raises(TypeError, match="ForeignPolicy is not a retrieval "
+                                        "policy"):
+        eng.plan_for(db, 2, ForeignPolicy())
+
+
+def test_plan_for_takes_the_view_policy():
+    """`ViewPolicy`, refused before the serving slice, plans and schedules
+    as the reference's: it enters the cascade at the scan."""
+    eng = tengine.RetrievalEngine(RetrievalConfig(), "cpu")
+    db = BitPlanarDB.from_quantized(build_database(
+        np.ones((8, 16), np.float32), device="cpu"))
+    view = tengine.ViewPolicy(
+        rows=torch.arange(8, dtype=torch.int32).repeat(2, 1),
+        member=torch.ones((2, 8), dtype=torch.bool),
+        msb_rows=db.msb_plane.repeat(2, 1, 1))
+    assert eng.plan_for(db, 2, view).kind == "view"
+    assert tengine.cascade_stages(view, RetrievalConfig()) == (
+        tengine.ApproxScan(), tengine.ExactRescore())
 
 
 def _tenant_arena(seed=3):

@@ -9,6 +9,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import dataclasses
+
 import numpy as np
 
 from repro_torch.core import (BitPlanarDB, build_database, clustering,
@@ -31,6 +33,7 @@ from repro_torch.kernels.stage1_int4 import (DEFAULT_ROWS, ROWS_CHOICES,
 from repro_torch.kernels.stage2_int8 import (stage2_int8_batched,
                                              stage2_int8_by_id,
                                              stage2_int8_single)
+from repro_torch.serve import RuntimeConfig, ServingRuntime
 from repro_torch.tenancy import Arena, MultiTenantIndex
 
 ZERO_COUNTS = {"stage1_plane": 0, "stage1_rows": 0, "stage2_exact": 0,
@@ -39,7 +42,9 @@ ZERO_COUNTS = {"stage1_plane": 0, "stage1_rows": 0, "stage2_exact": 0,
                "stage0_sign_plane": 0, "fused_topk": 0,
                "fused_topk_single": 0, "stage1_plane_mma": 0,
                "stage2_by_id": 0, "fused_topk_mma": 0,
-               "stage1_gather_dp4a": 0, "stage0_sign_plane_mma": 0}
+               "stage1_gather_dp4a": 0, "stage0_sign_plane_mma": 0,
+               "stage1_gather_resident": 0,
+               "stage0_sign_gather_resident": 0}
 INT32_MIN = -(2 ** 31)
 
 
@@ -287,12 +292,16 @@ def test_gather_kernels_match_plain(cuda_device, b, br, d, n):
         ref.stage1_gather_resident_ref(q_eo, db.msb_plane[:whole], ids_w, br))
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    key = ("stage1_gather" if stage1_gather._tma_takes(n, d // 2, br)
-           else "stage1_gather_dp4a")
-    assert (br % 64 == 0 and d % 32 == 0) == (key == "stage1_gather")
-    assert counts[key] == 2
-    assert counts["stage1_gather"] + counts["stage1_gather_dp4a"] == 2
+    tma = stage1_gather._tma_takes(n, d // 2, br)
+    assert (br % 64 == 0 and d % 32 == 0) == tma
+    if tma:
+        assert (counts["stage1_gather"], counts["stage1_gather_resident"],
+                counts["stage1_gather_dp4a"]) == (1, 1, 0)
+    else:
+        assert (counts["stage1_gather"], counts["stage1_gather_resident"],
+                counts["stage1_gather_dp4a"]) == (0, 0, 2)
     assert counts["stage0_sign_gather"] == (db.sign_plane is not None)
+    assert counts["stage0_sign_gather_resident"] == 0
 
 
 @pytest.mark.gpu
@@ -836,6 +845,63 @@ def test_multi_tenant_index_on_the_card_matches_the_cpu(cuda_device,
     one = [idx.retrieve(q[0].numpy(), int(tids[0])) for idx in (gpu, cpu)]
     assert torch.equal(one[0].indices.cpu(), one[1].indices)
     assert gpu.arena.stats.rebuilds == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_bytes", [0, 1 << 20])
+def test_serving_runtime_on_the_card_matches_the_cpu(cuda_device,
+                                                     cache_bytes):
+    """`ServingRuntime` over a clustered index on the card and on the CPU,
+    cold (no cache: `index.retrieve`) and warm (a slab that holds every
+    view: the `SlabPolicy` path, the sign prescreen on in the last turn):
+    the same launches, results, ledgers and cache counters, turn for
+    turn. The warm runtime's turns launch only the resident TMA gather
+    and, with the prescreen, only the resident sign gather; the cold
+    runtime's only the plane gathers."""
+    kw = dict(clusters=clustering.ClusterParams(4, nprobe=2, block_rows=64))
+    gpu, cpu = _tenant_indices(cuda_device, **kw)
+    docs, queries, gold = retrieval_corpus(240, 64, num_queries=8, seed=6,
+                                           noise=0.05, cluster_size=20)
+    tenant = np.arange(240) // 20 % 4
+    for lo in range(0, 240, 20):
+        for idx in (gpu, cpu):
+            idx.ingest(int(tenant[lo]), docs[lo:lo + 20])
+    for idx in (gpu, cpu):
+        idx.compact()
+    q, _ = quantize_int8(torch.from_numpy(queries), per_vector=True)
+    q = q.numpy()
+    tids = tenant[gold]
+    rts = [ServingRuntime(idx, RuntimeConfig(
+        max_batch=8, cache_bytes=cache_bytes, auto_flush=False))
+        for idx in (gpu, cpu)]
+    for turn in range(4):
+        if turn == 3:
+            for idx in (gpu, cpu):
+                idx.cfg = dataclasses.replace(idx.cfg, prescreen_c0=64)
+        ops.reset_launch_counts()
+        handles = [[rt.submit(int(tids[i]), q[i], now=float(turn))
+                    for i in range(len(tids))] for rt in rts]
+        for rt in rts:
+            rt.flush()
+        counts = ops.launch_counts()
+        for hg, hc in zip(*handles, strict=True):
+            assert hg.launch_index == hc.launch_index
+            for field in ("indices", "scores", "candidate_indices"):
+                assert torch.equal(getattr(hg.result(), field),
+                                   getattr(hc.result(), field)), field
+        for name in ("launches", "stage1_bytes_streamed",
+                     "stage1_bytes_sram", "prefetch_bytes", "stage_bytes",
+                     "stage_bytes_sram", "last_plan"):
+            assert getattr(rts[0], name) == getattr(rts[1], name), name
+        assert rts[0].cache_stats() == rts[1].cache_stats()
+        resident = ("stage1_gather_resident", "stage0_sign_gather_resident")
+        plane = ("stage1_gather", "stage0_sign_gather")
+        on, off = (resident, plane) if cache_bytes else (plane, resident)
+        assert counts[on[turn == 3]] >= 1
+        assert counts[off[0]] == counts[off[1]] == 0
+    if cache_bytes:
+        assert rts[0].cache_stats()["hits"] > 0
+        assert rts[0].cache.slab_plane.is_cuda
 
 
 def test_multi_tenant_index_needs_cuda_or_an_explicit_cpu():

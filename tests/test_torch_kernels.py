@@ -472,7 +472,8 @@ def test_launch_counters_reset_and_do_not_count_the_plain_path():
         "stage2_single": 0, "stage0_sign_plane": 0, "fused_topk": 0,
         "fused_topk_single": 0, "stage1_plane_mma": 0, "stage2_by_id": 0,
         "fused_topk_mma": 0, "stage1_gather_dp4a": 0,
-        "stage0_sign_plane_mma": 0}
+        "stage0_sign_plane_mma": 0, "stage1_gather_resident": 0,
+        "stage0_sign_gather_resident": 0}
 
 
 # ---------------------------------------------------------------------------
