@@ -85,8 +85,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
   9. serving — `ServingRuntime` over the tenancy phase's clustered index:
                a session trace (32 tenants x 48 turns, after the reference
                bench's `_session_trace`) cold, warm (preload), under a
-               quarter of the warm budget, warm at async_depth 0, and with
-               the sign prescreen; `CrossTenantBatchScheduler` over the
+               quarter of the warm budget, warm at async_depth 0, with
+               the sign prescreen (C0 = 256) cold and warm, and with the
+               prescreen under the quarter budget at full precision and
+               with the cache's precision tiers (which must demote and
+               promote, hold more residents than the slab has slots and
+               stream no more stage-1 plane bytes than full precision);
+               #8's resident route counted against a profile of 20 calls
+               (ROADMAP C6); `CrossTenantBatchScheduler` over the
                tenancy phase's Masked arena (run from inside that phase,
                before its deletes); two open loops of 1536 requests from
                all 512 tenants; the resident gathers (#6 and #8 over the
@@ -102,14 +108,33 @@ Phases, each of which fails the run (non-zero exit) on any error:
                max, queries/s, hit rate, stage-1 bytes from device memory
                and from the slab, device busy and idle share, host syncs
                per dispatch and the host's own time by function.
+ 10. decode  — the KV cascade (`serve.sparse_kv.sparse_decode_attention`)
+               at qwen2-0.5b's attention widths (24 layers, 14 query heads,
+               2 KV heads, hd 64): B = 8 sequences over a seeded
+               32768-position cache per layer (INT8 K nibble planes with
+               16-row page centroids, bf16 V; lengths 0, 100 and the rest
+               in [T/2, T]); one 24-layer step per schedule (flat, paged
+               npages 256, paged + prescreen C0 1024, paged at full
+               coverage) on the "cuda" and the "torch" backend. Checks:
+               cuda = torch bit for bit, full coverage = flat =
+               `sparse_decode_attention_ref`, exact zeros at length 0,
+               top_k = T within 1e-4 of dense f32 attention, the kv_plan
+               ledger and `account_decode`, #2 launched 24 times per paged
+               step and #8 24 times per prescreen step (neither flat), and
+               cuda = torch at minitron-4b's widths (hd 128, one layer).
+               Prints per schedule the p50 step, tokens/s, busy ms, idle
+               share, launches, the ledger's bytes against dense; the
+               flat-plane copies' bytes and device time; a dense bf16
+               yardstick; #2 and #8 at the decode shapes.
 
 Then the exact wrappers' and the block gather's host microseconds per
 call (`host_us_per_call`).
 The line before the last is a JSON object describing every kernel
-(launches: the sum over the main, autotune, cluster, tenancy and serving
-paths; `stage1_gather_resident` and `stage0_sign_gather_resident` are
-counted by the resident wrappers where they launch, which only the
-serving phase's cached segments call); the last
+(launches: the sum over the main, autotune, cluster, tenancy, serving and
+decode paths; `stage1_gather_resident` and `stage0_sign_gather_resident`
+are counted by the resident wrappers where they launch, which only the
+serving phase's cached segments call; the `@decode_hd64` rows are #2 and
+#8 at the decode phase's shapes, with the decode path's launches); the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
 """
@@ -137,7 +162,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch import obs  # noqa: E402
 from repro_torch.core import (bitplanar, clustering, energy,  # noqa: E402
-                              quantization)
+                              engine, quantization)
 from repro_torch.core.engine import (ClusterPolicy,  # noqa: E402
                                      MaskedPolicy, PlainPolicy,
                                      RetrievalEngine, WindowedPolicy,
@@ -158,7 +183,7 @@ from repro_torch.kernels.stage1_int4 import (  # noqa: E402
 from repro_torch.kernels.stage2_int8 import (  # noqa: E402
     stage2_int8_batched, stage2_int8_by_id, stage2_int8_single)
 from repro_torch.serve import (HotClusterCache, RuntimeConfig,  # noqa: E402
-                               ServingRuntime)
+                               ServingRuntime, sparse_kv)
 from repro_torch.tenancy import (CrossTenantBatchScheduler,  # noqa: E402
                                  MultiTenantIndex)
 
@@ -217,19 +242,30 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _traced(fn, reps: int):
+    """torch.profiler's CUPTI trace of `reps` calls of `fn`, recorded after
+    a warm-up step of `reps` calls that is traced but not kept: a trace
+    window opened right at the first call can miss kernels (ROADMAP C6)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return prof
+
+
 def device_profile(fn, reps: int = 5) -> list[tuple[str, float, float]]:
     """(name, device microseconds per call, launches per call) of every
     GPU kernel `fn` launches, from torch.profiler's CUPTI trace, busiest
     first."""
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / reps, e.count / reps)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+            for e in _traced(fn, reps).key_averages()
+            if e.self_device_time_total > 0]
     return sorted(rows, key=lambda r: -r[1])
 
 
@@ -1978,7 +2014,6 @@ def phase_tenancy(dev, serving):
 # T_CLUSTERS centres.
 SERVE_TENANTS, SERVE_TURNS, OPEN_TURNS = 32, 48, 3
 ZIPF_S, STICKY = 1.1, 0.8
-PRESCREEN_TURNS = 12
 FACADE_FLUSHES = 12
 OPEN_WAIT, OPEN_DEPTH = 0.005, 2
 FIELDS = ("indices", "scores", "candidate_indices")
@@ -2173,18 +2208,25 @@ def _no_leak(label, owner, turns, outs) -> None:
 
 def _reconcile(label, rt, plans) -> None:
     """The runtime's stage-1 ledgers are the sum of its launches'
-    `cache_split_plan` ledgers, and each plan's approx stage carries them."""
+    `cache_split_plan` ledgers, and each plan's approx stage carries them;
+    its prescreen (stage-0 sign) ledgers are the sum of the plans'
+    prescreen stages."""
     plans = [p for p, _ in plans]
     hbm = sum(p.stage1_bytes for p in plans)
     sram = sum(p.stage1_bytes_sram for p in plans)
     approx = [s for p in plans for s in p.stages if s.name == "approx"]
+    pre = [s for p in plans for s in p.stages if s.name == "prescreen"]
     if ((rt.stage1_bytes_streamed, rt.stage1_bytes_sram) != (hbm, sram)
             or sum(s.bytes_hbm for s in approx) != hbm
             or sum(s.bytes_sram for s in approx) != sram
             or rt.stage_bytes.get("approx", 0) != hbm
-            or rt.stage_bytes_sram.get("approx", 0) != sram):
-        raise AssertionError(f"serving {label}: stage-1 bytes do not "
-                             "reconcile with the launches' plans")
+            or rt.stage_bytes_sram.get("approx", 0) != sram
+            or rt.stage_bytes.get("prescreen", 0)
+            != sum(s.bytes_hbm for s in pre)
+            or rt.stage_bytes_sram.get("prescreen", 0)
+            != sum(s.bytes_sram for s in pre)):
+        raise AssertionError(f"serving {label}: stage-0 and stage-1 bytes "
+                             "do not reconcile with the launches' plans")
 
 
 def _split_check(label, index, turns, plans, all_hits) -> None:
@@ -2277,15 +2319,21 @@ def _host_top(rt, turn, n=6) -> str:
 def _report_run(label, rt, lat, turns, recall=None) -> dict:
     """Print one closed-loop run's line: its ledgers first, then host syncs
     of one more dispatch, device busy of one more profiled turn and the
-    host's own time by function over four more."""
+    host's own time by function over four more. Returns the run's p50,
+    queries/s, host syncs per dispatch, stage-0 + stage-1 device-memory
+    bytes per query and hit rate (the bytes and rate over `turns` only)."""
     lat, dispatch = [t for t, _ in lat], [d for _, d in lat]
     stats = rt.cache_stats()
     hits, misses = stats.get("hits", 0), stats.get("misses", 0)
     hit_rate = hits / (hits + misses) if hits + misses else float("nan")
     counters = {k: stats[k] for k in ("entries", "bytes_used", "evictions",
                                       "stale_evictions", "rejected",
-                                      "fill_bytes", "fill_dispatches")
+                                      "fill_bytes", "fill_dispatches",
+                                      "demotions", "promotions",
+                                      "sign_entries", "full_entries")
                 if k in stats}
+    bpq = ((rt.stage1_bytes_streamed + rt.stage_bytes.get("prescreen", 0))
+           / rt.queries_served)
     ledger = (f"hbm_stage1_bytes {rt.stage1_bytes_streamed} "
               f"sram_stage1_bytes {rt.stage1_bytes_sram} prefetch_bytes "
               f"{rt.prefetch_bytes} launches_per_turn "
@@ -2309,7 +2357,8 @@ def _report_run(label, rt, lat, turns, recall=None) -> dict:
         + ("" if recall is None else f" recall@{K} {recall:.4f}")
         + f" ({len(lat)} turns of {SERVE_TENANTS} session tenants); host "
         f"own ms per turn: {host}")
-    return dict(p50=p50, qps=qps)
+    return dict(p50=p50, qps=qps, max=max(lat), syncs=syncs, bpq=bpq,
+                hit_rate=hit_rate, stats=counters)
 
 
 def _in_turns(cold_rt, warm_rt, turns) -> None:
@@ -2505,6 +2554,119 @@ def _resident_kernels(dev, cache, arena) -> list[dict]:
     return rows
 
 
+def _count_against_profile(label, fn, counter, symbol, reps=20) -> None:
+    """ROADMAP C6: `reps` calls of a wrapper with its launch counter read
+    before and after and the calls traced, twice: in one window opened at
+    the first call (printed) and after a warm-up step (`_traced`): there
+    the launches counted must equal the kernel instances in the trace and
+    `reps`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def instances(prof):
+        events = [e for e in prof.key_averages() if symbol in e.key]
+        return (sum(e.count for e in events),
+                sum(e.self_device_time_total for e in events))
+    fn()
+    torch.cuda.synchronize()
+    before = ops.launch_counts().get(counter, 0)
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    single, single_us = instances(prof)
+    mid = ops.launch_counts().get(counter, 0)
+    warmed, warmed_us = instances(_traced(fn, reps))
+    counted = (mid - before, ops.launch_counts().get(counter, 0) - mid)
+    log(f"serving c6 {label}: {reps} calls per window; one window opened "
+        f"at the first call: {counted[0]} {counter} launches counted, "
+        f"{single} {symbol} instances traced "
+        f"({single_us / max(single, 1):.3f} us each); after a warm-up step: "
+        f"{counted[1] // 2} counted in the kept step, {warmed} traced "
+        f"({warmed_us / max(warmed, 1):.3f} us each)")
+    if not counted[1] // 2 == warmed == reps or counted[0] != reps:
+        raise AssertionError(f"serving c6 {label}: launches counted "
+                             f"{counted}, kernel instances traced after a "
+                             f"warm-up step {warmed}, for {reps} calls")
+
+
+def _tiered_runs(serving, index, closed, pcold, demand, runs, owner) -> None:
+    """The precision tiers on the session trace with the prescreen on (the
+    index's config): (a) the pressured budget at full precision, (b) the
+    same budget with `precision_tiers`. Both bit-identical to the
+    prescreen cold run; (b) must demote and promote, hold more residents
+    than the slab has slots, reconcile, and dispatch without a host sync.
+    Their stage-1 plane bytes are printed, not checked: on a session trace
+    the reference's tiers stream more of them than full precision
+    (tests/test_torch_serve_runtime.py::
+    test_precision_tiers_on_a_session_trace_trade_stage1_for_stage0 holds
+    the reference's ledgers so). Then ROADMAP C6 on #8's resident route."""
+    pressured = dict(cache_bytes=demand // 4, preload=True, prior_clusters=8)
+    done = {}
+    for label, cfg in (("prescreen_pressured", pressured),
+                       ("tiered", dict(pressured, precision_tiers=True))):
+        rt, lat, outs, plans = _closed_loop(serving, index, closed, True,
+                                            **cfg)
+        _same_outs(label, outs, pcold)
+        _no_leak(label, owner, closed, outs)
+        _reconcile(label, rt, plans)
+        streamed = rt.stage1_bytes_streamed
+        stats = rt.cache_stats()
+        runs[label] = _report_run(
+            f"{label} (cache_bytes {cfg['cache_bytes']}, preload, prescreen "
+            f"C0 {T_PRESCREEN_C0}"
+            + (", precision_tiers)" if label == "tiered" else ")"),
+            rt, lat, closed)
+        if runs[label]["syncs"]:
+            raise AssertionError(f"serving {label}: {runs[label]['syncs']} "
+                                 "host syncs per dispatch")
+        done[label] = (rt, streamed, stats)
+    (a_rt, a_streamed, _), (b_rt, b_streamed, b_stats) = (
+        done["prescreen_pressured"], done["tiered"])
+    tiers = b_stats["sign_entries"] + b_stats["full_entries"]
+    if not (b_stats["demotions"] > 0 and b_stats["promotions"] > 0):
+        raise AssertionError(f"serving tiered: demotions "
+                             f"{b_stats['demotions']}, promotions "
+                             f"{b_stats['promotions']}")
+    if not tiers > b_rt.cache.num_slab_blocks:
+        raise AssertionError(f"serving tiered: {tiers} residents for "
+                             f"{b_rt.cache.num_slab_blocks} slab blocks")
+    a, b = runs["prescreen_pressured"], runs["tiered"]
+    log(f"serving tiers: stage-0+1 device-memory bytes per query: no "
+        f"prescreen, full precision (pressured) {runs['pressured']['bpq']:.1f}"
+        f"; (a) prescreen, full precision {a['bpq']:.1f}; (b) prescreen, "
+        f"tiers {b['bpq']:.1f}; no-prescreen full precision / (b) "
+        f"{runs['pressured']['bpq'] / b['bpq']:.3f} (the reference bench "
+        f"holds 1.2; printed, not checked); stage-1 plane bytes from device "
+        f"memory (a) {a_streamed} (b) {b_streamed}, (b) / (a) "
+        f"{b_streamed / max(a_streamed, 1):.3f} (printed, not checked); "
+        f"p50_turn_ms (a) {a['p50'] * 1e3:.3f}"
+        f" (b) {b['p50'] * 1e3:.3f}; max_turn_ms (a) {a['max'] * 1e3:.3f} "
+        f"(b) {b['max'] * 1e3:.3f}; hit_rate (a) {a['hit_rate']:.4f} (b) "
+        f"{b['hit_rate']:.4f}; (b) tiers {b['stats']}, {tiers} residents "
+        f"for {b_rt.cache.num_slab_blocks} slab blocks; both bit-identical "
+        "to the prescreen cold run, 0 syncs per dispatch")
+    del a_rt
+    # ROADMAP C6: #8's resident route, on the tiered cache's combined sign
+    # plane and on the arena's sign plane alone.
+    gen = torch.Generator(device=index.device).manual_seed(SEED + 6)
+    q_sign = ops.pack_query_signs(torch.randint(
+        -128, 128, (B, D), generator=gen, device=index.device,
+        dtype=torch.int8))
+    cache, br = b_rt.cache, T_BLOCK_ROWS
+    nb = N // br
+    for label, plane, hi in (
+            ("combined sign plane", cache.sign_plane,
+             nb + cache.num_slab_blocks),
+            ("arena sign plane", index.arena.sign_plane, nb)):
+        ids = torch.randint(0, hi, (B, T_NPROBE * 4), generator=gen,
+                            device=index.device, dtype=torch.int32)
+        _count_against_profile(
+            label, lambda: ops.stage0_sign_scores_gather_resident(
+                q_sign, plane, ids, block_rows=br),
+            "stage0_sign_gather_resident", "sign_gather_kernel")
+    del b_rt
+
+
 def phase_serving(dev, serving, index, traces) -> list[dict]:
     """The serving runtime at full width: the tenancy phase's clustered
     index (512 tenants x 2048 docs, K = 64, nprobe 8, 64-row blocks,
@@ -2575,24 +2737,26 @@ def phase_serving(dev, serving, index, traces) -> list[dict]:
         "warm_sync: all hits)")
     _in_turns(cold_rt, warm_rt, closed)
 
-    pre = closed[:PRESCREEN_TURNS]
     index.cfg = dataclasses.replace(base, prescreen_c0=T_PRESCREEN_C0)
     try:
-        pc_rt, lat_c, pcold, _ = _closed_loop(serving, index, pre, False)
-        for i, (tids, q, _) in enumerate(pre):
+        pc_rt, lat_c, pcold, plans = _closed_loop(serving, index, closed,
+                                                  False)
+        for i, (tids, q, _) in enumerate(closed):
             want = index.retrieve(torch.from_numpy(q).to(dev), tids)
             _same_outs("prescreen cold against index.retrieve", [pcold[i]],
                        [tuple(getattr(want, f).cpu() for f in FIELDS)])
-        pw_rt, lat_w, pwarm, plans = _closed_loop(serving, index, pre, True,
-                                                  **warm_cfg)
+        _reconcile("prescreen cold", pc_rt, plans)
+        pw_rt, lat_w, pwarm, plans = _closed_loop(serving, index, closed,
+                                                  True, **warm_cfg)
         _same_outs("prescreen warm", pwarm, pcold)
-        _no_leak("prescreen warm", owner, pre, pwarm)
+        _no_leak("prescreen warm", owner, closed, pwarm)
         _reconcile("prescreen warm", pw_rt, plans)
-        _report_run(f"prescreen_{T_PRESCREEN_C0} cold", pc_rt, lat_c, pre)
-        _report_run(f"prescreen_{T_PRESCREEN_C0} warm", pw_rt, lat_w, pre)
+        _report_run(f"prescreen_{T_PRESCREEN_C0} cold", pc_rt, lat_c, closed)
+        _report_run(f"prescreen_{T_PRESCREEN_C0} warm", pw_rt, lat_w, closed)
+        del pc_rt, pw_rt
+        _tiered_runs(serving, index, closed, pcold, demand, runs, owner)
     finally:
         index.cfg = base
-    del pc_rt, pw_rt
 
     rate = runs["warm"]["qps"] / 2
     _open_loop(serving, index, open_requests, rate, "open_loop cold")
@@ -2612,6 +2776,353 @@ def phase_serving(dev, serving, index, traces) -> list[dict]:
             raise AssertionError(f"kernel {key} was launched by the serving "
                                  "path, which should not take it")
     return rows
+
+
+# -- the decode phase ----------------------------------------------------
+# qwen2-0.5b's attention widths (src/repro/configs/qwen2_0_5b.py): 24
+# layers, 14 query heads over 2 KV heads (G = 7), head dim 896 / 14 = 64.
+# B = 8 sequences over a T = 32768-position cache (the T of the reference
+# bench's decode ledger), top_k 256, 16-row pages; npages 256 is the
+# bench's T // 16 // 8, C0 1024 a quarter of its 4096-position view. The
+# wide check: minitron-4b's (src/repro/configs/minitron_4b.py), one layer.
+DEC_LAYERS, DEC_H, DEC_KH, DEC_HD = 24, 14, 2, 64
+DEC_B, DEC_T, DEC_TOPK, DEC_PR = 8, 32768, 256, 16
+DEC_NPAGES, DEC_C0, DEC_STEPS = DEC_T // DEC_PR // 8, 1024, 20
+DEC_SCHEDULES = (("flat", {}), ("paged", dict(npages=DEC_NPAGES)),
+                 ("paged_prescreen", dict(npages=DEC_NPAGES,
+                                          prescreen_c0=DEC_C0)),
+                 ("full_coverage", dict(npages=DEC_T // DEC_PR)))
+WIDE_H, WIDE_KH, WIDE_HD, WIDE_B = 24, 8, 128, 4
+DEC_KERNELS = ("stage1_rows", "stage0_sign_gather")
+
+
+def _decode_lengths(gen, dev, b):
+    """One empty sequence, one below top_k, the rest in [T/2, T]."""
+    rest = torch.randint(DEC_T // 2, DEC_T + 1, (b - 2,), generator=gen,
+                         device=dev)
+    return torch.cat([torch.tensor([0, 100], device=dev),
+                      rest]).to(torch.int32)
+
+
+def _decode_layer(gen, dev, b, kh, hd, length, dense=False):
+    """One layer's cache from the generator: K in f32 quantized to nibble
+    planes with page centroids, V in bf16; with `dense`, also K and V as
+    (B, KH, T, hd) bf16 for the dense yardstick."""
+    k = torch.randn(b, DEC_T, kh, hd, generator=gen, device=dev)
+    v = torch.randn(b, DEC_T, kh, hd, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    cache = sparse_kv.build_page_centroids(
+        sparse_kv.build_quant_cache(k, v), length, DEC_PR)
+    if not dense:
+        return cache, None
+    return cache, (k.to(torch.bfloat16).transpose(1, 2).contiguous(),
+                   v.transpose(1, 2).contiguous())
+
+
+def _decode_step(caches, qs, length, backend, top_k=DEC_TOPK, **kw):
+    """One decode step: the cascade of every layer, on `backend`."""
+    return [sparse_kv.sparse_decode_attention(q, c, length, top_k,
+                                              page_rows=DEC_PR,
+                                              backend=backend, **kw)
+            for q, c in zip(qs, caches, strict=True)]
+
+
+def _dense_step(qs, dense, length, scale):
+    """Dense attention over bf16 K and V in plain PyTorch (the yardstick):
+    every position streamed, softmax in f32."""
+    outs = []
+    valid = (torch.arange(DEC_T, device=length.device)[None, None, None, :]
+             < length[:, None, None, None])
+    for q, (k, v) in zip(qs, dense, strict=True):
+        qg = q.reshape(DEC_B, DEC_KH, -1, DEC_HD).to(torch.bfloat16)
+        s = torch.matmul(qg, k.transpose(-1, -2)).float() * scale
+        p = torch.softmax(s.masked_fill(~valid, -1e30), dim=-1)
+        outs.append(torch.matmul(p.to(torch.bfloat16), v))
+    return outs
+
+
+def _median_step_s(fn, steps: int) -> float:
+    """Median seconds of `fn` on the host clock, each call synchronized."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _same_layers(label, got, want) -> None:
+    for layer, (g, w) in enumerate(zip(got, want, strict=True)):
+        if not torch.equal(g, w):
+            raise AssertionError(f"decode {label}: layer {layer} differs")
+
+
+def _capture(name):
+    """Patch `ops.<name>` to record its first call's arguments."""
+    real = getattr(ops, name)
+    seen = []
+
+    def spy(*args, **kw):
+        if not seen:
+            seen.append((args, kw))
+        return real(*args, **kw)
+    return mock.patch.object(ops, name, spy), seen
+
+
+def _decode_kernel_rows(caches, qs, length, counts) -> list[dict]:
+    """#2 and #8 at the operands one paged + prescreen step gives them at
+    hd = 64 (the first layer's: 112 lanes x 2048 centroid rows of 32 bytes;
+    112 lanes x 256 pages of 16 rows over the flat 8-byte sign plane),
+    against their plain versions, timed, with their byte bounds and a
+    torch.bmm f32 yardstick on the pre-unpacked operand."""
+    rows_patch, rows_seen = _capture("stage1_scores_rows")
+    sign_patch, sign_seen = _capture("stage0_sign_scores_gather")
+    with rows_patch, sign_patch:
+        _decode_step(caches[:1], qs[:1], length, "cuda",
+                     **dict(DEC_SCHEDULES)["paged_prescreen"])
+    (q_nib, cent_rows), _ = rows_seen[0]
+    (q_sign, flat_sign, blk), kw = sign_seen[0]
+    lanes, p, d2 = cent_rows.shape
+    d = 2 * d2
+    q_eo = ops.pack_queries_even_odd(q_nib)
+    r_view = blk.shape[1] * DEC_PR
+    out = []
+    view = bitplanar.expand_block_rows(blk, DEC_PR)
+    uniq = int(torch.unique(view).numel())
+    for name, fn, plain, args, lib_args, bytes_moved, macs, src, repl, \
+            symbol in (
+            ("stage1_rows@decode_hd64", stage1_int4_rows,
+             ref.stage1_rows_batched_ref, (q_eo, cent_rows),
+             (bitplanar.unpack_nibble_plane_signed(cent_rows).float(),
+              q_nib.float()[:, :, None]),
+             2 * lanes * d2 + lanes * p * d2 + lanes * p * 4, lanes * p * d,
+             "src/repro_torch/csrc/stage1_int4.cu",
+             "src/repro/kernels/stage1_int4.py:120", "rows_kernel"),
+            ("stage0_sign_gather@decode_hd64",
+             lambda a, b_, c: stage0_sign_gather(a, b_, c,
+                                                 block_rows=DEC_PR),
+             lambda a, b_, c: ref.stage0_sign_gather_ref(a, b_, c, DEC_PR),
+             (q_sign, flat_sign, blk),
+             (bitplanar.unpack_sign_pm1(flat_sign[view.long()]).float(),
+              q_sign.float()[:, :, None]),
+             lanes * d + blk.numel() * 4 + uniq * (d // 8)
+             + lanes * r_view * 4, lanes * r_view * d,
+             "src/repro_torch/csrc/stage0_sign.cu",
+             "src/repro/kernels/stage0_sign.py:113", "sign_gather_kernel")):
+        err = _check_kernel(name, fn, plain, args,
+                            f"{lanes} lanes, D = {d} (decode)")
+        lib_ms = _library_ms(name, lambda: torch.bmm(*lib_args), fn(*args))
+        t_bound, by = bound_ms(bytes_moved, 2 * macs)
+        row = dict(name=name, route="cuda", source=src, replaces=repl,
+                   launches=counts[name.split("@")[0]], max_abs_err=err,
+                   ms=time_ms(lambda: fn(*args)),
+                   plain_ms=time_ms(lambda: plain(*args)), bound_ms=t_bound,
+                   bound_by=by, library_ms=lib_ms)
+        dev_us = kernel_device_us(lambda: fn(*args), symbol)
+        log(f"kernel {name}: kernel_ms {row['ms']:.4f} device_only_us "
+            f"{dev_us} plain_ms {row['plain_ms']:.4f} bound_us "
+            f"{t_bound * 1e3:.2f} ({by}) library_ms {lib_ms:.4f} (one "
+            f"torch.bmm f32 on the pre-unpacked operand); launches per "
+            f"decode step {DEC_LAYERS}; bit-exact")
+        out.append(row)
+        del lib_args
+    return out
+
+
+def phase_decode(dev) -> tuple[list[dict], dict[str, int]]:
+    """The decode path at qwen2-0.5b's attention widths over a 32k cache:
+    four schedules (flat, paged, paged + prescreen, paged at full
+    coverage), each a 24-layer step on the "cuda" and the "torch"
+    backend. Returns the decode-shape kernel rows and the path's
+    launches (one driven step per schedule)."""
+    t0 = time.perf_counter()
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("decode: TF32 is on for float32 products")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    length = _decode_lengths(gen, dev, DEC_B)
+    torch.cuda.reset_peak_memory_stats()
+    layers = [_decode_layer(gen, dev, DEC_B, DEC_KH, DEC_HD, length,
+                            dense=True) for _ in range(DEC_LAYERS)]
+    caches = [c for c, _ in layers]
+    dense = [d for _, d in layers]
+    del layers
+    qs = [torch.randn(DEC_B, 1, DEC_H, DEC_HD, generator=gen, device=dev)
+          for _ in range(DEC_LAYERS)]
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches
+                      for t in (c.k_msb, c.k_lsb, c.k_scale, c.v, c.cent_msb,
+                                c.cent_scale))
+    log(f"decode cache: {DEC_LAYERS} layers x B={DEC_B} x T={DEC_T} x "
+        f"KH={DEC_KH} x hd={DEC_HD} (H={DEC_H}), lengths "
+        f"{length.tolist()}: {cache_bytes} bytes on the card "
+        f"({cache_bytes / DEC_LAYERS / 1e6:.1f} MB per layer; the dense "
+        f"yardstick's bf16 K and V beside it); built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches: dict[str, int] = {}
+    outs = {}
+    index = MultiTenantIndex(64, 64, RetrievalConfig(), device=dev)
+    dense_all = sparse_kv.dense_bytes_per_step(DEC_T, DEC_HD) * (
+        DEC_B * DEC_KH * DEC_LAYERS)
+    for label, kw in DEC_SCHEDULES:
+        ops.reset_launch_counts()
+        got = _decode_step(caches, qs, length, "cuda", **kw)
+        counts = ops.launch_counts()
+        want = {"stage1_rows": DEC_LAYERS if "npages" in kw else 0,
+                "stage0_sign_gather": (DEC_LAYERS if "prescreen_c0" in kw
+                                       else 0)}
+        if {k: n for k, n in counts.items() if n} != {
+                k: n for k, n in want.items() if n}:
+            raise AssertionError(f"decode {label}: one step launched "
+                                 f"{counts}, expected {want}")
+        for key, n in counts.items():
+            launches[key] = launches.get(key, 0) + n
+        ops.reset_launch_counts()
+        plain = _decode_step(caches, qs, length, "torch", **kw)
+        if any(ops.launch_counts().values()):
+            raise AssertionError(f"decode {label}: the torch backend "
+                                 "launched a kernel")
+        _same_layers(f"{label} cuda against torch", got, plain)
+        for layer, o in enumerate(got):
+            if o.isnan().any() or o[0].any():
+                raise AssertionError(f"decode {label}: layer {layer} has a "
+                                     "NaN or a nonzero empty sequence")
+        outs[label] = got
+        cfg = engine.KVCascadeConfig(top_k=DEC_TOPK, page_rows=DEC_PR, **kw)
+        plan = engine.kv_plan(cfg, batch=DEC_B, kv_heads=DEC_KH,
+                              q_heads=DEC_H, seq_len=DEC_T,
+                              head_dim=DEC_HD, layers=DEC_LAYERS)
+        plan_bytes = sum(st.bytes_hbm for st in plan.stages)
+        if label == "flat" and plan_bytes / (
+                DEC_B * DEC_KH * DEC_LAYERS) != sparse_kv.sparse_bytes_per_step(
+                DEC_T, DEC_HD, DEC_TOPK):
+            raise AssertionError("decode: the flat kv_plan does not equal "
+                                 "sparse_bytes_per_step per lane")
+        rt = ServingRuntime(index, RuntimeConfig())
+        rt.account_decode(plan, dim=DEC_HD, tokens=DEC_STEPS)
+        if (rt.decode_steps != DEC_STEPS
+                or rt.decode_bytes_hbm != DEC_STEPS * plan_bytes):
+            raise AssertionError(f"decode {label}: account_decode gave "
+                                 f"{rt.decode_steps} steps, "
+                                 f"{rt.decode_bytes_hbm} bytes")
+        step_s = _median_step_s(
+            lambda: _decode_step(caches, qs, length, "cuda", **kw),
+            DEC_STEPS)
+        kernels = device_profile(
+            lambda: _decode_step(caches, qs, length, "cuda", **kw), reps=1)
+        busy = sum(t for _, t, _ in kernels) * 1e-3
+        launched = sum(n for _, _, n in kernels)
+        top = "; ".join(f"{name[:60]} {t * 1e-3:.3f} ms x{n:.0f}"
+                        for name, t, n in kernels[:5])
+        log(f"decode {label}: p50_step_ms {step_s * 1e3:.3f} tokens_per_s "
+            f"{DEC_B / step_s:.1f} device_busy_ms {busy:.3f} idle_share "
+            f"{1 - busy / (step_s * 1e3):.3f} kernel_launches_per_step "
+            f"{launched:.0f}; kv_plan bytes per step {plan_bytes} "
+            f"({dense_all / plan_bytes:.2f}x below dense bf16 K + V, "
+            f"{dense_all}); #2 launches {counts.get('stage1_rows', 0)}, "
+            f"#8 {counts.get('stage0_sign_gather', 0)} per step; cuda = "
+            f"torch bit for bit on every layer; busiest kernels per step: "
+            f"{top}")
+    _same_layers("full coverage against flat", outs["full_coverage"],
+                 outs["flat"])
+    legacy = [sparse_kv.sparse_decode_attention_ref(q, c, length, DEC_TOPK)
+              for q, c in zip(qs, caches)]
+    _same_layers("flat against sparse_decode_attention_ref", outs["flat"],
+                 legacy)
+    del outs, legacy
+    log("decode: full-coverage paged = flat = sparse_decode_attention_ref "
+        "bit for bit on every layer; the empty sequence reads exact zeros; "
+        "account_decode and the flat ledger hold")
+
+    # top_k = T on one layer: the flat schedule against dense f32 attention
+    # over the same dequantized INT8 keys.
+    c0, q0 = caches[0], qs[0]
+    got = sparse_kv.sparse_decode_attention(q0, c0, length, DEC_T)
+    k_deq = (bitplanar.reconstruct_int8(
+        c0.k_msb.reshape(-1, DEC_HD // 2), c0.k_lsb.reshape(-1, DEC_HD // 2))
+        .reshape(DEC_B, DEC_T, DEC_KH, DEC_HD).float()
+        * c0.k_scale[..., None]).transpose(1, 2)
+    qg = q0.reshape(DEC_B, DEC_KH, -1, DEC_HD)
+    sc = torch.matmul(qg, k_deq.transpose(-1, -2)) * DEC_HD ** -0.5
+    valid = (torch.arange(DEC_T, device=dev)[None, None, None, :]
+             < length[:, None, None, None])
+    e = torch.where(valid, torch.exp(sc.masked_fill(~valid, -1e30)
+                                     - sc.masked_fill(~valid, -1e30).amax(
+                                         -1, keepdim=True)), 0.0)
+    denom = e.sum(-1, keepdim=True)
+    want = torch.matmul(e / torch.where(denom > 0, denom, 1.0),
+                        c0.v.transpose(1, 2).float()).reshape(got.shape)
+    err = float((got - want).abs().max())
+    del k_deq, sc, e, want
+    if not err <= 1e-4:
+        raise AssertionError(f"decode: top_k = T differs from dense f32 "
+                             f"attention by {err}")
+    log(f"decode: top_k = T (flat, one layer) against dense f32 attention "
+        f"over the same INT8 keys: max abs err {err:.3g} (limit 1e-4)")
+
+    # The flat-plane copies the prescreen and the gathered approx stage
+    # make (`engine._kv_flat`, as the reference's transpose + reshape).
+    d2 = DEC_HD // 2
+    plane_b = DEC_B * DEC_T * DEC_KH * d2
+    scale_b = DEC_B * DEC_T * DEC_KH * 4
+    for label, fn, nbytes in (
+            ("k_msb flat copy", lambda: engine._kv_flat(c0.k_msb),
+             2 * plane_b),
+            ("k_scale flat copy", lambda: engine._kv_flat(c0.k_scale),
+             2 * scale_b),
+            ("sign plane from the flat k_msb",
+             lambda: bitplanar.sign_plane_from_msb(engine._kv_flat(c0.k_msb)),
+             2 * plane_b + plane_b // 4)):
+        us = sum(t for _, t, _ in device_profile(fn, reps=5))
+        log(f"decode flat copies: {label}: {nbytes} bytes per layer "
+            f"(read + write), device_us {us:.2f} per layer, "
+            f"{us * DEC_LAYERS / 1e3:.3f} ms per {DEC_LAYERS}-layer step "
+            f"per use "
+            f"(paged: k_msb and k_scale copies once each; paged + "
+            f"prescreen: also the sign plane)")
+
+    scale = DEC_HD ** -0.5
+    dense_s = _median_step_s(lambda: _dense_step(qs, dense, length, scale),
+                             DEC_STEPS)
+    log(f"decode dense yardstick (bf16 K and V, plain torch matmul + f32 "
+        f"softmax, {DEC_LAYERS} layers; not checked): p50_step_ms "
+        f"{dense_s * 1e3:.3f} tokens_per_s {DEC_B / dense_s:.1f}")
+    ops.reset_launch_counts()
+    rows = _decode_kernel_rows(caches, qs, length, launches)
+    del dense, caches, qs
+    torch.cuda.empty_cache()
+
+    # Head width 128 (minitron-4b's attention widths), one layer, paged +
+    # prescreen: #8 takes its 16-byte loads, #2 reads 64-byte rows.
+    wlen = _decode_lengths(gen, dev, WIDE_B)
+    wcache, _ = _decode_layer(gen, dev, WIDE_B, WIDE_KH, WIDE_HD, wlen)
+    wq = torch.randn(WIDE_B, 1, WIDE_H, WIDE_HD, generator=gen, device=dev)
+    kw = dict(DEC_SCHEDULES)["paged_prescreen"]
+    ops.reset_launch_counts()
+    a = _decode_step([wcache], [wq], wlen, "cuda", **kw)
+    counts = ops.launch_counts()
+    for key, n in counts.items():
+        launches[key] = launches.get(key, 0) + n
+    b = _decode_step([wcache], [wq], wlen, "torch", **kw)
+    _same_layers("hd 128 cuda against torch", a, b)
+    if counts["stage1_rows"] != 1 or counts["stage0_sign_gather"] != 1:
+        raise AssertionError(f"decode hd 128: launched {counts}")
+    log(f"decode hd 128 (H={WIDE_H}, KH={WIDE_KH}, B={WIDE_B}, "
+        f"T={DEC_T}, one layer, paged + prescreen): cuda = torch bit for "
+        f"bit; #2 and #8 one launch each")
+    del wcache
+    torch.cuda.empty_cache()
+    log(f"decode path launches: "
+        f"{ {k: n for k, n in launches.items() if n} }; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; the phase "
+        f"took {time.perf_counter() - t0:.1f} s")
+    for key in DEC_KERNELS:
+        if launches.get(key, 0) <= 0:
+            raise AssertionError(f"kernel {key} was not launched by the "
+                                 "decode path")
+    return rows, launches
 
 
 # Host cost of the exact wrappers and of the block gather on each of its
@@ -2684,10 +3195,12 @@ def main() -> int:
     kernels += new_kernels + phase_serving(dev, serving, *served)
     del served
     torch.cuda.empty_cache()
+    decode_rows, decode_launches = phase_decode(dev)
     for k in kernels:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in (
             launches, tune_launches, cluster_launches, tenancy_launches,
-            serving.launches))
+            serving.launches, decode_launches))
+    kernels += decode_rows
     phase_host_us(dev)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -140,7 +140,11 @@ class SlabPolicy:
     plane table's first column gives, computed on the host so selection
     is the same at any table width. `sign_plane`, when given, is the
     combined sign plane (the prescreen reads it); else it is derived from
-    `slab_plane`. The results are the ClusterPolicy cascade's bit for bit.
+    `slab_plane`. `block_tier`, when the cache runs precision tiers, is
+    its (NB + S,) int8 tier of every combined block (0 an arena plane
+    block, 1 a sign-tier resident's plane block, 2 a full-tier slab slot):
+    no stage reads it; it rides along for the runtime's ledger and the
+    checks. The results are the ClusterPolicy cascade's bit for bit.
     """
 
     packed_labels: torch.Tensor    # (N,) int32 packed (owner, label)
@@ -156,6 +160,7 @@ class SlabPolicy:
     nprobe: int
     block_rows: int
     sign_plane: torch.Tensor | None = None  # (N + S*br, D//8) uint8
+    block_tier: torch.Tensor | None = None  # (NB + S,) int8 tiers
 
 
 def packed_membership(owner: torch.Tensor, labels: torch.Tensor,
@@ -899,3 +904,402 @@ class RetrievalEngine:
         return plan(self.cfg, num_docs=db.num_docs, dim=db.dim, batch=batch,
                     kind=_PLAN_KINDS[type(policy)], window=window,
                     num_clusters=num_clusters, view_rows=view_rows)
+
+
+# ---------------------------------------------------------------------------
+# The KV-cache cascade (decode attention)
+# ---------------------------------------------------------------------------
+# One decode step's attention as a cascade over a quantized KV cache, the
+# retrieval cascade's shape applied to the cache: `KVPagePrune` (score
+# per-page INT8 centroids, keep the top-`npages` pages per (batch, kv-head)
+# lane), `KVSignPrescreen` (1-bit sign agreement over the kept pages, keep
+# the top-`c0` positions), `KVApproxTopK` (f32 query x MSB-nibble keys,
+# keep the top-k) and `KVExactAttend` (rebuild the survivors' INT8 keys,
+# exact masked softmax attention). The integer stages run on the "cuda"
+# kernels (#2 for the page prune, #8 for the prescreen) or their plain
+# versions; the f32 stages are the same torch ops on either backend, so
+# on one device the two backends give the same bits. Without a prune or a
+# prescreen the cascade is the two-stage schedule of
+# `serve.sparse_kv.sparse_decode_attention_ref`, bit for bit.
+
+KV_NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class KVCascadeConfig:
+    """The schedule of one decode-attention cascade.
+
+    top_k: exact-attention budget per (batch, kv-head) lane.
+    npages: pages kept by KVPagePrune (None: no prune, every position
+        enters the approx scan).
+    page_rows: rows per key page (the prune and prescreen block; the cache
+        length T must be a multiple when either stage is on).
+    prescreen_c0: positions kept by the sign prescreen (None: off; needs
+        npages, since the sign gather reads the pruned pages).
+    backend: "cuda" (the kernel wrappers, whose CPU tensors take the plain
+        versions) or "torch" (the plain versions on any device) for the
+        integer stages; the f32 stages are shared.
+    scale: softmax scale (None: hd ** -0.5).
+    """
+
+    top_k: int
+    npages: int | None = None
+    page_rows: int = 8
+    prescreen_c0: int | None = None
+    backend: Literal["torch", "cuda"] = "cuda"
+    scale: float | None = None
+
+    def __post_init__(self):
+        if self.top_k < 1:
+            raise ValueError("top_k must be >= 1")
+        if self.prescreen_c0 is not None and self.npages is None:
+            raise ValueError("prescreen_c0 gates the pruned pages' sign "
+                             "gather: it needs npages")
+        if self.npages is not None and self.page_rows < 1:
+            raise ValueError("page_rows must be >= 1")
+
+
+@dataclasses.dataclass(frozen=True)
+class KVCachePolicy:
+    """One layer's quantized KV cache as the cascade's corpus.
+
+    k_msb / k_lsb: (B, T, KH, hd//2) uint8 nibble planes of INT8 keys.
+    k_scale: (B, T, KH) f32 per-(position, head) scales.
+    v: (B, T, KH, hd) values at compute precision.
+    length: (B,) int32 valid positions per sequence.
+    cent_msb / cent_scale: (B, P, KH, hd//2) / (B, P, KH) page centroids
+        (P = T // page_rows), needed when npages is set.
+    k_sign: optional (B, T, KH, hd//8) packed sign sidecar; without it the
+        prescreen derives the sign plane from k_msb on every step (the
+        same bytes, `bitplanar.sign_plane_from_msb`).
+    """
+
+    k_msb: torch.Tensor
+    k_lsb: torch.Tensor
+    k_scale: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+    cent_msb: torch.Tensor | None = None
+    cent_scale: torch.Tensor | None = None
+    k_sign: torch.Tensor | None = None
+
+
+@dataclasses.dataclass
+class _KVState:
+    """Which cache positions are alive.
+
+    rows: (B, KH, R) position ids of the view (None: the implicit full
+        view of the no-prune schedule).
+    member: (B, KH, R) bool, position < length, aligned with rows.
+    pages: (B, KH, npages) selected page ids, ascending (the prescreen
+        addresses the flat sign plane by them).
+    out: the (B, 1, H, hd) attention output, set by KVExactAttend.
+    """
+
+    rows: torch.Tensor | None = None
+    member: torch.Tensor | None = None
+    pages: torch.Tensor | None = None
+    out: torch.Tensor | None = None
+
+
+@dataclasses.dataclass
+class _KVCtx:
+    """Per-step invariants: qg is the f32 grouped query (B, KH, G, hd);
+    q_codes / q_scale its per-head-vector INT8 quantization, made only when
+    a kernel stage (prune, prescreen) needs integer query operands."""
+
+    q: torch.Tensor
+    qg: torch.Tensor
+    policy: KVCachePolicy
+    cfg: KVCascadeConfig
+    fns: StageFns
+    q_codes: torch.Tensor | None = None
+    q_scale: torch.Tensor | None = None
+
+
+def _kv_flat(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, KH, ...) cache plane -> (B*KH*T, ...) flat plane: row
+    (b*KH + kh)*T + t holds position t of lane (b, kh), so the gather
+    kernels read the whole batched cache as one corpus with per-lane block
+    ids. A copy whenever KH > 1, as in the reference."""
+    b, t, kh = x.shape[:3]
+    return x.transpose(1, 2).reshape(b * kh * t, *x.shape[3:])
+
+
+def _kv_flat_rows(rows: torch.Tensor, t: int) -> torch.Tensor:
+    """(B, KH, R) cache positions -> flat plane row ids."""
+    b, kh = rows.shape[:2]
+    dev = rows.device
+    lane = (torch.arange(b, dtype=torch.int32, device=dev)[:, None, None] * kh
+            + torch.arange(kh, dtype=torch.int32, device=dev)[None, :, None])
+    return lane * t + rows
+
+
+def _kv_scores(qg: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """(B, KH, G, hd) f32 queries x (B, KH, R, hd) keys -> (B, KH, G, R)
+    f32. The keys are made contiguous f32 first, so every caller hands the
+    product the same operand layout and equal inputs give equal bits."""
+    return torch.matmul(qg, keys.to(torch.float32).contiguous()
+                        .transpose(-1, -2))
+
+
+def _kv_lengths(policy: KVCachePolicy) -> torch.Tensor:
+    return policy.length.reshape(-1, 1, 1).to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class KVPagePrune:
+    """Stage 0: score the per-page centroids, keep each (batch, kv-head)
+    lane's top-`npages` valid pages, and expand them to a position view.
+
+    The centroid scores are the rows kernel's integer dots over each
+    lane's centroid rows, scaled to f32 by the query and centroid scales,
+    max-reduced over the lane's G query heads; pages wholly past `length`
+    score -inf. The kept pages are sorted ascending, so at full coverage
+    the view is the identity and the cascade is the unpruned one."""
+
+    npages: int
+
+    def run(self, state: _KVState, ctx: _KVCtx) -> _KVState:
+        pol, cfg = ctx.policy, ctx.cfg
+        if pol.cent_msb is None or pol.cent_scale is None:
+            raise ValueError("npages needs page centroids on the policy "
+                             "(cent_msb/cent_scale: see "
+                             "serve.sparse_kv.build_page_centroids)")
+        b, t, kh, hd = pol.v.shape
+        pr = cfg.page_rows
+        if t % pr:
+            raise ValueError(f"cache length {t} is not a multiple of "
+                             f"page_rows={pr}")
+        p = t // pr
+        if pol.cent_msb.shape[1] != p:
+            raise ValueError(f"centroid table holds {pol.cent_msb.shape[1]} "
+                             f"pages, cache has {p}")
+        npages = min(self.npages, p)
+        g = ctx.qg.shape[2]
+        dev = pol.v.device
+        q_nib = quantization.msb_nibble(ctx.q_codes).reshape(b * kh * g, hd)
+        # Each lane's centroid rows, repeated for its G query heads: one
+        # contiguous (B*KH*G, P, hd/2) operand for the rows kernel.
+        cent_rows = (pol.cent_msb.transpose(1, 2)[:, :, None]
+                     .expand(b, kh, g, p, hd // 2)
+                     .reshape(b * kh * g, p, hd // 2).contiguous())
+        scores = ctx.fns.rows(q_nib, cent_rows)               # (B', P) int32
+        key = (scores.to(torch.float32).reshape(b, kh, g, p)
+               * ctx.q_scale.reshape(b, kh, g)[..., None]
+               * pol.cent_scale.transpose(1, 2)[:, :, None, :])
+        key = key.amax(dim=2)                                 # (B, KH, P)
+        first_row = torch.arange(p, dtype=torch.int32, device=dev) * pr
+        valid = first_row[None, None, :] < _kv_lengths(pol)
+        key = key.masked_fill(~valid, float("-inf"))
+        _, pages = similarity.stable_topk(key, npages)        # (B, KH, NP)
+        pages, _ = torch.sort(pages.to(torch.int32), dim=-1)  # cache order
+        offs = torch.arange(pr, dtype=torch.int32, device=dev)
+        rows = (pages[..., None] * pr + offs).reshape(b, kh, npages * pr)
+        member = rows < _kv_lengths(pol)
+        return dataclasses.replace(state, rows=rows, member=member,
+                                   pages=pages)
+
+
+@dataclasses.dataclass(frozen=True)
+class KVSignPrescreen:
+    """Stage 0.5: 1-bit sign agreement over the pruned pages.
+
+    The sign gather (#8) reads only the kept pages' sign bytes (hd/8 per
+    position) from the flat cache plane, each (lane, page) a block; the
+    scores are max-reduced over the lane's G query heads, non-members
+    score INT32_MIN, and the top-`c0` survivors are re-sorted into view
+    order, so at c0 >= the view the cascade is the no-prescreen one."""
+
+    c0: int
+
+    def run(self, state: _KVState, ctx: _KVCtx) -> _KVState:
+        pol, cfg = ctx.policy, ctx.cfg
+        b, t, kh, hd = pol.v.shape
+        if hd % 8:
+            raise ValueError(f"sign prescreen needs head_dim % 8 == 0, "
+                             f"got {hd}")
+        pr = cfg.page_rows
+        g = ctx.qg.shape[2]
+        r = state.rows.shape[2]
+        c0 = min(self.c0, r)
+        flat_sign = (bitplanar.sign_plane_from_msb(_kv_flat(pol.k_msb))
+                     if pol.k_sign is None else _kv_flat(pol.k_sign))
+        q_sign = bitplanar.sign_pm1(ctx.q_codes).reshape(b * kh * g, hd)
+        flat_pages = _kv_flat_rows(state.pages, t // pr)      # (B, KH, NP)
+        blk = (flat_pages[:, :, None, :]
+               .expand(b, kh, g, flat_pages.shape[-1])
+               .reshape(b * kh * g, -1).contiguous())
+        scores = ctx.fns.sign_gather(q_sign, flat_sign, blk,
+                                     block_rows=pr)           # (B', R) int32
+        key = scores.reshape(b, kh, g, r).amax(dim=2)         # (B, KH, R)
+        key = key.masked_fill(~state.member, INT32_MIN)
+        _, sel = similarity.stable_topk(key, c0)              # (B, KH, C0)
+        sel, _ = torch.sort(sel, dim=-1)     # survivors keep view order
+        return dataclasses.replace(
+            state, rows=torch.gather(state.rows, 2, sel),
+            member=torch.gather(state.member, 2, sel))
+
+
+@dataclasses.dataclass(frozen=True)
+class KVApproxTopK:
+    """Stage 1: f32 query x MSB-nibble keys (times the per-position scale),
+    max over the G query heads, dead positions at KV_NEG_INF, per-lane
+    top-k. The full-view branch is the legacy schedule's stage 1; the
+    gathered branch scores the surviving positions' rows with the same
+    product on the same (B, KH, R, hd) layout, so at full page coverage
+    both give the same bits and the same selection."""
+
+    top_k: int
+
+    def run(self, state: _KVState, ctx: _KVCtx) -> _KVState:
+        pol = ctx.policy
+        b, t, kh, hd = pol.v.shape
+        if state.rows is None:
+            # Full view: every cached position, from the MSB plane.
+            k_msb = bitplanar.unpack_nibble_plane_signed(
+                pol.k_msb.reshape(-1, hd // 2)).reshape(b, t, kh, hd)
+            s1 = _kv_scores(ctx.qg, k_msb.transpose(1, 2))
+            s1 = s1 * pol.k_scale.transpose(1, 2)[:, :, None, :]
+            s1 = s1.amax(dim=2)                               # (B, KH, T)
+            valid = (torch.arange(t, dtype=torch.int32, device=s1.device)
+                     [None, None, :] < _kv_lengths(pol))
+            s1 = s1.masked_fill(~valid, KV_NEG_INF)
+            _, sel = similarity.stable_topk(s1, min(self.top_k, t))
+            sel = sel.to(torch.int32)                         # (B, KH, k)
+            return dataclasses.replace(state, rows=sel,
+                                       member=sel < _kv_lengths(pol))
+        # Gathered view: only the surviving positions' nibble rows, read
+        # from the flat plane.
+        r = state.rows.shape[2]
+        fr = _kv_flat_rows(state.rows, t).reshape(-1).long()
+        g_msb = _kv_flat(pol.k_msb)[fr]
+        k_msb = bitplanar.unpack_nibble_plane_signed(g_msb).reshape(
+            b, kh, r, hd)
+        scale_sel = _kv_flat(pol.k_scale)[fr].reshape(b, kh, r)
+        s1 = _kv_scores(ctx.qg, k_msb) * scale_sel[:, :, None, :]
+        s1 = s1.amax(dim=2)                                   # (B, KH, R)
+        s1 = s1.masked_fill(~state.member, KV_NEG_INF)
+        _, sel = similarity.stable_topk(s1, min(self.top_k, r))
+        return dataclasses.replace(
+            state, rows=torch.gather(state.rows, 2, sel),
+            member=torch.gather(state.member, 2, sel))
+
+
+@dataclasses.dataclass(frozen=True)
+class KVExactAttend:
+    """Terminal stage: gather the survivors' two nibble planes, rebuild
+    their INT8 keys, exact masked softmax attention over them. A masked
+    position weighs exp 0 and an all-masked row divides by 1, so at
+    length 0 the output is exact zeros, not NaN."""
+
+    def run(self, state: _KVState, ctx: _KVCtx) -> _KVState:
+        pol, cfg = ctx.policy, ctx.cfg
+        b, t, kh, hd = pol.v.shape
+        h = ctx.q.shape[2]
+        k_eff = state.rows.shape[2]
+        scale = cfg.scale or hd ** -0.5
+        dev = pol.v.device
+        sel = state.rows.long()
+        bidx = torch.arange(b, device=dev)[:, None, None]
+        hidx = torch.arange(kh, device=dev)[None, :, None]
+        msb_sel = pol.k_msb[bidx, sel, hidx]                  # (B, KH, k, hd/2)
+        lsb_sel = pol.k_lsb[bidx, sel, hidx]
+        scale_sel = pol.k_scale[bidx, sel, hidx]              # (B, KH, k)
+        k_int = bitplanar.reconstruct_int8(
+            msb_sel.reshape(-1, hd // 2),
+            lsb_sel.reshape(-1, hd // 2)).reshape(b, kh, k_eff, hd)
+        k_sel = k_int.to(torch.float32) * scale_sel[..., None]
+        v_sel = pol.v[bidx, sel, hidx].to(torch.float32)
+        s2 = _kv_scores(ctx.qg, k_sel) * scale
+        mask = state.member[:, :, None, :]
+        s2 = s2.masked_fill(~mask, KV_NEG_INF)
+        e = torch.where(mask, torch.exp(s2 - s2.amax(dim=-1, keepdim=True)),
+                        0.0)
+        denom = e.sum(dim=-1, keepdim=True)
+        p = e / torch.where(denom > 0, denom, 1.0)
+        out = torch.matmul(p, v_sel).reshape(b, 1, h, hd).to(ctx.q.dtype)
+        return dataclasses.replace(state, out=out)
+
+
+def kv_cascade_stages(cfg: KVCascadeConfig) -> tuple:
+    """The stage specs one decode step runs, selected by the config."""
+    stages: tuple = ()
+    if cfg.npages is not None:
+        stages += (KVPagePrune(cfg.npages),)
+    if cfg.prescreen_c0 is not None:
+        stages += (KVSignPrescreen(cfg.prescreen_c0),)
+    return stages + (KVApproxTopK(cfg.top_k), KVExactAttend())
+
+
+def kv_decode_batched(q: torch.Tensor, policy: KVCachePolicy,
+                      cfg: KVCascadeConfig) -> torch.Tensor:
+    """One decode step's staged KV attention: q (B, 1, H, hd) against the
+    policy's cache -> (B, 1, H, hd). Runs on the device of its inputs,
+    which must all be on one device."""
+    for name, t in vars(policy).items():
+        if isinstance(t, torch.Tensor) and t.device != q.device:
+            raise ValueError(f"policy.{name} is on {t.device}, the query "
+                             f"on {q.device}")
+    b, _, h, hd = q.shape
+    kh = policy.v.shape[2]
+    g = h // kh
+    qg = q.reshape(b, kh, g, hd).to(torch.float32)
+    q_codes = q_scale = None
+    if cfg.npages is not None or cfg.prescreen_c0 is not None:
+        # Integer query operands of the kernel stages: per-head-vector INT8
+        # (a per-lane positive scale, applied again to the centroid key so
+        # heads compare on equal terms before the group max).
+        q_codes, q_scale = quantization.quantize_int8(
+            qg.reshape(b * kh * g, hd), per_vector=True)
+    ctx = _KVCtx(q=q, qg=qg, policy=policy, cfg=cfg,
+                 fns=stage_fns(cfg.backend), q_codes=q_codes,
+                 q_scale=q_scale)
+    state = _KVState()
+    for stage in kv_cascade_stages(cfg):
+        state = stage.run(state, ctx)
+    return state.out
+
+
+def kv_plan(cfg: KVCascadeConfig, *, batch: int, kv_heads: int,
+            q_heads: int, seq_len: int, head_dim: int,
+            layers: int = 1) -> SchedulePlan:
+    """The analytic StagePlan ledger of one decode step (all `layers`).
+
+    As in `plan`, `rows` is per lane, a lane here being one sequence (every
+    (layer, kv-head, query-head) row it scores), and `bytes_hbm` is what
+    the whole batched step streams; price it with
+    `energy.cost_cascade(plan.stages, head_dim, batch=batch)` for µJ per
+    token per sequence. The no-prune plan equals
+    `serve.sparse_kv.sparse_bytes_per_step` exactly."""
+    t, hd, g = seq_len, head_dim, q_heads // kv_heads
+    lanes = layers * kv_heads          # per sequence
+    stages: tuple = ()
+    r = t
+    if cfg.npages is not None:
+        p = -(-t // cfg.page_rows)
+        npages = min(cfg.npages, p)
+        stages += (StagePlan(
+            name="prune", rows=lanes * g * p, bits=4,
+            bytes_hbm=batch * lanes * p * (hd // 2 + 4),
+            compares=lanes * p),)
+        r = npages * cfg.page_rows
+    if cfg.prescreen_c0 is not None:
+        stages += (StagePlan(
+            name="prescreen", rows=lanes * g * r, bits=1,
+            bytes_hbm=batch * lanes * r * (hd // 8),
+            compares=lanes * r),)
+        r = min(cfg.prescreen_c0, r)
+    k_eff = min(cfg.top_k, r)
+    s1 = batch * lanes * r * (hd // 2 + 4)     # MSB plane + f32 scales
+    # The exact stage: both nibble planes (hd bytes) and the scale of each
+    # surviving key, and its V row at bf16.
+    s2 = batch * lanes * k_eff * (hd + 4 + 2 * hd)
+    stages += (StagePlan(name="approx", rows=lanes * g * r, bits=4,
+                         bytes_hbm=s1, compares=lanes * r),
+               StagePlan(name="exact", rows=lanes * g * 2 * k_eff, bits=8,
+                         bytes_hbm=s2, compares=0))
+    return SchedulePlan(kind="decode", batch=batch, rows_scanned=r,
+                        candidates=k_eff, stage1_bytes=s1,
+                        stage1_bytes_vmapped=s1, stage2_bytes=s2,
+                        stages=stages)

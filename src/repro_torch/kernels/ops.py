@@ -179,6 +179,16 @@ def centroid_scores_batched(q_msb: torch.Tensor,
     return stage1_scores_batched(q_msb, centroid_msb, block_n=DEFAULT_ROWS)
 
 
+def centroid_scores_rows(q_msb: torch.Tensor, centroid_rows: torch.Tensor,
+                         block_p: int | None = None) -> torch.Tensor:
+    """The KV page prune's per-lane centroid scoring: each lane scores its
+    own page-centroid codebook, (B, P, D//2) packed MSB nibbles, so this
+    is the rows kernel (#2) with W = pages: q_msb (B, D) int8 nibbles ->
+    (B, P) int32. block_p None -> the table's rows per block for
+    "stage1_rows"."""
+    return stage1_scores_rows(q_msb, centroid_rows, block_w=block_p)
+
+
 def stage2_scores_batched(q: torch.Tensor, msb_rows: torch.Tensor,
                           lsb_rows: torch.Tensor) -> torch.Tensor:
     """q (B, D) int8 full queries x gathered msb/lsb_rows (B, C, D//2) ->

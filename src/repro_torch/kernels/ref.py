@@ -60,6 +60,14 @@ def stage1_rows_batched_ref(q_eo: torch.Tensor,
             + torch.bmm(odd, q[:, 1, :, None]))[..., 0].to(torch.int32)
 
 
+def centroid_scores_rows_ref(q_eo: torch.Tensor,
+                             centroid_rows: torch.Tensor) -> torch.Tensor:
+    """The per-lane centroid scoring of the KV page prune: the rows kernel
+    with W = pages. q_eo (B, 2, D//2), centroid_rows (B, P, D//2) ->
+    (B, P) int32."""
+    return stage1_rows_batched_ref(q_eo, centroid_rows)
+
+
 def stage1_gather_batched_ref(q_eo: torch.Tensor, msb_plane: torch.Tensor,
                               block_ids: torch.Tensor,
                               block_rows: int) -> torch.Tensor:

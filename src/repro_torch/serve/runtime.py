@@ -29,10 +29,15 @@ clusters. Two parts serve it on top of the cluster-pruned cascade:
     device row copies (`index_copy_`) on the one stream every launch runs
     on, so a fill that reuses a slot an in-flight launch reads is ordered
     after that launch. Any arena mutation bumps the generation and drops
-    every slot.
+    every slot. With `precision_tiers`, an entry is held at full precision
+    (its nibble rows in slab slots) or at the sign tier (no slots; only its
+    1-bit sign bytes are charged to the budget): first contact admits at
+    the sign tier, a re-probe promotes to full, and slot or byte pressure
+    demotes the least recently used full entry before any residency is
+    dropped.
 
-The precision tiers of the reference cache (`precision_tiers=True`) and
-`account_decode` are not ported yet (ROADMAP queue A items 3b and 4).
+`account_decode` charges a decode run's KV-cascade ledger
+(`engine.kv_plan`) to the same registry and energy model as retrieval.
 
 Results are bit-identical to the uncached cascade: the cache changes where
 stage-1 bytes come from, never what is scored.
@@ -77,8 +82,14 @@ class RuntimeConfig:
     async_depth: dispatched launches that may stay in flight before the
         host blocks on the oldest; 0 resolves every launch before
         `_launch` returns.
-    precision_tiers: the reference's per-cluster precision tiers; not
-        ported yet (ROADMAP queue A item 3b), so True raises.
+    precision_tiers: per-cluster precision in the hot-cluster cache: hot
+        clusters stay full tier (nibble rows in the slab, stage-1 hits
+        served from it); under slot or byte pressure the least recently
+        used full entry is demoted to the sign tier (its slots freed, its
+        1-bit sign bytes still charged, so stage 0 still reads them from
+        the cache while stage 1 streams the plane), and misses are
+        admitted at the sign tier and promoted to full on a re-probe.
+        False: every entry full tier, eviction drops entries.
     """
 
     max_batch: int = 16
@@ -92,10 +103,6 @@ class RuntimeConfig:
     precision_tiers: bool = False
 
     def __post_init__(self):
-        if self.precision_tiers:
-            raise NotImplementedError(
-                "precision_tiers is not ported yet (ROADMAP queue A item "
-                "3b: the cache's precision tiers)")
         if self.max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if self.max_wait < 0:
@@ -110,6 +117,10 @@ class RuntimeConfig:
             raise ValueError("preload=True pins clusters into the "
                              "hot-cluster cache slab: it needs a "
                              "cache_bytes budget > 0")
+        if self.precision_tiers and self.cache_bytes == 0:
+            raise ValueError("precision_tiers=True tiers the hot-cluster "
+                             "cache's entries: it needs a cache_bytes "
+                             "budget > 0")
 
 
 class RequestHandle:
@@ -208,11 +219,23 @@ class _InFlight:
         return self.done is None or self.done.query()
 
 
+# Per-cluster precision tiers; a combined block is in exactly one:
+TIER_PLANE = 0   # an arena plane block, not managed by the cache
+TIER_SIGN = 1    # resident at 1 bit: only the cluster's sign bytes are
+#                  charged; stage 0 reads them from the cache, stage 1
+#                  streams the nibble plane from device memory
+TIER_FULL = 2    # resident at full precision: slab slots hold the nibble
+#                  rows; stages 0 and 1 both read the cache
+
+
 @dataclasses.dataclass
 class _SlabEntry:
     slab_blocks: np.ndarray       # (nblk,) int32 slab slot ids
     n_rows: int                   # live rows packed into those slots
     nbytes: int                   # budget charge: nblk*block_rows*bytes/row
+    #                               (full tier) or the sign bytes (sign)
+    tier: int = TIER_FULL         # TIER_SIGN or TIER_FULL
+    plane_blocks: np.ndarray | None = None  # the cluster's plane block ids
 
 
 def _pow2(n: int) -> int:
@@ -265,12 +288,15 @@ class HotClusterCache:
     `sync_generation` drops the slot map (and the combined tensor) when
     the arena mutated. Within a generation, eviction is least recently
     used, slot granular, under `budget_bytes`. Empty clusters are held as
-    zero-slot entries, so their repeat probes are hits.
+    zero-slot entries, so their repeat probes are hits. With
+    `precision_tiers`, entries are full or sign tier (see `put`).
     """
 
-    def __init__(self, budget_bytes: int, *, registry=None):
+    def __init__(self, budget_bytes: int, *, registry=None,
+                 precision_tiers: bool = False):
         if budget_bytes < 0:
             raise ValueError("budget_bytes must be >= 0")
+        self.precision_tiers = precision_tiers
         # Counters live in a metrics registry (the runtime's when
         # observability is on, a private one otherwise); snapshot() and
         # reset_stats() give windowed reads.
@@ -285,6 +311,8 @@ class HotClusterCache:
         self._fill_bytes = self.registry.counter("cache_fill_bytes")
         self._fill_dispatches = self.registry.counter(
             "cache_fill_dispatches")
+        self._demotions = self.registry.counter("cache_demotions")
+        self._promotions = self.registry.counter("cache_promotions")
         self.budget_bytes = budget_bytes
         self.block_rows: int | None = None
         self.bytes_per_row: int | None = None
@@ -303,6 +331,8 @@ class HotClusterCache:
         self._packed: torch.Tensor | None = None      # (N,) int32
         self._gid0: torch.Tensor | None = None        # (NB + S,) int32
         self._cnt: torch.Tensor | None = None         # (NB + S,) int32
+        # (slot-map version, (NB + S,) int8 tiers on the device)
+        self._tier_cache: tuple[int, torch.Tensor] | None = None
         self._plane_rows = 0
         self._table_cache: dict = {}  # key -> (version, ...) device tables
         # Per tenant: its resident clusters, and a (width, host row,
@@ -341,20 +371,40 @@ class HotClusterCache:
         """Views larger than the whole slab (refused admission)."""
         return self._rejected.value
 
+    @property
+    def demotions(self) -> int:
+        """Full-tier entries squeezed down to the sign tier."""
+        return self._demotions.value
+
+    @property
+    def promotions(self) -> int:
+        """Sign-tier entries admitted again at full precision on a
+        re-probe."""
+        return self._promotions.value
+
     def snapshot(self) -> dict:
-        """Counter values since the last `reset_stats`."""
-        return {"hits": self.hits, "misses": self.misses,
-                "evictions": self.evictions,
-                "stale_evictions": self.stale_evictions,
-                "rejected": self.rejected,
-                "fill_bytes": self._fill_bytes.value,
-                "fill_dispatches": self._fill_dispatches.value}
+        """Counter values since the last `reset_stats` (with tiers, the
+        tier counters and the entries per tier too)."""
+        out = {"hits": self.hits, "misses": self.misses,
+               "evictions": self.evictions,
+               "stale_evictions": self.stale_evictions,
+               "rejected": self.rejected,
+               "fill_bytes": self._fill_bytes.value,
+               "fill_dispatches": self._fill_dispatches.value}
+        if self.precision_tiers:
+            out["demotions"] = self.demotions
+            out["promotions"] = self.promotions
+            out["sign_entries"] = sum(
+                1 for e in self._entries.values() if e.tier == TIER_SIGN)
+            out["full_entries"] = sum(
+                1 for e in self._entries.values() if e.tier == TIER_FULL)
+        return out
 
     def reset_stats(self) -> None:
         """Zero the event counters; contents and byte accounting stay."""
         for c in (self._hits, self._misses, self._evictions,
                   self._stale_evictions, self._rejected, self._fill_bytes,
-                  self._fill_dispatches):
+                  self._fill_dispatches, self._demotions, self._promotions):
             c.reset()
 
     @property
@@ -394,6 +444,28 @@ class HotClusterCache:
             self._sign = bitplanar.sign_plane_from_msb(self._slab_plane)
         return self._sign
 
+    @property
+    def block_tier(self) -> torch.Tensor | None:
+        """The (NB + S,) int8 tier of every combined block on the device:
+        TIER_FULL on the slots of full-tier entries, TIER_SIGN on the plane
+        blocks of sign-tier residents, TIER_PLANE elsewhere (free slots
+        too). Ledger and check metadata: the cascade routes through the
+        launch table, never through this. Cached per slot-map version;
+        None before `ensure_slab`."""
+        if self._slab_plane is None or self.block_rows is None:
+            return None
+        if self._tier_cache is None or self._tier_cache[0] != self.version:
+            base = self._plane_rows // self.block_rows
+            tier = np.zeros(base + self.num_slab_blocks, np.int8)
+            for e in self._entries.values():
+                if e.tier == TIER_FULL and e.slab_blocks.size:
+                    tier[e.slab_blocks + base] = TIER_FULL
+                elif e.tier == TIER_SIGN and e.plane_blocks is not None:
+                    tier[e.plane_blocks] = TIER_SIGN
+            self._tier_cache = (self.version,
+                                upload(tier, self._slab_plane.device))
+        return self._tier_cache[1]
+
     def _drop_device(self) -> None:
         self._slab_plane = self._inv_norms = self._sign = None
         self._packed = self._gid0 = self._cnt = None
@@ -410,6 +482,7 @@ class HotClusterCache:
         self._fill_blocks.clear()
         self.bytes_used = 0
         self.version += 1
+        self._tier_cache = None
 
     def configure(self, block_rows: int, bytes_per_row: int) -> None:
         """Pin the slot geometry (idempotent; a change re-carves the slab
@@ -417,6 +490,11 @@ class HotClusterCache:
         if (block_rows, bytes_per_row) == (self.block_rows,
                                            self.bytes_per_row):
             return
+        if self.precision_tiers and bytes_per_row % 4:
+            # A row's sign bytes are bytes_per_row / 4 (1 bit against 4 per
+            # dim): the tiers' budget arithmetic needs it integral.
+            raise ValueError("precision_tiers needs dim % 8 == 0 "
+                             f"(bytes_per_row {bytes_per_row} % 4 != 0)")
         self._stale_evictions.inc(len(self._entries))
         self.block_rows = block_rows
         self.bytes_per_row = bytes_per_row
@@ -506,6 +584,39 @@ class HotClusterCache:
         self._misses.inc(len(missing))
         return hit_bytes, missing
 
+    def lookup_lane_tiers(self, tenant: int, clusters
+                          ) -> tuple[int, int, list[int], list[int]]:
+        """`lookup_lane` with the split the tiered ledger needs: (full-tier
+        hit bytes, sign-tier hit bytes, sign-tier cluster ids, missing
+        cluster ids). A sign-tier resident is a hit (its sign bytes serve
+        stage 0 from the cache, its LRU position refreshes), but its
+        stage-1 plane blocks stream from device memory: the caller charges
+        them like a miss's and promotes the entry."""
+        resident = self._by_tenant.get(tenant)
+        if not resident:
+            self._misses.inc(len(clusters))
+            return 0, 0, [], list(clusters)
+        entries = self._entries
+        full_bytes = sign_bytes = nhits = 0
+        sign_hits: list[int] = []
+        missing: list[int] = []
+        for c in clusters:
+            if c in resident:
+                key = (tenant, c)
+                e = entries[key]
+                if e.tier == TIER_FULL:
+                    full_bytes += e.nbytes
+                else:
+                    sign_bytes += e.nbytes
+                    sign_hits.append(c)
+                entries.move_to_end(key)
+                nhits += 1
+            else:
+                missing.append(c)
+        self._hits.inc(nhits)
+        self._misses.inc(len(missing))
+        return full_bytes, sign_bytes, sign_hits, missing
+
     def peek(self, tenant: int, cluster: int) -> bool:
         """Membership without touching the counters or the LRU."""
         return (tenant, cluster) in self._entries
@@ -533,31 +644,47 @@ class HotClusterCache:
         return cls._pack_plan(np.atleast_1d(np.asarray(rows, np.int64)),
                               block_rows)[1]
 
-    def put(self, tenant: int, cluster: int, rows) -> np.ndarray | None:
+    def put(self, tenant: int, cluster: int, rows, *,
+            tier: int = TIER_FULL) -> np.ndarray | None:
         """Admit one (tenant, cluster)'s rows (global plane row ids,
         ascending) into the slab; the row copies and origin scalars wait
         for the next `flush_fills`. Returns the slot ids (empty for an
-        empty cluster), or None when the view is larger than the whole
-        slab — checked before a resident entry of the same key is
-        replaced, so a refused re-put leaves it as it was."""
+        empty or sign-tier cluster), or None when the view is larger than
+        the whole slab (or, at the sign tier, the budget) — checked before
+        a resident entry of the same key is replaced, so a refused re-put
+        leaves it as it was.
+
+        `tier` (with precision_tiers only): TIER_FULL copies the nibble
+        rows into slots; TIER_SIGN admits at 1 bit: no slots, no fills,
+        only the sign bytes charged, the launch table left pointing at
+        the plane blocks. Under tiers, slot pressure demotes the least
+        recently used full entry instead of dropping it, and byte
+        pressure demotes full entries first, then drops sign entries."""
         if self.block_rows is None:
             raise RuntimeError("configure() the slot geometry first")
+        if tier == TIER_SIGN and not self.precision_tiers:
+            raise ValueError("sign-tier admission needs precision_tiers")
         br = self.block_rows
         rows = np.atleast_1d(np.asarray(rows, np.int64)).astype(np.int32)
         n_rows = int(rows.size)
+        if n_rows == 0:
+            tier = TIER_FULL        # a zero-slot memo: tiers are moot
         packed, nblk = self._pack_plan(rows, br)
+        plane_blocks = np.unique(rows // br).astype(np.int32)
+        sign_bytes = nblk * br * (self.bytes_per_row // 4)
         if packed:
             src = rows
             gid0s = [int(rows[0]) + i * br for i in range(nblk)] if n_rows \
                 else []
             cnts = [min(br, n_rows - i * br) for i in range(nblk)]
         else:
-            blocks = np.unique(rows // br).astype(np.int64)
+            blocks = plane_blocks.astype(np.int64)
             src = (blocks[:, None] * br
                    + np.arange(br, dtype=np.int64)).reshape(-1)
             gid0s = (blocks * br).tolist()
             cnts = [br] * nblk
-        if nblk > self.num_slab_blocks:
+        if (nblk > self.num_slab_blocks if tier == TIER_FULL
+                else sign_bytes > self.budget_bytes):
             # Squeezing it in would evict every other entry and then the
             # new one itself: it stays streamed from the plane instead.
             self._rejected.inc()
@@ -566,36 +693,96 @@ class HotClusterCache:
         old = self._entries.pop(key, None)
         if old is not None:
             self._drop_entry(key, old)
-        while len(self._free) < nblk:
+        nslots = nblk if tier == TIER_FULL else 0
+        while len(self._free) < nslots:
             # LRU skipping zero-slot entries: evicting an empty-cluster
             # memo frees nothing.
             victim = next((k for k, e in self._entries.items()
                            if e.slab_blocks.size), None)
             if victim is None:
                 break
-            self._drop_entry(victim, self._entries.pop(victim))
-            self._evictions.inc()
-        nbytes = nblk * br * self.bytes_per_row
-        dst = np.asarray([self._free.pop() for _ in range(nblk)], np.int32)
+            if self.precision_tiers:
+                self._demote(victim)    # free the slots, keep the signs
+            else:
+                self._drop_entry(victim, self._entries.pop(victim))
+                self._evictions.inc()
+        nbytes = (nblk * br * self.bytes_per_row if tier == TIER_FULL
+                  else sign_bytes)
+        if self.precision_tiers:
+            # Byte pressure (sign charges hold budget but no slots): demote
+            # the least recently used full entries first, then drop sign
+            # entries, so precision degrades before residency is lost.
+            while self.bytes_used + nbytes > self.budget_bytes:
+                vic = next((k for k, e in self._entries.items()
+                            if e.tier == TIER_FULL and e.slab_blocks.size),
+                           None)
+                if vic is not None:
+                    self._demote(vic)
+                    continue
+                vic = next((k for k, e in self._entries.items()
+                            if e.nbytes), None)
+                if vic is None:
+                    break
+                self._drop_entry(vic, self._entries.pop(vic))
+                self._evictions.inc()
+        dst = np.asarray([self._free.pop() for _ in range(nslots)],
+                         np.int32)
         self._entries[key] = _SlabEntry(slab_blocks=dst, n_rows=n_rows,
-                                        nbytes=nbytes)
+                                        nbytes=nbytes, tier=tier,
+                                        plane_blocks=plane_blocks)
         self.bytes_used += nbytes
         self._by_tenant.setdefault(tenant, set()).add(cluster)
-        if n_rows:
+        if n_rows and tier == TIER_FULL:
             self._nonempty[tenant] = self._nonempty.get(tenant, 0) + 1
-        self._fill_bytes.inc(nbytes)
-        for i, slot in enumerate(dst.tolist()):
-            self._fill_blocks[slot] = (gid0s[i], cnts[i])
-            slot_row0 = slot * br
-            for j, s in enumerate(src[i * br:(i + 1) * br].tolist()):
-                self._fill_rows[slot_row0 + j] = int(s)
         row = self._tenant_rows.get(tenant)
-        if row is not None:
-            base = self._plane_rows // br
-            row[2][cluster, :nblk] = dst + base
-            row[2][cluster, nblk:] = -1
+        if tier == TIER_FULL:
+            self._fill_bytes.inc(nbytes)
+            for i, slot in enumerate(dst.tolist()):
+                self._fill_blocks[slot] = (gid0s[i], cnts[i])
+                slot_row0 = slot * br
+                for j, s in enumerate(src[i * br:(i + 1) * br].tolist()):
+                    self._fill_rows[slot_row0 + j] = int(s)
+            if row is not None:
+                base = self._plane_rows // br
+                row[2][cluster, :nblk] = dst + base
+                row[2][cluster, nblk:] = -1
+        elif row is not None:
+            # A sign-tier entry holds no slab rows: stage 1 keeps reading
+            # the cluster's plane blocks.
+            row[2][cluster] = row[1][cluster]
         self.version += 1
         return dst
+
+    def _demote(self, key: tuple[int, int]) -> None:
+        """Squeeze a full-tier entry down to the sign tier in place: free
+        its slots (a pending fill aimed at them stays keyed by destination,
+        and every launch runs on one stream, so a later fill into a slot
+        an in-flight launch reads is ordered after it) and shrink its
+        charge to its sign bytes, keeping its LRU position and residency;
+        its launch-table row goes back to the plane blocks."""
+        tenant, cluster = key
+        e = self._entries[key]
+        self.bytes_used -= e.nbytes
+        self._free.extend(int(b) for b in e.slab_blocks)
+        if e.n_rows:
+            self._nonempty[tenant] = self._nonempty.get(tenant, 1) - 1
+        sign_bytes = (e.slab_blocks.size * self.block_rows
+                      * (self.bytes_per_row // 4))
+        self._entries[key] = dataclasses.replace(
+            e, slab_blocks=np.empty(0, np.int32), nbytes=sign_bytes,
+            tier=TIER_SIGN)
+        self.bytes_used += sign_bytes
+        row = self._tenant_rows.get(tenant)
+        if row is not None:
+            row[2][cluster] = row[1][cluster]
+        self._demotions.inc()
+        self.version += 1
+
+    def promote(self, tenant: int, cluster: int, rows) -> np.ndarray | None:
+        """Admit a sign-tier resident again at full precision (a re-probe:
+        the cluster is hot again)."""
+        self._promotions.inc()
+        return self.put(tenant, cluster, rows, tier=TIER_FULL)
 
     def _drop_entry(self, key: tuple[int, int], entry: _SlabEntry) -> None:
         """Return an entry's slots and roll its tenant's combined row back
@@ -605,7 +792,9 @@ class HotClusterCache:
         tenant, cluster = key
         self.bytes_used -= entry.nbytes
         self._free.extend(int(b) for b in entry.slab_blocks)
-        if entry.n_rows:
+        if entry.n_rows and entry.tier == TIER_FULL:
+            # `fully_resident` counts full-tier views only: a sign-tier
+            # resident has no slab rows for a compact launch.
             self._nonempty[tenant] = self._nonempty.get(tenant, 1) - 1
         clusters = self._by_tenant.get(tenant)
         if clusters is not None:
@@ -767,7 +956,9 @@ class ServingRuntime:
         self._simulated = False
         self.cache = (HotClusterCache(self.cfg.cache_bytes,
                                       registry=(reg if reg.enabled
-                                                else None))
+                                                else None),
+                                      precision_tiers=(
+                                          self.cfg.precision_tiers))
                       if self.cfg.cache_bytes > 0 else None)
         self._queues: collections.OrderedDict[
             int, collections.deque[_Pending]] = collections.OrderedDict()
@@ -794,6 +985,10 @@ class ServingRuntime:
         self.stage_bytes: dict[str, int] = {}       # per stage, device memory
         self.stage_bytes_sram: dict[str, int] = {}  # per stage, cache
         self.last_plan: engine.SchedulePlan | None = None
+        # -- the decode ledger (engine.kv_plan units) ----------------------
+        self.decode_steps = 0
+        self.decode_bytes_hbm = 0
+        self.last_decode_plan: engine.SchedulePlan | None = None
 
     # -- admission ----------------------------------------------------------
 
@@ -1211,7 +1406,9 @@ class ServingRuntime:
             slab_blocks=slab_blocks, block_gid0=cache.block_gid0,
             block_count=cache.block_count, slab_plane=cache.slab_plane,
             inv_norms=cache.inv_norms, nprobe=policy.nprobe, block_rows=br,
-            sign_plane=(cache.sign_plane if prescreen else None))
+            sign_plane=(cache.sign_plane if prescreen else None),
+            block_tier=(cache.block_tier if cache.precision_tiers
+                        else None))
         res, top_clusters = index.engine.retrieve_with_clusters(
             upload(queries, self.index.device), db, spolicy)
         del db              # no view of the arena outlives the dispatch
@@ -1229,6 +1426,7 @@ class ServingRuntime:
             bsz = tc.shape[0]
             block_bytes = br * d2
             sign_block_bytes = br * (d2 // 4)   # 1-bit vs 4-bit rows
+            tiers = cache.precision_tiers
             hit_bytes = miss_bytes = 0
             ps_sram = ps_hbm = 0      # stage-0 sign-byte split
             # A mutation between dispatch and retire means cluster_rows
@@ -1236,15 +1434,33 @@ class ServingRuntime:
             # dispatch drops the slab anyway).
             stale = index.arena.generation != arena_gen
             to_admit: dict[tuple[int, int], int] = {}
+            to_promote: dict[tuple[int, int], int] = {}
             for i in range(bsz):
                 t = int(tids[i])
                 if t < 0:
                     continue                  # padding lane
                 row_table = host_table[i]
-                lane_hit, missing = cache.lookup_lane(t, tc[i].tolist())
-                hit_bytes += lane_hit
-                if c0 is not None:
-                    ps_sram += lane_hit // 4
+                probes = tc[i].tolist()
+                if tiers:
+                    (lane_full, lane_sign, sign_hits,
+                     missing) = cache.lookup_lane_tiers(t, probes)
+                    hit_bytes += lane_full
+                    if c0 is not None:
+                        # Resident probes serve stage 0 from the cache: a
+                        # full entry's sign bytes are 1/4 of its charge, a
+                        # sign entry's charge is its sign bytes.
+                        ps_sram += lane_full // 4 + lane_sign
+                    for c in sign_hits:
+                        key = (t, c)
+                        if key not in to_promote:
+                            to_promote[key] = int((row_table[c] >= 0).sum())
+                        # no slab rows: stage 1 streamed the plane blocks
+                        miss_bytes += to_promote[key] * block_bytes
+                else:
+                    lane_hit, missing = cache.lookup_lane(t, probes)
+                    hit_bytes += lane_hit
+                    if c0 is not None:
+                        ps_sram += lane_hit // 4
                 for c in missing:
                     key = (t, c)
                     if key not in to_admit:
@@ -1253,10 +1469,16 @@ class ServingRuntime:
                     miss_bytes += to_admit[key] * block_bytes
                     if c0 is not None:
                         ps_hbm += to_admit[key] * sign_block_bytes
-            if to_admit and not stale:
-                self._m_deferred_fills.inc(len(to_admit))
+            if (to_admit or to_promote) and not stale:
+                self._m_deferred_fills.inc(len(to_admit) + len(to_promote))
                 for (t, c) in to_admit:
-                    cache.put(t, c, index.cluster_rows(t).get(c, ()))
+                    # Under tiers a first contact admits at 1 bit; a
+                    # re-probe promotes to full (its plane bytes charged
+                    # once, above, as the miss it replaces).
+                    cache.put(t, c, index.cluster_rows(t).get(c, ()),
+                              tier=(TIER_SIGN if tiers else TIER_FULL))
+                for (t, c) in to_promote:
+                    cache.promote(t, c, index.cluster_rows(t).get(c, ()))
             pkey = (num_docs, dim, bsz, k_clusters, probe_rows)
             base = self._plan_cache.get(pkey)
             if base is None:
@@ -1321,3 +1543,36 @@ class ServingRuntime:
         return energy.cost_cascade(self.last_plan.stages,
                                    dim or self.index.arena.dim,
                                    batch=self.last_plan.batch)
+
+    # -- decode accounting --------------------------------------------------
+
+    def account_decode(self, plan: engine.SchedulePlan, *, dim: int,
+                       tokens: int = 1):
+        """Charge a decode run's KV-cascade ledger to this runtime.
+
+        `plan` is one decode step's `engine.kv_plan` (kind "decode");
+        `tokens` scales it to the run (the stages are the same every step
+        at a fixed cache length). The scaled ledger fans out through the
+        same `SchedulePlan.publish` counters as retrieval launches, and
+        the per-token cost lands in the `energy_uj_per_token` histogram.
+        Returns the per-token CostBreakdown."""
+        if plan.kind != "decode":
+            raise ValueError(f"account_decode wants a kind='decode' plan, "
+                             f"got {plan.kind!r}")
+        scaled = dataclasses.replace(
+            plan,
+            stages=tuple(dataclasses.replace(
+                s, bytes_hbm=s.bytes_hbm * tokens,
+                bytes_sram=s.bytes_sram * tokens,
+                compares=s.compares * tokens) for s in plan.stages),
+            stage1_bytes=plan.stage1_bytes * tokens,
+            stage1_bytes_vmapped=plan.stage1_bytes_vmapped * tokens,
+            stage2_bytes=plan.stage2_bytes * tokens)
+        self.decode_steps += tokens
+        self.decode_bytes_hbm += sum(s.bytes_hbm for s in scaled.stages)
+        self.last_decode_plan = plan
+        cost = energy.cost_cascade(plan.stages, dim, batch=plan.batch)
+        if self.registry.enabled:
+            scaled.publish(self.registry)
+            energy.observe_decode_cost(self.registry, cost, tokens=tokens)
+        return cost

@@ -258,10 +258,10 @@ def test_cluster_plan_for_matches_reference(c0):
     assert tengine.probe_rows(pol) == jengine.probe_rows(jpol)
 
 
-def test_unported_policies_raise_type_error():
+def test_plan_for_refuses_a_foreign_policy():
     """Every retrieval policy of the reference is ported (the slab and view
-    policies with the serving runtime): what is left unported is a type
-    that is no retrieval policy, and the engine refuses it by name."""
+    policies with the serving runtime): a type that is no retrieval policy
+    is refused by name."""
     class ForeignPolicy:
         pass
     eng = tengine.RetrievalEngine(RetrievalConfig(), "cpu")

@@ -13,8 +13,8 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.core import (BitPlanarDB, build_database, clustering,
-                              quantize_int8)
+from repro_torch.core import (BitPlanarDB, bitplanar, build_database,
+                              clustering, quantize_int8)
 from repro_torch.core.engine import (MaskedPolicy, PlainPolicy,
                                      RetrievalEngine, WindowedPolicy)
 from repro_torch.core.retrieval import RetrievalConfig, cluster_pruned_retrieve
@@ -33,7 +33,7 @@ from repro_torch.kernels.stage1_int4 import (DEFAULT_ROWS, ROWS_CHOICES,
 from repro_torch.kernels.stage2_int8 import (stage2_int8_batched,
                                              stage2_int8_by_id,
                                              stage2_int8_single)
-from repro_torch.serve import RuntimeConfig, ServingRuntime
+from repro_torch.serve import RuntimeConfig, ServingRuntime, sparse_kv
 from repro_torch.tenancy import Arena, MultiTenantIndex
 
 ZERO_COUNTS = {"stage1_plane": 0, "stage1_rows": 0, "stage2_exact": 0,
@@ -902,6 +902,119 @@ def test_serving_runtime_on_the_card_matches_the_cpu(cuda_device,
     if cache_bytes:
         assert rts[0].cache_stats()["hits"] > 0
         assert rts[0].cache.slab_plane.is_cuda
+
+
+@pytest.mark.gpu
+def test_tiered_serving_runtime_on_the_card_matches_the_cpu(cuda_device):
+    """The precision-tier cache under a four-slot budget on the card and on
+    the CPU, prescreen on: the same results, ledgers, tier counters and
+    `block_tier` sidecar, turn for turn, with demotions and promotions."""
+    kw = dict(clusters=clustering.ClusterParams(4, nprobe=2, block_rows=64))
+    gpu, cpu = _tenant_indices(cuda_device, **kw)
+    docs, queries, gold = retrieval_corpus(240, 64, num_queries=8, seed=6,
+                                           noise=0.05, cluster_size=20)
+    tenant = np.arange(240) // 20 % 4
+    for lo in range(0, 240, 20):
+        for idx in (gpu, cpu):
+            idx.ingest(int(tenant[lo]), docs[lo:lo + 20])
+    for idx in (gpu, cpu):
+        idx.compact()
+        idx.cfg = dataclasses.replace(idx.cfg, prescreen_c0=64)
+    q, _ = quantize_int8(torch.from_numpy(queries), per_vector=True)
+    q = q.numpy()
+    tids = tenant[gold]
+    rts = [ServingRuntime(idx, RuntimeConfig(
+        max_batch=8, cache_bytes=4 * 64 * 32, precision_tiers=True,
+        auto_flush=False)) for idx in (gpu, cpu)]
+    for turn in range(4):
+        handles = [[rt.submit(int(tids[i]), q[i], now=float(turn))
+                    for i in range(len(tids))] for rt in rts]
+        for rt in rts:
+            rt.flush()
+        for hg, hc in zip(*handles, strict=True):
+            for field in ("indices", "scores", "candidate_indices"):
+                assert torch.equal(getattr(hg.result(), field),
+                                   getattr(hc.result(), field)), field
+        for name in ("stage1_bytes_streamed", "stage1_bytes_sram",
+                     "stage_bytes", "stage_bytes_sram", "last_plan"):
+            assert getattr(rts[0], name) == getattr(rts[1], name), name
+        assert rts[0].cache_stats() == rts[1].cache_stats()
+        assert torch.equal(rts[0].cache.block_tier.cpu(),
+                           rts[1].cache.block_tier)
+    stats = rts[0].cache_stats()
+    assert stats["promotions"] > 0 and stats["sign_entries"] > 0
+
+
+def _decode_cache(dev, b, t, kh, hd, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.randn(b, t, kh, hd, generator=gen, device=dev)
+    v = torch.randn(b, t, kh, hd, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    return sparse_kv.build_quant_cache(k, v), gen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_decode_widths_of_rows_and_sign_gather(cuda_device, hd):
+    """#2 over per-lane page-centroid rows of hd/2 bytes and #8 over the
+    flat cache sign plane of hd/8 bytes in page blocks (the widths the
+    decode stages give them) against their plain versions."""
+    b, t, kh, g, pr = 3, 1024, 2, 7, 16
+    cache, gen = _decode_cache(cuda_device, b, t, kh, hd, hd)
+    lanes, p = b * kh * g, t // pr
+    cache = sparse_kv.build_page_centroids(
+        cache, torch.full((b,), t, device=cuda_device), pr)
+    q = torch.randint(-128, 128, (lanes, hd), generator=gen,
+                      device=cuda_device, dtype=torch.int8)
+    rows = (cache.cent_msb.transpose(1, 2)[:, :, None]
+            .expand(b, kh, g, p, hd // 2).reshape(lanes, p, hd // 2)
+            .contiguous())
+    ops.reset_launch_counts()
+    got = ops.centroid_scores_rows(q, rows)
+    assert torch.equal(got, ref.centroid_scores_rows_ref(
+        ops.pack_queries_even_odd(q), rows))
+    flat = bitplanar.sign_plane_from_msb(
+        cache.k_msb.transpose(1, 2).reshape(b * kh * t, hd // 2))
+    ids = torch.randint(0, b * kh * p, (lanes, 40), generator=gen,
+                        device=cuda_device, dtype=torch.int32)
+    q_sign = ops.pack_query_signs(q)
+    got = ops.stage0_sign_scores_gather(q_sign, flat, ids, block_rows=pr)
+    assert torch.equal(got, ref.stage0_sign_gather_ref(q_sign, flat, ids,
+                                                       pr))
+    counts = ops.launch_counts()
+    assert counts["stage1_rows"] == 1 and counts["stage0_sign_gather"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kh,hd", [(14, 2, 64), (24, 8, 128), (8, 4, 32)])
+def test_decode_cuda_backend_matches_torch_backend(cuda_device, h, kh, hd):
+    """The decode cascade on the "cuda" and "torch" backends gives the same
+    bits on the card in every schedule (they differ only in #2 and #8),
+    full-coverage paged equals flat and flat the legacy oracle, and the
+    empty sequence reads exact zeros."""
+    b, t, pr = 3, 1024, 16
+    cache, gen = _decode_cache(cuda_device, b, t, kh, hd, h * hd)
+    length = torch.tensor([0, 100, 900], dtype=torch.int32,
+                          device=cuda_device)
+    cache = sparse_kv.build_page_centroids(cache, length, pr)
+    q = torch.randn(b, 1, h, hd, generator=gen, device=cuda_device)
+    legacy = sparse_kv.sparse_decode_attention_ref(q, cache, length, 64)
+    for kw in ({}, {"npages": 16}, {"npages": 16, "prescreen_c0": 128},
+               {"npages": t // pr}):
+        ops.reset_launch_counts()
+        a = sparse_kv.sparse_decode_attention(q, cache, length, 64,
+                                              page_rows=pr, backend="cuda",
+                                              **kw)
+        counts = ops.launch_counts()
+        assert counts["stage1_rows"] == ("npages" in kw)
+        assert counts["stage0_sign_gather"] == ("prescreen_c0" in kw)
+        c = sparse_kv.sparse_decode_attention(q, cache, length, 64,
+                                              page_rows=pr, backend="torch",
+                                              **kw)
+        assert torch.equal(a, c)
+        assert not a.isnan().any() and not a[0].any()
+        if kw.get("npages") in (None, t // pr):
+            assert torch.equal(a, legacy)
 
 
 def test_multi_tenant_index_needs_cuda_or_an_explicit_cpu():

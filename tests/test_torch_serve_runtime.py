@@ -15,11 +15,12 @@ and the energy ledger. Integers must be bit-identical; the energy
 ledger's floats must match to a relative 1e-12. The one allowed
 difference is ROADMAP C1's: stage-1 candidate positions whose reference
 cosine key lies within 2 ulp of a rank neighbour, counted in
-`RT.exempted` and printed after each case (`-s`).
+`RT.exempted` and printed after each case (`-s`). With the cache on, its
+`block_tier` sidecar is compared too.
 
-The cases are the reference's tests/test_serve_runtime.py without its two
-precision-tier cases (the tiers are not ported: ROADMAP queue A item 3b).
-Two of them count XLA compiles in the reference; here
+The cases are the reference's tests/test_serve_runtime.py, its two
+precision-tier cases included. Two of them count XLA compiles in the
+reference; here
 `test_warm_launch_reuses_the_device_table` and
 `test_observability_same_device_work_and_bit_parity` hold what those
 counts protected instead (see their docstrings). The engine's slab and
@@ -62,8 +63,8 @@ COUNTERS = ("serve_requests_submitted", "serve_requests_resolved",
             "serve_launches", "serve_deferred_fill_entries",
             "serve_prefetch_bytes", "cache_hits", "cache_misses",
             "cache_evictions", "cache_stale_evictions", "cache_rejected",
-            "cache_fill_bytes", "cache_fill_dispatches")
-TIER_COUNTERS = ("cache_demotions", "cache_promotions")
+            "cache_fill_bytes", "cache_fill_dispatches", "cache_demotions",
+            "cache_promotions")
 
 
 def _pow2(n):
@@ -225,6 +226,12 @@ class RT:
     def cache_stats(self):
         stats = self.t.cache_stats()
         assert stats == self.j.cache_stats()
+        if self.j.cache is not None:
+            want = self.j.cache.block_tier
+            if want is None:
+                assert self.t.cache.block_tier is None
+            else:
+                _eq(self.t.cache.block_tier, want, "block_tier")
         return stats
 
     def energy_ledger(self):
@@ -424,8 +431,11 @@ def test_submit_validation():
         RuntimeConfig(max_batch=0)
     with pytest.raises(ValueError, match="fairness"):
         RuntimeConfig(fairness="lifo")
-    with pytest.raises(NotImplementedError, match="3b"):
-        RuntimeConfig(cache_bytes=1 << 20, precision_tiers=True)
+    with pytest.raises(ValueError, match="precision_tiers"):
+        RuntimeConfig(precision_tiers=True)
+    with pytest.raises(ValueError, match="precision_tiers"):
+        JRuntimeConfig(precision_tiers=True)
+    assert RuntimeConfig(cache_bytes=1 << 20, precision_tiers=True)
 
 
 # ---------------------------------------------------------------------------
@@ -510,9 +520,10 @@ class CachePair:
     """A reference HotClusterCache and the port's, called in lockstep; the
     slot ids, counters, byte accounting and entries must agree."""
 
-    def __init__(self, budget):
-        self.j, self.t = JCache(budget_bytes=budget), HotClusterCache(
-            budget_bytes=budget)
+    def __init__(self, budget, precision_tiers=False):
+        self.j = JCache(budget_bytes=budget, precision_tiers=precision_tiers)
+        self.t = HotClusterCache(budget_bytes=budget,
+                                 precision_tiers=precision_tiers)
 
     def __getattr__(self, name):
         jf, tf = getattr(self.j, name), getattr(self.t, name)
@@ -525,7 +536,8 @@ class CachePair:
                 _eq(got, want, name)
             elif hasattr(want, "slab_blocks"):
                 _eq(got.slab_blocks, want.slab_blocks, name)
-                assert (got.n_rows, got.nbytes) == (want.n_rows, want.nbytes)
+                assert (got.n_rows, got.nbytes, got.tier) == (
+                    want.n_rows, want.nbytes, want.tier)
             else:
                 assert got == want, name
             self.check()
@@ -540,6 +552,13 @@ class CachePair:
                 t.generation) == (j.bytes_used, j.num_slab_blocks, j._free,
                                   j.version, j.generation)
         assert list(t._entries) == list(j._entries)
+        for key, e in j._entries.items():
+            mine = t._entries[key]
+            _eq(mine.slab_blocks, e.slab_blocks, "slab_blocks")
+            assert (mine.n_rows, mine.nbytes, mine.tier) == (
+                e.n_rows, e.nbytes, e.tier)
+            if e.plane_blocks is not None:
+                _eq(mine.plane_blocks, e.plane_blocks, "plane_blocks")
         assert t._fill_rows == j._fill_rows
         assert t._fill_blocks == j._fill_blocks
 
@@ -868,11 +887,173 @@ def test_observability_same_device_work_and_bit_parity():
     for kind, metric in lock.jreg.metrics():
         if kind != "counter":
             continue
-        if metric.name in TIER_COUNTERS:     # the tiers are not ported
-            assert metric.value == 0
-            continue
         mine = lock.treg.get("counter", metric.name, **dict(metric.labels))
         assert mine.value == metric.value, metric.name
+
+
+# ---------------------------------------------------------------------------
+# Precision tiers
+# ---------------------------------------------------------------------------
+
+def test_precision_tiers_admit_sign_promote_on_reprobe():
+    """The reference's tier lifecycle under an ample budget, in lockstep:
+    misses admit at the sign tier (no slots), a re-probe promotes to full
+    (plane bytes charged once, as the miss they replace), and the third
+    pass serves full-tier hits with no stage-1 device-memory bytes; every
+    pass equals the uncached prescreen cascade."""
+    pair, q = make_clustered_pair(prescreen_c0=32)
+    rt = RT(pair, obs=True, max_batch=8, cache_bytes=1 << 20,
+            precision_tiers=True, auto_flush=False)
+    ref = _uncached(pair, q, range(4))
+    _assert_lanes(rt.turn(range(4), q), ref)            # pass 1: cold
+    s1 = rt.cache_stats()
+    assert s1["sign_entries"] > 0 and s1["full_entries"] == 0
+    assert s1["promotions"] == 0
+    tier = rt.t.cache.block_tier
+    assert (tier == truntime.TIER_SIGN).any()
+    assert not (tier == truntime.TIER_FULL).any()
+    _assert_lanes(rt.turn(range(4), q), ref)            # pass 2: promote
+    s2 = rt.cache_stats()
+    assert s2["promotions"] > 0 and s2["full_entries"] > 0
+    assert (rt.t.cache.block_tier == truntime.TIER_FULL).any()
+    hbm_before = rt.t.stage1_bytes_streamed
+    _assert_lanes(rt.turn(range(4), q), ref)            # pass 3: warm
+    assert rt.t.stage1_bytes_streamed == hbm_before
+    assert rt.t.last_plan.stage1_bytes == 0
+    assert rt.t.last_plan.stage1_bytes_sram > 0
+    assert rt.cache_stats()["hits"] > s2["hits"]
+
+
+def test_precision_tiers_demote_under_pressure_bit_identical():
+    """A slab budget far below the working set: full entries are demoted
+    to the sign tier instead of dropped, results stay equal to the
+    uncached cascade and to a full-precision cache on the same trace, the
+    sign tier keeps more residents than the slab has slots, and the tiered
+    cache streams no more stage-1 plane bytes than the full-precision
+    one; both runtimes in lockstep with the reference, registry and all."""
+    pair, q = make_clustered_pair(prescreen_c0=32)
+    tight = 4 * 32 * (DIM // 2)      # 4 slab slots; the working set is ~8+
+    rt = RT(pair, obs=True, max_batch=8, cache_bytes=tight,
+            precision_tiers=True, auto_flush=False)
+    rt_full = RT(pair, obs=True, max_batch=8, cache_bytes=tight,
+                 auto_flush=False)
+    ref = _uncached(pair, q, range(4))
+    for _ in range(3):
+        _assert_lanes(rt.turn(range(4), q), ref)
+        _assert_lanes(rt_full.turn(range(4), q), ref)
+    snap = rt.cache_stats()
+    assert snap["demotions"] > 0
+    assert (snap["sign_entries"] + snap["full_entries"]
+            > rt.t.cache.num_slab_blocks)
+    assert rt.t.stage1_bytes_streamed <= rt_full.t.stage1_bytes_streamed
+    assert rt.treg.get("counter", "cache_demotions").value == \
+        snap["demotions"]
+
+
+def _session_pair(tenants=8, docs_per_tenant=256, num_clusters=32,
+                  nprobe=8, turns=12, prescreen_c0=64, seed=0):
+    """The reference bench's session trace at a small size: planted
+    centres bootstrap the codebook, each tenant's docs sit near random
+    centres, and each turn every tenant queries a noisy copy of one of its
+    docs near its focus centre (kept with probability 0.8, else redrawn
+    from a Zipf(1.1) over the centres). Returns (pair, turns of (tenant,
+    int8 query) and the quarter budget of the tenants' packed views)."""
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(size=(num_clusters, DIM)).astype(np.float32)
+    centres /= np.linalg.norm(centres, axis=1, keepdims=True)
+    br = 32
+    cap = -(-(tenants * docs_per_tenant + num_clusters) // br) * br
+    pair = Pair(cap, k=5, clusters=dict(num_clusters=num_clusters,
+                                        nprobe=nprobe, block_rows=br))
+    pair.set_cfg(prescreen_c0=prescreen_c0)
+    pair.ingest(0, centres)
+    planted, docs = {}, {}
+    for t in range(tenants):
+        planted[t] = rng.integers(0, num_clusters, docs_per_tenant)
+        d = centres[planted[t]] + 0.2 * rng.normal(
+            size=(docs_per_tenant, DIM))
+        docs[t] = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(
+            np.float32)
+        pair.ingest(t, docs[t])
+    pair.compact()
+    pops = 1.0 / np.arange(1, num_clusters + 1) ** 1.1
+    pops /= pops.sum()
+    focus = rng.choice(num_clusters, size=tenants, p=pops)
+    trace = []
+    for _ in range(turns):
+        redraw = rng.random(tenants) >= 0.8
+        focus = np.where(redraw, rng.choice(num_clusters, size=tenants,
+                                            p=pops), focus)
+        turn = []
+        for t in range(tenants):
+            mine = np.flatnonzero(planted[t] == focus[t])
+            x = docs[t][int(rng.choice(mine)) if mine.size
+                        else int(rng.integers(docs_per_tenant))]
+            x = x + 0.1 * rng.normal(size=DIM)
+            turn.append((t, np.asarray(j_quantize(jnp.asarray(
+                (x / np.linalg.norm(x)).astype(np.float32))[None],
+                per_vector=True)[0][0])))
+        trace.append(turn)
+    demand = sum(HotClusterCache.entry_blocks(r, br)
+                 for t in range(tenants)
+                 for r in pair.t.cluster_rows(t).values()) * br * (DIM // 2)
+    return pair, trace, demand // 4
+
+
+def test_precision_tiers_on_a_session_trace_trade_stage1_for_stage0():
+    """On a session trace under a quarter budget with the prescreen, the
+    reference's tiers stream MORE stage-1 plane bytes than the
+    full-precision cache (sign entries hold budget a full entry would use,
+    and a sign-tier hit streams its plane blocks), and fewer stage-0 +
+    stage-1 bytes in all (sign bytes served from the cache): the
+    reference's own ledgers, which the port's equal in lockstep. The
+    unit case above (four slots, the same queries every pass) shows the
+    opposite order of stage-1 bytes, so neither order is a property of
+    the tiers."""
+    pair, trace, budget = _session_pair()
+    rts = {tiers: RT(pair, max_batch=8, cache_bytes=budget, preload=True,
+                     precision_tiers=tiers, auto_flush=False)
+           for tiers in (False, True)}
+    for i, turn in enumerate(trace):
+        for rt in rts.values():
+            for t, q in turn:
+                rt.submit(t, q, now=float(i))
+            rt.flush()
+    full, tiered = rts[False].t, rts[True].t
+    assert tiered.cache.demotions > 0 and tiered.cache.promotions > 0
+    assert tiered.stage1_bytes_streamed > full.stage1_bytes_streamed
+    assert (tiered.stage1_bytes_streamed + tiered.stage_bytes["prescreen"]
+            < full.stage1_bytes_streamed + full.stage_bytes["prescreen"])
+
+
+def test_tier_cache_calls_match_the_reference_cache():
+    """The tiered cache's slot map call for call against the reference's:
+    sign admissions hold no slots, slot pressure demotes the least
+    recently used full entry, byte pressure demotes and then drops sign
+    entries, a promotion re-admits at full precision; `lookup_lane_tiers`
+    splits the bytes the same way."""
+    cache = CachePair(3 * 4 * 8, precision_tiers=True)
+    cache.configure(block_rows=4, bytes_per_row=8)
+    cache.sync_generation(1)
+    assert cache.t.num_slab_blocks == 3
+    cache.put(0, 0, _blk_rows(1), tier=truntime.TIER_SIGN)
+    cache.put(0, 1, _blk_rows(2))
+    cache.put(0, 2, _blk_rows(3, 4))
+    cache.put(1, 0, _blk_rows(5), tier=truntime.TIER_SIGN)
+    assert cache.lookup_lane_tiers(0, [0, 1, 2, 3]) is not None
+    cache.put(1, 1, _blk_rows(6, 7))             # slot pressure: demote
+    assert cache.t.demotions >= 1
+    for c in range(2, 8):                        # byte pressure
+        cache.put(2, c, _blk_rows(8 + c), tier=truntime.TIER_SIGN)
+    cache.promote(0, 1, _blk_rows(2))
+    assert cache.lookup_lane_tiers(2, [5, 6, 7, 9]) is not None
+    assert cache.t.snapshot()["sign_entries"] > 0
+    with pytest.raises(ValueError, match="dim % 8"):
+        HotClusterCache(64, precision_tiers=True).configure(4, 6)
+    plain = HotClusterCache(64)
+    plain.configure(4, 8)
+    with pytest.raises(ValueError, match="precision_tiers"):
+        plain.put(0, 0, _blk_rows(1), tier=truntime.TIER_SIGN)
 
 
 # ---------------------------------------------------------------------------
