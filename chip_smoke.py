@@ -18,8 +18,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
                of its kernels (tensor-core and dp4a, and their times at
                B = 2, 4, 8: the crossover), the block gather on both of its
                kernels (TMA and dp4a, held to each other, and both timed
-               with the L2 flushed before each call as well), the exact
-               rescore in both forms
+               with the L2 flushed before each call as well), the sign
+               gather on both of its kernels (popcount, which the route
+               takes at D = 512, and bulk-copy, held to each other, with
+               the bulk kernel's one-block floor), the exact rescore in
+               both forms
                (gathered rows and by id, held to each other).
   5. main    — B = 32 query batches through `RetrievalEngine.retrieve`
                with the Plain (cosine, MIPS), Masked (512 tenants) and
@@ -125,7 +128,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
                Prints per schedule the p50 step, tokens/s, busy ms, idle
                share, launches, the ledger's bytes against dense; the
                flat-plane copies' bytes and device time; a dense bf16
-               yardstick; #2 and #8 at the decode shapes.
+               yardstick; #2 and #8 at the decode shapes (#8 over the
+               grouped (B*KH, pages) table the prescreen passes, on both
+               kernels, and on popcount over the per-lane table; the bulk
+               kernel's one-block floor at hd 64).
 
 Then the exact wrappers' and the block gather's host microseconds per
 call (`host_us_per_call`).
@@ -284,6 +290,54 @@ def bound_ms(bytes_moved: int, int8_ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _share(bound: float, device_us: str) -> str:
+    """' (share of bound x %)': the bound over a measured device time."""
+    if device_us == "not measured":
+        return ""
+    return f" (share of bound {bound * 1e5 / float(device_us):.0f} %)"
+
+
+# The sign gather's two kernels' names in a profile: the bulk-copy kernel
+# of stage0_sign_gather.cu and the popcount one of stage0_sign.cu.
+SIGN_BULK, SIGN_POPC = "sign_bulk_kernel", "sign_gather_kernel"
+
+
+def _sign_answer(plane: torch.Tensor, br: int, group: int = 1) -> int:
+    """The bulk sign gather launcher's answer for this plane and block: 2
+    the route takes the bulk kernel, 1 only `route="bulk"` does, 0 it does
+    not take the shape."""
+    return stage0_sign._bulk_takes(plane.data_ptr(), plane.shape[0],
+                                   plane.shape[1], br, group)
+
+
+def _sign_floor(gen, dev, d: int, br: int, label: str) -> None:
+    """The bulk sign gather at one lane and one block of `br` rows of D/8
+    bytes: the device-only time of a launch that copies one block and
+    scores it, the floor below the kernel's time at scale."""
+    plane = torch.randint(0, 256, (1 << 16, d // 8), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    qs = ops.pack_query_signs(torch.randint(
+        -128, 128, (1, d), generator=gen, device=dev, dtype=torch.int8))
+    one = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+
+    def fn():
+        return stage0_sign_gather(qs, plane, one, block_rows=br,
+                                  route="bulk")
+    _check_kernel("stage0_sign_gather (one block)", lambda *a: fn(),
+                  lambda *a: ref.stage0_sign_gather_ref(qs, plane, one, br),
+                  (), f"1 lane, 1 block, D={d} BR={br}")
+    t_bound, by = bound_ms(d + 4 + br * d // 8 + br * 4, 2 * br * d)
+    dev_us = "not measured"
+    for _ in range(3):      # a short trace can miss the one kernel (C6)
+        dev_us = kernel_device_us(fn, SIGN_BULK)
+        if dev_us != "not measured":
+            break
+    log(f"kernel stage0_sign_gather@one_block ({label} width D={d}, "
+        f"BR={br}): device_only_us {dev_us} "
+        f"(the floor: one CTA, one id read, one bulk copy, one block "
+        f"scored) bound_us {t_bound * 1e3:.4f} ({by}); bit-exact")
+
+
 def max_abs_err(got, want) -> int:
     """Largest absolute difference of two int32 results (or of each pair
     of a (scores, ids) result)."""
@@ -311,7 +365,8 @@ def phase_card() -> None:
 # per tile x lane tile: 8, 16 or 32 lanes by B; the plane and fused
 # kernels at most 16 at 1024 rows, the sign kernel 16 at 512 and 8 at
 # 1024), the dp4a plane kernel's 32- and 1-lane ones, the TMA gather (no
-# template: its name ends in E).
+# template: its name ends in E), the bulk sign gather's 16-byte-segment
+# instance and its instances for the decode rows of 8 and 16 bytes.
 MAIN_INSTANCES = tuple(
     f"{kernel}_kernelILi{rows}ELi{nt}EE"
     for kernel in ("plane_mma", "fused_mma", "sign_mma")
@@ -321,6 +376,8 @@ MAIN_INSTANCES = tuple(
     "rows_kernelILi256ELi0ELb0EE", "gather_tma_kernelE",
     "gather_kernelILi0ELb0EE",
     "exact_kernelILi1EE", "sign_gather_kernelILi16EE",
+    "sign_bulk_kernelILi64EE", "sign_bulk_kernelILi8EE",
+    "sign_bulk_kernelILi16EE",
     "sign_plane_kernelILi32ELi256ELi16EE", "fused_kernelILi32ELi0ELb0EE",
     "fused_kernelILi1ELi0ELb0EE")
 
@@ -335,7 +392,8 @@ def phase_build() -> None:
         for line in text.splitlines():
             entry = re.search(r"((?:plane_wide|sign_plane|sign_mma|"
                               r"plane_mma|plane|"
-                              r"rows|sign_gather|gather_tma|gather|exact|"
+                              r"rows|sign_gather|sign_bulk|gather_tma|"
+                              r"gather|exact|"
                               r"fused_mma|fused)"
                               r"_kernel(?:I.*?EE|E))", line)
             if "Compiling entry function" in line and entry:
@@ -695,7 +753,8 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
         f"(dp4a {cold_us['dp4a']}; every gathered row read once from "
         f"device memory: {all_rows_ms * 1e3:.2f} us)")
 
-    # -- sign gather: the prescreen over the same block tables -------------
+    # -- sign gather: the prescreen over the same block tables, on both
+    # routes (the bulk-copy kernel the shape takes, and the popcount one) --
     q_sign = ops.pack_query_signs(q)
     d8 = D // 8
 
@@ -703,43 +762,73 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
         return stage0_sign_gather(qs, plane, block_ids,
                                   block_rows=BLOCK_ROWS)
 
+    def sign_bulk(qs, plane, block_ids):
+        return stage0_sign_gather(qs, plane, block_ids,
+                                  block_rows=BLOCK_ROWS, route="bulk")
+
     def sign_plain(qs, plane, block_ids):
         return ref.stage0_sign_gather_ref(qs, plane, block_ids, BLOCK_ROWS)
 
-    err = _check_kernel("stage0_sign_gather", sign, sign_plain,
-                        (q_sign, db.sign_plane, ids),
-                        f"B={B} J={j} BR={BLOCK_ROWS} D={D}")
+    sign_args = (q_sign, db.sign_plane, ids)
+    if _sign_answer(db.sign_plane, BLOCK_ROWS) != 1:
+        raise AssertionError("the bulk sign gather's launcher does not take "
+                             "the cluster path's shape for the bulk route "
+                             "only (its answer 1)")
+    errs["stage0_sign_gather"] = _check_kernel(
+        "stage0_sign_gather", sign, sign_plain, sign_args,
+        f"B={B} J={j} BR={BLOCK_ROWS} D={D}")
+    errs["stage0_sign_gather_bulk"] = _check_kernel(
+        "stage0_sign_gather_bulk", sign_bulk, sign, sign_args,
+        f"B={B} J={j} BR={BLOCK_ROWS} D={D} (bulk against popcount)")
+    _check_kernel("stage0_sign_gather_bulk", sign_bulk, sign_plain,
+                  sign_args, f"B={B} J={j} BR={BLOCK_ROWS} D={D}")
+    # Ragged planes: N % BR rows of 16-byte multiples in the straddling
+    # block (bulk), rows of 5 and 25 bytes (popcount only), ids past the
+    # end.
     for bb, nn, dd, br in ((1, 1000, 64, 64), (3, 4099, 200, 8),
-                           (33, 777, 512, 32), (3, 300, 40, 64)):
+                           (33, 777, 512, 32), (3, 300, 40, 64),
+                           (7, 64 * 50 + 16, 512, 64), (14, 16 * 30 + 2, 64,
+                                                        16)):
         p = torch.randint(0, 256, (nn, dd // 8), generator=gen, device=dev,
                           dtype=torch.uint8)
         qs = ops.pack_query_signs(torch.randint(
             -128, 128, (bb, dd), generator=gen, device=dev,
             dtype=torch.int8))
-        _check_kernel("stage0_sign_gather",
-                      lambda a, b_, c: stage0_sign_gather(a, b_, c,
-                                                          block_rows=br),
-                      lambda a, b_, c: ref.stage0_sign_gather_ref(
-                          a, b_, c, br),
-                      (qs, p, _ragged_ids(gen, dev, bb, nn, br)),
-                      f"B={bb} N={nn} D={dd} BR={br}")
+        args = (qs, p, _ragged_ids(gen, dev, bb, nn, br))
+        takes = _sign_answer(p, br) > 0
+        routes = ("bulk", "popc") if takes else ("popc",)
+        for route in routes:
+            _check_kernel(f"stage0_sign_gather ({route})",
+                          lambda a, b_, c: stage0_sign_gather(
+                              a, b_, c, block_rows=br, route=route),
+                          lambda a, b_, c: ref.stage0_sign_gather_ref(
+                              a, b_, c, br),
+                          args, f"B={bb} N={nn} D={dd} BR={br}")
+        log(f"kernel stage0_sign_gather: B={bb} N={nn} D={dd} BR={br} "
+            f"routes {'/'.join(routes)}: bit-exact"
+            f"{', and equal to each other' if takes else ''}")
     gathered, _ = bitplanar.gather_blocks(db.sign_plane, ids, BLOCK_ROWS)
     sgn_f = bitplanar.unpack_sign_pm1(gathered).float()          # (B, R, D)
     q_sign_col = q_sign.float()[:, :, None]
     lib_ms = _library_ms("stage0_sign_gather",
                          lambda: torch.bmm(sgn_f, q_sign_col),
-                         sign(q_sign, db.sign_plane, ids))
+                         sign(*sign_args))
     del gathered, sgn_f
     t_bound, by = bound_ms(B * D + B * j * 4 + uniq_rows * d8
                            + B * r_view * 4, 2 * B * r_view * D)
-    rows.append(dict(
-        name="stage0_sign_gather", route="cuda",
-        source="src/repro_torch/csrc/stage0_sign.cu",
-        replaces="src/repro/kernels/stage0_sign.py:113",
-        max_abs_err=err,
-        ms=time_ms(lambda: sign(q_sign, db.sign_plane, ids)),
-        plain_ms=time_ms(lambda: sign_plain(q_sign, db.sign_plane, ids)),
-        bound_ms=t_bound, bound_by=by, library_ms=lib_ms))
+    plain_ms = time_ms(lambda: sign_plain(*sign_args))
+    for name, fn, source in (
+            ("stage0_sign_gather", sign,
+             "src/repro_torch/csrc/stage0_sign.cu"),
+            ("stage0_sign_gather_bulk", sign_bulk,
+             "src/repro_torch/csrc/stage0_sign_gather.cu")):
+        rows.append(dict(
+            name=name, route="cuda", source=source,
+            replaces="src/repro/kernels/stage0_sign.py:113",
+            max_abs_err=errs[name], ms=time_ms(lambda: fn(*sign_args)),
+            plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+            library_ms=lib_ms))
+    _sign_floor(gen, dev, D, BLOCK_ROWS, "cluster")
 
     device_only = {
         "stage1_plane_mma": kernel_device_us(
@@ -758,7 +847,9 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
         "stage1_gather_dp4a": kernel_device_us(
             lambda: gather_dp4a(*gather_args), "::gather_kernel<"),
         "stage0_sign_gather": kernel_device_us(
-            lambda: sign(q_sign, db.sign_plane, ids), "sign_gather_kernel"),
+            lambda: sign(*sign_args), SIGN_POPC),
+        "stage0_sign_gather_bulk": kernel_device_us(
+            lambda: sign_bulk(*sign_args), SIGN_BULK),
     }
     notes = {
         "stage1_plane_mma": " (library yardstick: torch._int_mm on the "
@@ -767,6 +858,9 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
                         "takes at this shape; same yardstick)",
         "stage1_gather_dp4a": " (the dp4a kernel, which the cluster path no "
                               "longer takes at this shape; same yardstick)",
+        "stage0_sign_gather_bulk": " (the bulk-copy kernel, which the "
+                                   "cluster path does not take at this "
+                                   "shape; same yardstick)",
         "stage2_by_id": " (library yardstick: the two index gathers of the "
                         "candidate rows, then torch.bmm on their pre-rebuilt "
                         "INT8 rows)"}
@@ -778,7 +872,8 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
         log(f"kernel {r['name']}: kernel_ms {r['ms']:.4f} plain_ms "
             f"{r['plain_ms']:.4f} bound_us {r['bound_ms'] * 1e3:.2f} "
             f"({r['bound_by']}) library_ms {r['library_ms']} "
-            f"device_only_us {device_only[r['name']]}{note}")
+            f"device_only_us {device_only[r['name']]}"
+            f"{_share(r['bound_ms'], device_only[r['name']])}{note}")
     log(f"kernel gathers: {uniq_rows} distinct plane rows of the "
         f"{B * r_view} gathered at B={B} J={j} BR={BLOCK_ROWS}")
     return rows
@@ -1218,7 +1313,8 @@ def phase_new_kernels(db, q_codes, gold, dev) -> list[dict]:
         log(f"kernel {r['name']}: kernel_ms {r['ms']:.4f} plain_ms "
             f"{r['plain_ms']:.4f} bound_us {r['bound_ms'] * 1e3:.2f} "
             f"({r['bound_by']}) library_ms {r['library_ms']} "
-            f"device_only_us {device_only[r['name']]}{note}")
+            f"device_only_us {device_only[r['name']]}"
+            f"{_share(r['bound_ms'], device_only[r['name']])}{note}")
     return rows
 
 
@@ -2512,7 +2608,7 @@ def _resident_kernels(dev, cache, arena) -> list[dict]:
              "src/repro/kernels/stage1_gather.py:65", "gather_tma_kernel"),
             ("stage0_sign_gather_resident", sign, sign_plain,
              (q_sign, sign_comb, ids), "src/repro_torch/csrc/stage0_sign.cu",
-             "src/repro/kernels/stage0_sign.py:113", "sign_gather_kernel")):
+             "src/repro/kernels/stage0_sign.py:113", SIGN_POPC)):
         err = _check_kernel(name, fn, plain, args,
                             f"B={B} J={j} BR={br} D={D} on {comb.shape[0]} "
                             "combined rows")
@@ -2544,13 +2640,32 @@ def _resident_kernels(dev, cache, arena) -> list[dict]:
             max_abs_err=err, ms=ms,
             plain_ms=time_ms(lambda: plain(*args)), bound_ms=t_bound,
             bound_by=by, library_ms=lib_ms))
-        log(f"kernel {name}: kernel_ms {ms:.4f} device_only_us {dev_us} on "
+        log(f"kernel {name}: kernel_ms {ms:.4f} device_only_us {dev_us}"
+            f"{_share(t_bound, dev_us)} on "
             f"the combined plane ({comb.shape[0]} rows, {s} slab slots, ids "
             f"in both regions), beside the plane gather over the arena "
             f"plane alone: kernel_ms {arena_ms:.4f} device_only_us "
             f"{arena_us}; plain_ms {rows[-1]['plain_ms']:.4f} bound_us "
             f"{t_bound * 1e3:.2f} ({by}) library_ms {lib_ms:.4f} (one "
             "torch.bmm on the pre-gathered, pre-unpacked operand); bit-exact")
+        if name == "stage0_sign_gather_resident":
+            # The bulk-copy kernel at the same shape (the route keeps the
+            # popcount one here: its launcher answers 1), held to it.
+            if _sign_answer(sign_comb, br) != 1:
+                raise AssertionError("the resident shape is not the bulk "
+                                     "route's only (answer 1)")
+
+            def bulk(*a):
+                return stage0_sign_gather(
+                    *a, block_rows=br, route="bulk",
+                    counter="stage0_sign_gather_resident")
+            _check_kernel(f"{name} (bulk)", bulk, fn, args,
+                          f"B={B} J={j} BR={br} D={D}, bulk against popcount")
+            bulk_us = kernel_device_us(lambda: bulk(*args), SIGN_BULK)
+            log(f"kernel {name} bulk route: kernel_ms "
+                f"{time_ms(lambda: bulk(*args)):.4f} device_only_us "
+                f"{bulk_us}{_share(t_bound, bulk_us)} on the combined "
+                f"plane; equal to the popcount route")
     return rows
 
 
@@ -2663,7 +2778,7 @@ def _tiered_runs(serving, index, closed, pcold, demand, runs, owner) -> None:
         _count_against_profile(
             label, lambda: ops.stage0_sign_scores_gather_resident(
                 q_sign, plane, ids, block_rows=br),
-            "stage0_sign_gather_resident", "sign_gather_kernel")
+            "stage0_sign_gather_resident", SIGN_POPC)
     del b_rt
 
 
@@ -2875,9 +2990,11 @@ def _capture(name):
 def _decode_kernel_rows(caches, qs, length, counts) -> list[dict]:
     """#2 and #8 at the operands one paged + prescreen step gives them at
     hd = 64 (the first layer's: 112 lanes x 2048 centroid rows of 32 bytes;
-    112 lanes x 256 pages of 16 rows over the flat 8-byte sign plane),
-    against their plain versions, timed, with their byte bounds and a
-    torch.bmm f32 yardstick on the pre-unpacked operand."""
+    112 lanes in groups of G = 7 over a (16, 256) table of 16-row pages of
+    the flat 8-byte sign plane), against their plain versions, timed, with
+    their byte bounds and a torch.bmm f32 yardstick on the pre-unpacked
+    operand. #8 runs on both routes over the grouped table and on the
+    popcount route over the per-lane table the port passed before."""
     rows_patch, rows_seen = _capture("stage1_scores_rows")
     sign_patch, sign_seen = _capture("stage0_sign_scores_gather")
     with rows_patch, sign_patch:
@@ -2885,6 +3002,12 @@ def _decode_kernel_rows(caches, qs, length, counts) -> list[dict]:
                      **dict(DEC_SCHEDULES)["paged_prescreen"])
     (q_nib, cent_rows), _ = rows_seen[0]
     (q_sign, flat_sign, blk), kw = sign_seen[0]
+    group = kw["group"]
+    if (blk.shape[0] * group != q_sign.shape[0] or group != DEC_H // DEC_KH
+            or _sign_answer(flat_sign, DEC_PR, group) != 2):
+        raise AssertionError(f"decode: the prescreen passed a "
+                             f"{tuple(blk.shape)} table in groups of "
+                             f"{group} for {q_sign.shape[0]} lanes")
     lanes, p, d2 = cent_rows.shape
     d = 2 * d2
     q_eo = ops.pack_queries_even_odd(q_nib)
@@ -2892,6 +3015,12 @@ def _decode_kernel_rows(caches, qs, length, counts) -> list[dict]:
     out = []
     view = bitplanar.expand_block_rows(blk, DEC_PR)
     uniq = int(torch.unique(view).numel())
+    lane_blk = blk.repeat_interleave(group, 0)
+
+    def sign(a, b_, c, route="auto", g=group):
+        return stage0_sign_gather(a, b_, c, block_rows=DEC_PR, group=g,
+                                  route=route)
+
     for name, fn, plain, args, lib_args, bytes_moved, macs, src, repl, \
             symbol in (
             ("stage1_rows@decode_hd64", stage1_int4_rows,
@@ -2901,17 +3030,18 @@ def _decode_kernel_rows(caches, qs, length, counts) -> list[dict]:
              2 * lanes * d2 + lanes * p * d2 + lanes * p * 4, lanes * p * d,
              "src/repro_torch/csrc/stage1_int4.cu",
              "src/repro/kernels/stage1_int4.py:120", "rows_kernel"),
-            ("stage0_sign_gather@decode_hd64",
-             lambda a, b_, c: stage0_sign_gather(a, b_, c,
-                                                 block_rows=DEC_PR),
-             lambda a, b_, c: ref.stage0_sign_gather_ref(a, b_, c, DEC_PR),
+            ("stage0_sign_gather@decode_hd64", sign,
+             lambda a, b_, c: ref.stage0_sign_gather_ref(a, b_, c, DEC_PR,
+                                                         group=group),
              (q_sign, flat_sign, blk),
-             (bitplanar.unpack_sign_pm1(flat_sign[view.long()]).float(),
+             (bitplanar.unpack_sign_pm1(
+                 flat_sign[bitplanar.expand_block_rows(lane_blk, DEC_PR)
+                           .long()]).float(),
               q_sign.float()[:, :, None]),
              lanes * d + blk.numel() * 4 + uniq * (d // 8)
              + lanes * r_view * 4, lanes * r_view * d,
-             "src/repro_torch/csrc/stage0_sign.cu",
-             "src/repro/kernels/stage0_sign.py:113", "sign_gather_kernel")):
+             "src/repro_torch/csrc/stage0_sign_gather.cu",
+             "src/repro/kernels/stage0_sign.py:113", SIGN_BULK)):
         err = _check_kernel(name, fn, plain, args,
                             f"{lanes} lanes, D = {d} (decode)")
         lib_ms = _library_ms(name, lambda: torch.bmm(*lib_args), fn(*args))
@@ -2923,12 +3053,30 @@ def _decode_kernel_rows(caches, qs, length, counts) -> list[dict]:
                    bound_by=by, library_ms=lib_ms)
         dev_us = kernel_device_us(lambda: fn(*args), symbol)
         log(f"kernel {name}: kernel_ms {row['ms']:.4f} device_only_us "
-            f"{dev_us} plain_ms {row['plain_ms']:.4f} bound_us "
+            f"{dev_us}{_share(t_bound, dev_us)} plain_ms "
+            f"{row['plain_ms']:.4f} bound_us "
             f"{t_bound * 1e3:.2f} ({by}) library_ms {lib_ms:.4f} (one "
             f"torch.bmm f32 on the pre-unpacked operand); launches per "
             f"decode step {DEC_LAYERS}; bit-exact")
         out.append(row)
         del lib_args
+    # #8's other forms at the same operands: the popcount kernel over the
+    # grouped table, and over the per-lane (112, 256) table, the form the
+    # prescreen passed before the grouped one (its ids counted 7 times).
+    want = sign(q_sign, flat_sign, blk)
+    for label, fn in (
+            ("popc route, grouped table",
+             lambda: sign(q_sign, flat_sign, blk, "popc")),
+            ("popc route, per-lane table",
+             lambda: sign(q_sign, flat_sign, lane_blk, "popc", 1))):
+        if not torch.equal(fn(), want):
+            raise AssertionError(f"decode #8 {label} disagrees with the "
+                                 "bulk route")
+        log(f"kernel stage0_sign_gather@decode_hd64 {label}: kernel_ms "
+            f"{time_ms(fn):.4f} device_only_us "
+            f"{kernel_device_us(fn, SIGN_POPC)}; equal to the bulk route")
+    _sign_floor(torch.Generator(device=flat_sign.device).manual_seed(SEED),
+                flat_sign.device, d, DEC_PR, "decode")
     return out
 
 

@@ -200,7 +200,8 @@ class StageFns:
               the engine never passes an id >= N)
     sign_gather / sign_gather_resident: the sign prescreen's block gathers
               over the packed (N, D/8) sign plane (zero bytes score
-              sum(q_sign)) and over the slab policy's combined sign plane
+              sum(q_sign)) and over the slab policy's combined sign plane;
+              sign_gather takes `group` (a table row per `group` lanes)
     """
 
     plane: Callable
@@ -237,9 +238,9 @@ def stage_fns(backend: str) -> StageFns:
             return lambda q_msb, plane, ids, *, block_rows: plain(
                 kops.pack_queries_even_odd(q_msb), plane, ids, block_rows)
 
-        def sign_gather_with(plain):
-            return lambda q_sign, plane, ids, *, block_rows: plain(
-                q_sign, plane, ids, block_rows)
+        def sign_gather(q_sign, plane, ids, *, block_rows, group=1):
+            return ref.stage0_sign_gather_ref(q_sign, plane, ids, block_rows,
+                                              group=group)
 
         return StageFns(
             plane=plane,
@@ -250,9 +251,10 @@ def stage_fns(backend: str) -> StageFns:
             centroid=plane,
             exact=lambda q, msb, lsb, ids: ref.stage2_scores_by_id_ref(
                 kops.pack_queries_even_odd(q), msb, lsb, ids),
-            sign_gather=sign_gather_with(ref.stage0_sign_gather_ref),
-            sign_gather_resident=sign_gather_with(
-                ref.stage0_sign_gather_resident_ref))
+            sign_gather=sign_gather,
+            sign_gather_resident=lambda q_sign, plane, ids, *, block_rows: (
+                ref.stage0_sign_gather_resident_ref(q_sign, plane, ids,
+                                                    block_rows)))
     raise ValueError(f"unknown backend {backend!r}: 'torch' or 'cuda'")
 
 
@@ -1107,9 +1109,11 @@ class KVSignPrescreen:
 
     The sign gather (#8) reads only the kept pages' sign bytes (hd/8 per
     position) from the flat cache plane, each (lane, page) a block; the
-    scores are max-reduced over the lane's G query heads, non-members
-    score INT32_MIN, and the top-`c0` survivors are re-sorted into view
-    order, so at c0 >= the view the cascade is the no-prescreen one."""
+    G query heads of a KV head share its (B*KH, NP) page table (`group`
+    = G), so each page is read once for all of them. The scores are
+    max-reduced over the G query heads, non-members score INT32_MIN, and
+    the top-`c0` survivors are re-sorted into view order, so at c0 >= the
+    view the cascade is the no-prescreen one."""
 
     c0: int
 
@@ -1126,12 +1130,9 @@ class KVSignPrescreen:
         flat_sign = (bitplanar.sign_plane_from_msb(_kv_flat(pol.k_msb))
                      if pol.k_sign is None else _kv_flat(pol.k_sign))
         q_sign = bitplanar.sign_pm1(ctx.q_codes).reshape(b * kh * g, hd)
-        flat_pages = _kv_flat_rows(state.pages, t // pr)      # (B, KH, NP)
-        blk = (flat_pages[:, :, None, :]
-               .expand(b, kh, g, flat_pages.shape[-1])
-               .reshape(b * kh * g, -1).contiguous())
-        scores = ctx.fns.sign_gather(q_sign, flat_sign, blk,
-                                     block_rows=pr)           # (B', R) int32
+        blk = _kv_flat_rows(state.pages, t // pr).reshape(b * kh, -1)
+        scores = ctx.fns.sign_gather(q_sign, flat_sign, blk, block_rows=pr,
+                                     group=g)                 # (B', R) int32
         key = scores.reshape(b, kh, g, r).amax(dim=2)         # (B, KH, R)
         key = key.masked_fill(~state.member, INT32_MIN)
         _, sel = similarity.stable_topk(key, c0)              # (B, KH, C0)

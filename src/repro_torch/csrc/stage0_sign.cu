@@ -31,15 +31,22 @@
 // the popcounts may bound it above the byte bound.
 //
 // The gather (sign_gather_kernel): view row r of lane b is sign-plane row
-// ids[b, r / BR] * BR + r % BR; a row at or past N is all-zero bytes in the
-// reference (rows read as +1), which scores D - 2 * popc(qbits) = sum_k
-// q_sign[k], computed here without a read. At the cluster path's shapes
+// ids[b / G, r / BR] * BR + r % BR (G lanes share a table row); a row at
+// or past N is all-zero bytes in the reference (rows read as +1), which
+// scores D - 2 * popc(qbits) = sum_k q_sign[k], computed here without a
+// read. At the cluster path's shapes
 // (B = 32 lanes x 8192 view rows, D = 512) it reads 16 MiB of sign rows
 // and writes 1 MiB of scores, about 5 us at 3.35 TB/s; the XOR + popcount
-// work is a few instructions per 16 bytes. Bytes bound it. Design: one
-// thread per view row, a block owning 256 consecutive view rows of one
-// lane (grid.y walks lanes), so consecutive threads read consecutive
-// 64-byte rows of a block and store consecutive scores.
+// work is a few instructions per 16 bytes. There bytes bound it (5.58 us
+// device-only against a 4.65 us bound on an H100, PERF.md); at the decode
+// prescreen's 8-byte rows it takes 5.4 us against 0.71 us: its 1792
+// blocks each repeat the sign packing, and every row waits on its block
+// id. Design: one thread per view row, a block owning 256 consecutive
+// view rows of one lane (grid.y walks lanes; ids row b / G), so
+// consecutive threads read consecutive rows of a block and store
+// consecutive scores. The bulk-copy gather of stage0_sign_gather.cu
+// takes the decode widths (rows of 4-16 bytes); this kernel keeps every
+// other shape, D = 512 included, where it was as fast or faster.
 
 #include "nibble.cuh"   // byte_word, allow_smem, kMaxSmem
 
@@ -138,15 +145,15 @@ sign_plane_kernel(const int8_t* __restrict__ q_sign,
   }
 }
 
-// q_sign (B, D) int8 +-1; plane (N, D/8) uint8; ids (B, J) int32 block ids;
-// out (B, J * BR) int32.
+// q_sign (B, D) int8 +-1; plane (N, D/8) uint8; ids (B / G, J) int32 block
+// ids, row b / G serving lane b; out (B, J * BR) int32.
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 sign_gather_kernel(const int8_t* __restrict__ q_sign,
                    const uint8_t* __restrict__ plane,
                    const int32_t* __restrict__ ids,
                    int32_t* __restrict__ out, long long N, int J, int BR,
-                   int D) {
+                   int D, int G) {
   extern __shared__ uint32_t qbits[];  // [ceil(D / 32)]
   const int nw = (D + 31) / 32;
   const int D8 = D / 8;
@@ -161,7 +168,7 @@ sign_gather_kernel(const int8_t* __restrict__ q_sign,
   const long long r = static_cast<long long>(blockIdx.x) * kThreads
                       + threadIdx.x;
   if (r >= R) return;
-  const long long id = ids[static_cast<size_t>(b) * J + r / BR];
+  const long long id = ids[static_cast<size_t>(b / G) * J + r / BR];
   const long long row = id * BR + r % BR;
   int pop = 0;
   if (row >= 0 && row < N) {
@@ -175,7 +182,7 @@ sign_gather_kernel(const int8_t* __restrict__ q_sign,
 template <int VEC>
 cudaError_t launch_gather(const int8_t* q, const uint8_t* p,
                           const int32_t* ids, int32_t* o, int B, long long N,
-                          int J, int BR, int D, cudaStream_t stream) {
+                          int J, int BR, int D, int G, cudaStream_t stream) {
   const long long R = static_cast<long long>(J) * BR;
   const dim3 grid(static_cast<unsigned>((R + kThreads - 1) / kThreads),
                   static_cast<unsigned>(B));
@@ -183,7 +190,7 @@ cudaError_t launch_gather(const int8_t* q, const uint8_t* p,
   const cudaError_t err = allow_smem(sign_gather_kernel<VEC>, smem);
   if (err != cudaSuccess) return err;
   sign_gather_kernel<VEC><<<grid, kThreads, smem, stream>>>(q, p, ids, o, N,
-                                                            J, BR, D);
+                                                            J, BR, D, G);
   return cudaGetLastError();
 }
 
@@ -227,12 +234,15 @@ cudaError_t launch_plane_rows(int bt, const int8_t* q, const uint8_t* p,
 
 }  // namespace
 
+// ids (B / G, J): G consecutive lanes share each table row.
 extern "C" int stage0_sign_gather_launch(const void* q_sign,
                                          const void* sign_plane,
                                          const void* block_ids, void* out,
                                          int B, long long N, int J, int BR,
-                                         int D, void* stream) {
-  if (D % 8) return static_cast<int>(cudaErrorInvalidValue);
+                                         int D, int G, void* stream) {
+  if (D % 8 || G <= 0 || B % G) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto* q = static_cast<const int8_t*>(q_sign);
   const auto* p = static_cast<const uint8_t*>(sign_plane);
   const auto* ids = static_cast<const int32_t*>(block_ids);
@@ -240,11 +250,11 @@ extern "C" int stage0_sign_gather_launch(const void* q_sign,
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D % 128 == 0) {
-    err = launch_gather<16>(q, p, ids, o, B, N, J, BR, D, s);
+    err = launch_gather<16>(q, p, ids, o, B, N, J, BR, D, G, s);
   } else if (D % 32 == 0) {
-    err = launch_gather<4>(q, p, ids, o, B, N, J, BR, D, s);
+    err = launch_gather<4>(q, p, ids, o, B, N, J, BR, D, G, s);
   } else {
-    err = launch_gather<1>(q, p, ids, o, B, N, J, BR, D, s);
+    err = launch_gather<1>(q, p, ids, o, B, N, J, BR, D, G, s);
   }
   return static_cast<int>(err);
 }

@@ -147,14 +147,16 @@ def stage0_sign_scores_batched(q_sign: torch.Tensor, sign_plane: torch.Tensor,
 
 def stage0_sign_scores_gather(q_sign: torch.Tensor, sign_plane: torch.Tensor,
                               block_ids: torch.Tensor, *,
-                              block_rows: int = DEFAULT_BLOCK_ROWS
-                              ) -> torch.Tensor:
+                              block_rows: int = DEFAULT_BLOCK_ROWS,
+                              group: int = 1) -> torch.Tensor:
     """q_sign (B, D) int8 {+1, -1} (`pack_query_signs`); sign_plane
-    (N, D//8) uint8; block_ids (B, J) clamped block ids, the table the
-    stage-1 gather reads -> (B, J * block_rows) int32 sign-agreement
-    scores. Rows past N are zero bytes, all +1, scoring sum(q_sign)."""
+    (N, D//8) uint8; block_ids (B / group, J) clamped block ids, the table
+    the stage-1 gather reads, row t serving lanes t * group ... t * group
+    + group - 1 -> (B, J * block_rows) int32 sign-agreement scores, the
+    per-lane call's on the table repeated `group` times. Rows past N are
+    zero bytes, all +1, scoring sum(q_sign)."""
     return stage0_sign_gather(q_sign, sign_plane, block_ids,
-                              block_rows=block_rows)
+                              block_rows=block_rows, group=group)
 
 
 def stage0_sign_scores_gather_resident(q_sign: torch.Tensor,

@@ -102,14 +102,29 @@ def stage0_sign_batched_ref(q_sign: torch.Tensor,
     return (q_sign.to(torch.float64) @ docs.T).to(torch.int32)
 
 
+def check_group(b: int, group: int, tables: int) -> None:
+    """Raises unless `group` divides the B lanes and the block table has
+    one row per group of lanes (B / group rows)."""
+    if group < 1 or b % group:
+        raise ValueError(f"group {group} does not divide the {b} query "
+                         "lanes")
+    if tables != b // group:
+        raise ValueError(f"block_ids has {tables} rows; {b} lanes in groups "
+                         f"of {group} need {b // group}")
+
+
 def stage0_sign_gather_ref(q_sign: torch.Tensor, sign_plane: torch.Tensor,
-                           block_ids: torch.Tensor,
-                           block_rows: int) -> torch.Tensor:
+                           block_ids: torch.Tensor, block_rows: int, *,
+                           group: int = 1) -> torch.Tensor:
     """The sign gather kernel: q_sign (B, D) int8 in {+1, -1}, sign_plane
-    (N, D//8) uint8, block_ids (B, J) int32 clamped block ids ->
+    (N, D//8) uint8, block_ids (B / group, J) int32 clamped block ids, row
+    t serving lanes t * group ... t * group + group - 1 ->
     (B, J * block_rows) int32 ``sum_k q_sign[k] * sign(d_k)``. Rows past
     the plane's end gather zero bytes, all +1, scoring ``sum_k
-    q_sign[k]``."""
+    q_sign[k]``. The grouped table is repeated to one row per lane."""
+    check_group(q_sign.shape[0], group, block_ids.shape[0])
+    if group > 1:
+        block_ids = block_ids.repeat_interleave(group, 0)
     gathered, _ = gather_blocks(sign_plane, block_ids, block_rows)
     return _sign_dot(q_sign, gathered)
 

@@ -428,6 +428,141 @@ def test_gather_tma_kernel_at_the_cluster_shape(cuda_device):
                                                  route="tma"), want)
 
 
+def _sign_case(rand, b, group, n, d, br, j):
+    """q_sign (b, d) +-1, an (n, d/8) sign plane and a (b / group, j) table
+    over its blocks in which the last slot of every row is the final
+    (possibly partial) block, one slot of row 0 lies wholly past N and
+    tables share blocks."""
+    q_sign = ops.pack_query_signs(rand((b, d), -128, 128, torch.int8))
+    plane = rand((n, d // 8), 0, 256, torch.uint8)
+    nb = -(-n // br)
+    ids = _shared_ids(rand, b // group, j, nb)
+    if j > 1:
+        ids[0, 0] = nb + 3
+    return q_sign, plane, ids
+
+
+# (lanes, group, N, D, BR, J): the decode prescreen's widths (hd 32, 64,
+# 128 in 16-row pages, 7 query heads per KV head, 3 x 2 KV lanes), the
+# serving path's resident and the cluster path's shapes (D = 512, 64-row
+# blocks), and ragged planes whose last block straddles N (N % BR rows of
+# a 16-byte multiple); rows of 32 and 128 bytes (D = 256, 1024).
+SIGN_BULK_SHAPES = [(42, 7, 6 * 1024, 32, 16, 40),
+                    (42, 7, 6 * 1024, 64, 16, 40),
+                    (42, 7, 6 * 1024, 128, 16, 40),
+                    (32, 1, 1 << 16, 512, 64, 32),
+                    (32, 1, 1 << 16, 512, 64, 128),
+                    (33, 1, 64 * 50 + 16, 512, 64, 7),
+                    (14, 7, 16 * 30 + 2, 64, 16, 9),
+                    (6, 3, 16 * 20 + 1, 128, 16, 5),
+                    (8, 2, 64 * 20 + 8, 256, 64, 6),
+                    (3, 1, 32 * 10 + 4, 1024, 32, 5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,group,n,d,br,j", SIGN_BULK_SHAPES)
+def test_sign_bulk_kernel_matches_plain_and_popc(cuda_device, b, group, n,
+                                                 d, br, j):
+    """The bulk sign gather, bit for bit against the plain version, the
+    popcount kernel and its own per-lane form (the table repeated
+    `group` times), each launch counted once under `stage0_sign_gather`
+    whatever the route; the launcher chooses it (answers 2) for rows of
+    at most 16 bytes and only takes it (1) for wider rows."""
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(n + d + j),
+                 cuda_device)
+    q_sign, plane, ids = _sign_case(rand, b, group, n, d, br, j)
+    assert stage0_sign._bulk_takes(plane.data_ptr(), n, d // 8, br,
+                                   group) == (2 if d <= 128 else 1)
+    want = ref.stage0_sign_gather_ref(q_sign, plane, ids, br, group=group)
+    lane_ids = ids.repeat_interleave(group, 0)
+    for route, table, g in (("bulk", ids, group), ("popc", ids, group),
+                            ("bulk", lane_ids, 1), ("auto", ids, group)):
+        ops.reset_launch_counts()
+        got = stage0_sign_gather(q_sign, plane, table, block_rows=br,
+                                 group=g, route=route)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == dict(ZERO_COUNTS,
+                                           stage0_sign_gather=1)
+        assert torch.equal(got, want), (route, g)
+    sums = q_sign.sum(1, dtype=torch.int32)
+    if j > 1:
+        assert torch.equal(want[:group, :br], sums[:group, None].expand(
+            group, br))
+    past = n % br
+    if past:
+        assert torch.equal(want[:, -br + past:], sums[:, None].expand(
+            b, br - past))
+
+
+@pytest.mark.gpu
+def test_sign_gather_route_by_shape(cuda_device):
+    """The bulk sign gather's launcher takes rows of 4, 8, 16 bytes (BR %
+    4 == 0) or 32, 64, 128 bytes, whole 16-byte units per block and per
+    straddling block, a 16-byte aligned plane, 0 < N < 2^31 and a ring and
+    packed signs that fit in shared memory, and refuses every other shape,
+    which the popcount kernel takes; it chooses itself (2) for rows of at
+    most 16 bytes and leaves wider ones to the popcount kernel (1). The
+    wrapper launches the kernel its launcher names, "bulk" on an answer of
+    1 too, each under the caller's counter, and refuses to force the bulk
+    kernel on a shape it does not take."""
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(12),
+                 cuda_device)
+    base = rand((1 << 12, 64), 0, 256, torch.uint8)
+    ptr = base.data_ptr()
+    takes = stage0_sign._bulk_takes
+    assert takes(ptr, 1 << 20, 64, 64, 1) == 1
+    assert takes(ptr, 524288, 8, 16, 7) == 2
+    assert takes(ptr, (1 << 31) - 16, 4, 16, 1) and takes(ptr, 100, 128, 1, 1)
+    assert not takes(ptr, 1 << 31, 8, 16, 1) and not takes(ptr, 0, 8, 16, 1)
+    assert not takes(ptr + 8, 1000, 64, 64, 1)
+    assert not takes(ptr, 1000, 5, 8, 1)         # 40-byte blocks
+    assert not takes(ptr, 16 * 9 + 2, 5, 16, 1)  # 10 bytes past the end
+    assert not takes(ptr, 1000, 32768, 8, 1)     # rows of 4 KiB
+    assert not takes(ptr, 1000, 48, 64, 1)       # rows of 48 bytes
+    assert not takes(ptr, 1000, 8, 6, 1)         # BR % 4 != 0 at 8 bytes
+    assert not takes(ptr, 1000, 64, 64, 1 << 14)  # 16384 lanes' signs
+    for n, d, br, group, bulk in ((1000, 64, 16, 7, 2),
+                                  (1000, 40, 8, 1, 0),
+                                  (16 * 9 + 2, 40, 16, 1, 0),
+                                  (16 * 9 + 2, 64, 16, 1, 2),
+                                  (1000, 384, 64, 1, 0),
+                                  (1000, 512, 64, 1, 1)):
+        q_sign, plane, ids = _sign_case(rand, 2 * group, group, n, d, br, 4)
+        assert takes(plane.data_ptr(), n, d // 8, br, group) == bulk
+        for counter, fn in (
+                ("stage0_sign_gather", lambda: stage0_sign_gather(
+                    q_sign, plane, ids, block_rows=br, group=group)),
+                ("stage0_sign_gather_resident",
+                 lambda: stage0_sign_gather(
+                     q_sign, plane, ids, block_rows=br, group=group,
+                     counter="stage0_sign_gather_resident"))):
+            ops.reset_launch_counts()
+            got = fn()
+            torch.cuda.synchronize()
+            assert ops.launch_counts() == dict(ZERO_COUNTS, **{counter: 1})
+            assert torch.equal(got, ref.stage0_sign_gather_ref(
+                q_sign, plane, ids, br, group=group))
+        if not bulk:
+            with pytest.raises(ValueError, match="bulk sign gather does not "
+                                                 f"take N = {n}, D = {d}"):
+                stage0_sign_gather(q_sign, plane, ids, block_rows=br,
+                                   group=group, route="bulk")
+        else:
+            ops.reset_launch_counts()
+            assert torch.equal(stage0_sign_gather(
+                q_sign, plane, ids, block_rows=br, group=group,
+                route="bulk"), got)
+            assert ops.launch_counts() == dict(ZERO_COUNTS,
+                                               stage0_sign_gather=1)
+    q_sign = torch.ones((6, 64), dtype=torch.int8, device=cuda_device)
+    ids = torch.zeros((2, 3), dtype=torch.int32, device=cuda_device)
+    plane = base.view(-1, 8)
+    with pytest.raises(ValueError, match="group 4 does not divide the 6"):
+        stage0_sign_gather(q_sign, plane, ids, block_rows=16, group=4)
+    with pytest.raises(ValueError, match="block_ids has 2 rows"):
+        stage0_sign_gather(q_sign, plane, ids, block_rows=16, group=2)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("c0", [None, 256])
 def test_cluster_backend_equals_plain_backend(cuda_device, c0):
@@ -958,7 +1093,8 @@ def _decode_cache(dev, b, t, kh, hd, seed):
 def test_decode_widths_of_rows_and_sign_gather(cuda_device, hd):
     """#2 over per-lane page-centroid rows of hd/2 bytes and #8 over the
     flat cache sign plane of hd/8 bytes in page blocks (the widths the
-    decode stages give them) against their plain versions."""
+    decode stages give them), per lane and grouped by KV head (one table
+    row for the G = 7 query heads), against their plain versions."""
     b, t, kh, g, pr = 3, 1024, 2, 7, 16
     cache, gen = _decode_cache(cuda_device, b, t, kh, hd, hd)
     lanes, p = b * kh * g, t // pr
@@ -981,8 +1117,14 @@ def test_decode_widths_of_rows_and_sign_gather(cuda_device, hd):
     got = ops.stage0_sign_scores_gather(q_sign, flat, ids, block_rows=pr)
     assert torch.equal(got, ref.stage0_sign_gather_ref(q_sign, flat, ids,
                                                        pr))
+    # the grouped form the prescreen passes: one table row per KV lane
+    kv_ids = ids[::g].contiguous()
+    got = ops.stage0_sign_scores_gather(q_sign, flat, kv_ids, block_rows=pr,
+                                        group=g)
+    assert torch.equal(got, ref.stage0_sign_gather_ref(
+        q_sign, flat, kv_ids.repeat_interleave(g, 0), pr))
     counts = ops.launch_counts()
-    assert counts["stage1_rows"] == 1 and counts["stage0_sign_gather"] == 1
+    assert counts["stage1_rows"] == 1 and counts["stage0_sign_gather"] == 2
 
 
 @pytest.mark.gpu

@@ -207,6 +207,34 @@ def test_pruned_cascade_backends_bit_parity(lengths):
         assert not a.isnan().any()
 
 
+def test_prescreen_passes_one_page_table_per_kv_head(monkeypatch):
+    """The sign prescreen hands #8 the (B*KH, NP) page table once, with
+    group = G (the query heads of a KV head), not the table copied for
+    every query head; its scores equal the per-lane call on the table
+    repeated G times."""
+    tc, _, _, _ = make_cache(seed=3, b=2, t=128, kh=2, hd=64, paged=True,
+                             page_rows=16)
+    q = _t(make_q(seed=4, b=2, h=14, hd=64))            # G = 7 query heads
+    seen = []
+    real = ops.stage0_sign_scores_gather
+
+    def spy(q_sign, plane, ids, **kw):
+        out = real(q_sign, plane, ids, **kw)
+        seen.append((q_sign, plane, ids, kw, out))
+        return out
+    monkeypatch.setattr(ops, "stage0_sign_scores_gather", spy)
+    sparse_kv.sparse_decode_attention(
+        q, tc, torch.tensor([128, 77], dtype=torch.int32), 16, npages=4,
+        prescreen_c0=32, page_rows=16, backend="cuda")
+    (q_sign, plane, ids, kw, out), = seen
+    assert kw == {"block_rows": 16, "group": 7}
+    assert ids.shape == (2 * 2, 4) and ids.dtype == torch.int32
+    assert ids.is_contiguous() and q_sign.shape == (2 * 2 * 7, 64)
+    assert out.shape == (28, 4 * 16)
+    _eq(out, real(q_sign, plane, ids.repeat_interleave(7, 0),
+                  block_rows=16))
+
+
 def test_empty_cache_paged_returns_zeros():
     tc, _, _, _ = make_cache(paged=True)
     q = _t(make_q())

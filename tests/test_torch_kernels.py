@@ -322,16 +322,37 @@ def _tma_rule(n: int, d2: int, block_rows: int) -> bool:
     return d2 % 16 == 0 and block_rows % 64 == 0 and 0 < n < 2 ** 31
 
 
+def _bulk_rule(ptr: int, n: int, d8: int, block_rows: int,
+               group: int) -> int:
+    """The bulk sign gather launcher's rule (stage0_sign_bulk_takes): rows
+    of 4, 8, 16 bytes with block_rows % 4 == 0 or of 32, 64, 128 bytes,
+    whole 16-byte units per block and per straddling block, an aligned
+    plane, 0 < N < 2^31, and a ring of four stages (of 8 KiB, or one
+    block) beside the group's packed signs within one block's shared
+    memory; 2 (the route's choice) for rows of at most 16 bytes, 1 for
+    wider ones, 0 for a shape it does not take."""
+    if not (d8 in (4, 8, 16) and block_rows % 4 == 0 or d8 in (32, 64, 128)):
+        return 0
+    block = block_rows * d8
+    stage = max(1, 8192 // block) * block
+    words = -(-(-(-d8 // 4)) // 4) * 4
+    smem = 128 + 4 * stage + 64 + group * words * 4 + group * 4
+    takes = (block % 16 == 0 and n % block_rows * d8 % 16 == 0
+             and ptr % 16 == 0 and 0 < n < 2 ** 31 and smem <= SMEM_BYTES)
+    return (2 if d8 <= 16 else 1) if takes else 0
+
+
 def _capture_launches(monkeypatch, mma_lanes: int = 0,
                       fused_lanes: int = 0, gather_tma=_tma_rule,
-                      sign_lanes: int = 0) -> list:
+                      sign_lanes: int = 0, sign_bulk=_bulk_rule) -> list:
     """Runs the wrappers' CUDA branch on CPU tensors up to the launch: every
     check a CUDA tensor meets runs, and each launch is recorded (counter,
     C arguments) instead of reaching a kernel. The tensor-core plane
     launcher answers `mma_lanes` for every shape it is asked about, the
     tensor-core fused launcher `fused_lanes`, the TMA gather launcher
     `gather_tma(n, d2, block_rows)`, the tensor-core sign launcher
-    `sign_lanes`."""
+    `sign_lanes`, the bulk sign gather launcher
+    `sign_bulk(ptr, n, d8, block_rows, group)`."""
     calls = []
     for mod in (stage1_int4, stage1_gather, stage2_int8, stage0_sign,
                 fused_topk):
@@ -344,6 +365,7 @@ def _capture_launches(monkeypatch, mma_lanes: int = 0,
     monkeypatch.setattr(stage1_gather, "_tma_takes", gather_tma)
     monkeypatch.setattr(stage0_sign, "_mma_lanes",
                         lambda b, n, d8, rows: sign_lanes)
+    monkeypatch.setattr(stage0_sign, "_bulk_takes", sign_bulk)
     monkeypatch.setattr(_build, "launch",
                         lambda counter, fn, *args, device: calls.append(
                             (counter, args)))
@@ -591,6 +613,136 @@ def test_sign_gather_plain_matches_pallas(b, br, d, n):
         ok = live[i] < n
         np.testing.assert_array_equal(got.numpy()[i][ok],
                                       sd[live[i][ok]] @ sq[i])
+
+
+# (lanes, group, BR, D, N): D = 64 and 512 (the decode and cluster rows'
+# 8 and 64 bytes), 40 (rows of 5 bytes); N never a block multiple.
+GROUPED_SIGN_SHAPES = [(14, 7, 16, 64, 16 * 12 + 3),
+                       (14, 1, 16, 64, 16 * 12 + 3),
+                       (7, 7, 8, 512, 77), (3, 1, 32, 512, 250),
+                       (14, 7, 8, 40, 61), (2, 1, 16, 40, 100)]
+
+
+@pytest.mark.parametrize("b,group,br,d,n", GROUPED_SIGN_SHAPES)
+def test_grouped_sign_gather_matches_pallas(b, group, br, d, n):
+    """The sign gather with one block-table row per `group` lanes (the
+    decode prescreen's query heads of one KV head): the plain version and
+    the wrapper equal the Pallas kernel in interpret mode on the table
+    repeated to one row per lane, bit for bit, including the lanes' rows
+    past N and a block wholly past it."""
+    rng = np.random.default_rng(b * d + n + group)
+    codes = rng.integers(-128, 128, (n, d)).astype(np.int8)
+    q = rng.integers(-128, 128, (b, d)).astype(np.int8)
+    sign = np.asarray(jbitplanar.pack_sign_plane(jnp.asarray(codes)))
+    q_sign = np.asarray(jops.pack_query_signs(jnp.asarray(q)))
+    nb = -(-n // br)
+    ids = rng.integers(0, nb, (b // group, 6)).astype(np.int32)
+    ids[:, -1] = nb - 1
+    ids[0, 0] = nb
+    lane_ids = np.repeat(ids, group, axis=0)
+    padded = np.concatenate([sign, np.zeros((-n % br + br, d // 8),
+                                            np.uint8)])
+    want = np.asarray(stage0_sign_gather_pallas(
+        jnp.asarray(q_sign), jnp.asarray(padded), jnp.asarray(lane_ids),
+        block_rows=br, interpret=True))
+    assert want.shape == (b, 6 * br)
+    for got in (ref.stage0_sign_gather_ref(_t(q_sign), _t(sign), _t(ids), br,
+                                           group=group),
+                ops.stage0_sign_scores_gather(_t(q_sign), _t(sign), _t(ids),
+                                              block_rows=br, group=group),
+                stage0_sign_gather(_t(q_sign), _t(sign), _t(ids),
+                                   block_rows=br, group=group),
+                ops.stage0_sign_scores_gather(_t(q_sign), _t(sign),
+                                              _t(lane_ids), block_rows=br)):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want[:group, :br], np.broadcast_to(
+        q_sign[:group].sum(1, dtype=np.int64)[:, None], (group, br)))
+
+
+def test_sign_gather_group_must_divide_the_lanes(monkeypatch):
+    """A group that does not divide B, or a table without one row per
+    group, raises ValueError on the plain path and on the CUDA path
+    before any launch."""
+    q = torch.ones((6, 64), dtype=torch.int8)
+    plane = torch.zeros((64, 8), dtype=torch.uint8)
+    for group, rows, match in ((4, 2, "group 4 does not divide the 6"),
+                               (0, 2, "group 0 does not divide the 6"),
+                               (2, 2, "block_ids has 2 rows; 6 lanes in "
+                                      "groups of 2 need 3"),
+                               (1, 3, "block_ids has 3 rows")):
+        ids = torch.zeros((rows, 3), dtype=torch.int32)
+        with pytest.raises(ValueError, match=match):
+            ref.stage0_sign_gather_ref(q, plane, ids, 16, group=group)
+        with pytest.raises(ValueError, match=match):
+            ops.stage0_sign_scores_gather(q, plane, ids, block_rows=16,
+                                          group=group)
+    calls = _capture_launches(monkeypatch)
+    for group, rows in ((4, 2), (2, 2)):
+        with pytest.raises(ValueError, match="does not divide|need 3"):
+            stage0_sign_gather(q, plane, torch.zeros((rows, 3),
+                                                     dtype=torch.int32),
+                               block_rows=16, group=group)
+    assert calls == []
+
+
+def test_sign_gather_routes_on_the_launchers_answer(monkeypatch):
+    """The sign gather asks the bulk launcher (`_bulk_takes`, with the
+    plane's address, N, D/8, block_rows and group) and launches the bulk
+    kernel when it answers 2, else the popcount kernel; "bulk" runs it on
+    an answer of 1 too. Both count under the caller's key with the same C
+    arguments (D and group last); a forced popcount route never asks.
+    Asking for the bulk kernel at a shape it does not take, or for a route
+    that does not exist, raises naming it."""
+    asked, answer = [], [2]
+
+    def takes(ptr, n, d8, br, group):
+        asked.append((ptr % 16, n, d8, br, group))
+        return answer[0]
+    calls = _capture_launches(monkeypatch, sign_bulk=takes)
+    functions = []
+    monkeypatch.setattr(_build, "function",
+                        lambda name, symbol, args: functions.append(symbol))
+    q = torch.ones((14, 64), dtype=torch.int8)
+    plane = torch.zeros((100, 8), dtype=torch.uint8)
+    ids = torch.zeros((2, 3), dtype=torch.int32)
+    assert stage0_sign_gather(q, plane, ids, block_rows=16,
+                              group=7).shape == (14, 48)
+    assert ops.stage0_sign_scores_gather_resident(
+        q[:2], plane[:96], ids, block_rows=16).shape == (2, 48)
+    answer[0] = 0
+    assert ops.stage0_sign_scores_gather(q, plane, ids, block_rows=16,
+                                         group=7).shape == (14, 48)
+    answer[0] = 1
+    assert stage0_sign_gather(q, plane, ids, block_rows=16,
+                              group=7).shape == (14, 48)
+    assert stage0_sign_gather(q, plane, ids, block_rows=16, group=7,
+                              route="bulk").shape == (14, 48)
+    answer[0] = 2
+    assert stage0_sign_gather(q, plane, ids, block_rows=16, group=7,
+                              route="popc").shape == (14, 48)
+    assert asked == [(0, 100, 8, 16, 7), (0, 96, 8, 16, 1)] + [
+        (0, 100, 8, 16, 7)] * 3
+    assert functions == ["stage0_sign_bulk_launch", "stage0_sign_bulk_launch",
+                         "stage0_sign_gather_launch",
+                         "stage0_sign_gather_launch",
+                         "stage0_sign_bulk_launch",
+                         "stage0_sign_gather_launch"]
+    assert [c for c, _ in calls] == ["stage0_sign_gather",
+                                     "stage0_sign_gather_resident"] + [
+        "stage0_sign_gather"] * 4
+    assert [args[-6:] for _, args in calls] == [
+        (14, 100, 3, 16, 64, 7), (2, 96, 3, 16, 64, 1)] + [
+        (14, 100, 3, 16, 64, 7)] * 4
+    answer[0] = 0
+    with pytest.raises(ValueError, match="bulk sign gather does not take "
+                                         "N = 100, D = 64, block_rows = 16, "
+                                         "group = 7"):
+        stage0_sign_gather(q, plane, ids, block_rows=16, group=7,
+                           route="bulk")
+    with pytest.raises(ValueError, match="route must be one of"):
+        stage0_sign_gather(q, plane, ids, block_rows=16, route="tma")
+    assert len(calls) == 6
 
 
 @pytest.mark.parametrize("n,d,b,j,br", [(256, 256, 4, 6, 32),
