@@ -4,7 +4,8 @@ The reference's `QuantizedDB`, `BitPlanarDB` and `ClusterCodebook` are
 pytrees of arrays, and its `Arena` and `ClusterIndex` hold arrays plus
 host counters; a caller turns their leaves into numpy (``np.asarray``)
 and hands them here to get the port's objects on a chosen device, so a
-history begun on the reference continues on the port. This module
+history begun on the reference continues on the port. Model parameters
+cross the same way (`dense_params`, `embedder_params`). This module
 imports no JAX.
 """
 from __future__ import annotations
@@ -127,3 +128,43 @@ def cluster_index(centroids, sums, counts, *, generation: int, seed: int = 0,
     out._counts = counts.copy()
     out.generation = int(generation)
     return out
+
+
+def _param_tree(tree, keys: dict, dev: torch.device, where: str) -> dict:
+    """A nested dict of float32 numpy leaves -> the same dict of tensors;
+    `keys` names the required leaves (a dict for a subtree, None for a
+    leaf) and the optional ones in `_OPTIONAL`."""
+    if not isinstance(tree, dict):
+        raise TypeError(f"{where or 'params'} must be a dict")
+    missing = sorted(set(keys) - set(tree))
+    extra = sorted(set(tree) - set(keys) - _OPTIONAL)
+    if missing or extra:
+        raise ValueError(f"{where or 'params'}: missing {missing}, "
+                         f"unexpected {extra}")
+    return {name: (_param_tree(leaf, keys[name], dev, f"{where}{name}.")
+                   if isinstance(keys.get(name), dict)
+                   else _tensor(leaf, np.float32, f"{where}{name}", dev))
+            for name, leaf in tree.items()}
+
+
+_BLOCK = dict.fromkeys(("ln1", "wq", "wk", "wv", "wo", "ln2", "w_gate",
+                        "w_up", "w_down"))
+# qwen2's QKV bias and an untied head
+_OPTIONAL = frozenset(("bq", "bk", "bv", "lm_head"))
+
+
+def dense_params(params, *, device=None) -> dict:
+    """The reference dense model's parameters (`repro.models.dense`; a
+    nested dict of float32 numpy arrays with the per-layer arrays stacked
+    on axis 0) as the port's, on `device`."""
+    return _param_tree(params, {"embed": None, "blocks": _BLOCK,
+                                "final_norm": None},
+                       resolve_device(device), "")
+
+
+def embedder_params(params, *, device=None) -> dict:
+    """The reference embedder's parameters (`repro.models.embedder`) as the
+    port's, on `device`."""
+    return _param_tree(params, {"embed": None, "blocks": _BLOCK,
+                                "final_norm": None, "proj": None},
+                       resolve_device(device), "")

@@ -46,6 +46,14 @@ class QuantizedDB:
         return self.values.shape[1]
 
 
+def true_div(x: torch.Tensor, divisor: float) -> torch.Tensor:
+    """x / divisor correctly rounded on every device, as `jnp` divides. On
+    a CUDA tensor torch turns division by a Python number into a multiply
+    by its reciprocal, which can differ in the last bit; a tensor divisor
+    keeps the true division."""
+    return x / torch.full_like(x, divisor)
+
+
 def quantize_int8(x: torch.Tensor, *, per_vector: bool = False
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric INT8 quantization. Returns (codes int8, scale f32)."""
@@ -54,7 +62,7 @@ def quantize_int8(x: torch.Tensor, *, per_vector: bool = False
         amax = x.abs().amax(dim=-1, keepdim=True)
     else:
         amax = x.abs().amax()
-    scale = torch.clamp(amax, min=1e-12) / INT8_MAX
+    scale = true_div(torch.clamp(amax, min=1e-12), INT8_MAX)
     # Elementwise division by a broadcast tensor: a scalar divisor may be
     # turned into a multiply by its reciprocal, which rounds differently.
     codes = torch.clamp(torch.round(x / scale.expand_as(x)),
@@ -71,7 +79,7 @@ def quantize_int4(x: torch.Tensor, *, per_vector: bool = False
         amax = x.abs().amax(dim=-1, keepdim=True)
     else:
         amax = x.abs().amax()
-    scale = torch.clamp(amax, min=1e-12) / INT4_MAX
+    scale = true_div(torch.clamp(amax, min=1e-12), INT4_MAX)
     codes = torch.clamp(torch.round(x / scale.expand_as(x)),
                         -INT4_MAX - 1, INT4_MAX).to(torch.int8)
     return codes, scale.squeeze(-1) if per_vector else scale
@@ -90,9 +98,8 @@ def unit_norm_scale(dim: int) -> float:
 def quantize_int8_fixed(x: torch.Tensor, scale: float) -> torch.Tensor:
     """Symmetric INT8 quantization with a fixed, caller-supplied scale."""
     x = x.to(torch.float32)
-    s = torch.full_like(x, np.float32(scale))
-    return torch.clamp(torch.round(x / s), -INT8_MAX - 1,
-                       INT8_MAX).to(torch.int8)
+    return torch.clamp(torch.round(true_div(x, np.float32(scale))),
+                       -INT8_MAX - 1, INT8_MAX).to(torch.int8)
 
 
 def dequantize(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,51 @@
+"""Uniform model API: family dispatch for init / prefill / decode (port of
+`repro.models.registry`, its serving half).
+
+`get_model(cfg)` returns a ModelApi whose members close over cfg, so the
+launcher and the RAG pipelines treat every ported architecture the same
+way. The `vlm` family is the dense model fed stub patch embeddings
+(prefix_embeds). The other families and the training loss wait for
+ROADMAP A3.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.models import dense
+from repro_torch.models.common import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelApi:
+    cfg: ModelConfig
+    init: Callable[..., Any]             # (generator, device=None) -> params
+    prefill: Callable[..., Any]          # (params, batch, max_len) -> (logits, cache)
+    decode_step: Callable[..., Any]      # (params, cache, tokens) -> (logits, cache)
+    init_cache: Callable[..., Any]       # (batch_size, max_len, device=None) -> cache
+
+
+def get_model(cfg: ModelConfig) -> ModelApi:
+    if cfg.family not in ("dense", "vlm"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP A3); the "
+            "port serves the dense and vlm families")
+
+    def init(gen: torch.Generator, device=None):
+        return dense.init_params(cfg, gen, device=device)
+
+    def prefill(params, batch, max_len=None):
+        return dense.prefill(params, batch["tokens"], cfg, max_len=max_len,
+                             lengths=batch.get("lengths"),
+                             prefix_embeds=batch.get("prefix_embeds"))
+
+    def decode(params, cache, tokens):
+        return dense.decode_step(params, cache, tokens, cfg)
+
+    def init_cache(batch_size, max_len, device=None):
+        return dense.init_cache(cfg, batch_size, max_len, device=device)
+
+    return ModelApi(cfg=cfg, init=init, prefill=prefill, decode_step=decode,
+                    init_cache=init_cache)

@@ -1,13 +1,18 @@
-"""Serving layer: the deadline batcher, the hot-cluster cache and sparse-KV
-decode.
+"""Serving layer: the deadline batcher, the hot-cluster cache, sparse-KV
+decode, the sampler and the RAG pipelines.
 
-Port of `repro.serve`'s runtime (`serve/runtime.py`) and sparse KV cache
-(`serve/sparse_kv.py`); the RAG pipelines, sampler and sharded runtime of
-the reference package are not ported yet (ROADMAP queue A).
+Port of `repro.serve`: the runtime (`serve/runtime.py`), the sparse KV
+cache (`serve/sparse_kv.py`), the sampler (`serve/sampler.py`) and the
+RAG front ends (`serve/rag.py`). The sharded runtime is ROADMAP A2.
 """
 from repro_torch.serve.runtime import (HotClusterCache, RequestHandle,
                                        RuntimeConfig, ServingRuntime)
 from repro_torch.serve import sparse_kv
+from repro_torch.serve.sampler import decode_loop, generate, sample_tokens
+from repro_torch.serve.rag import (AgentTurnReport, MultiTenantRAGPipeline,
+                                   RAGAgent, RAGPipeline)
 
-__all__ = ["HotClusterCache", "RequestHandle", "RuntimeConfig",
-           "ServingRuntime", "sparse_kv"]
+__all__ = ["AgentTurnReport", "HotClusterCache", "MultiTenantRAGPipeline",
+           "RAGAgent", "RAGPipeline", "RequestHandle", "RuntimeConfig",
+           "ServingRuntime", "decode_loop", "generate", "sample_tokens",
+           "sparse_kv"]

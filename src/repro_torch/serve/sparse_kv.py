@@ -23,7 +23,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import bitplanar, engine, similarity
+from repro_torch.core import bitplanar, engine, quantization, similarity
 
 NEG_INF = -1e30
 
@@ -50,11 +50,11 @@ class QuantKVCache:
 
 def _quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(..., hd) f32 -> (int8 codes (..., hd), f32 scale (...)): symmetric
-    per-row INT8, ``max(amax, 1e-12) / 127``, round half to even. The
-    division is by a broadcast tensor, as `jnp` divides (a scalar divisor
-    may become a multiply by its reciprocal, which rounds differently)."""
+    per-row INT8, ``max(amax, 1e-12) / 127``, round half to even. Both
+    divisions are by tensors, as `jnp` divides (a scalar divisor may
+    become a multiply by its reciprocal, which rounds differently)."""
     amax = x.abs().amax(dim=-1)
-    scale = torch.clamp(amax, min=1e-12) / 127.0
+    scale = quantization.true_div(torch.clamp(amax, min=1e-12), 127.0)
     codes = torch.clamp(torch.round(x / scale[..., None].expand_as(x)),
                         -127, 127).to(torch.int8)
     return codes, scale

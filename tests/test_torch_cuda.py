@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core import (BitPlanarDB, bitplanar, build_database,
-                              clustering, quantize_int8)
+                              clustering, quantization, quantize_int8)
 from repro_torch.core.engine import (MaskedPolicy, PlainPolicy,
                                      RetrievalEngine, WindowedPolicy)
 from repro_torch.core.retrieval import RetrievalConfig, cluster_pruned_retrieve
@@ -33,7 +33,10 @@ from repro_torch.kernels.stage1_int4 import (DEFAULT_ROWS, ROWS_CHOICES,
 from repro_torch.kernels.stage2_int8 import (stage2_int8_batched,
                                              stage2_int8_by_id,
                                              stage2_int8_single)
-from repro_torch.serve import RuntimeConfig, ServingRuntime, sparse_kv
+from repro_torch.configs import get_config
+from repro_torch.models import dense, embedder, get_model
+from repro_torch.serve import (MultiTenantRAGPipeline, RAGAgent, RAGPipeline,
+                               RuntimeConfig, ServingRuntime, sparse_kv)
 from repro_torch.tenancy import Arena, MultiTenantIndex
 
 ZERO_COUNTS = {"stage1_plane": 0, "stage1_rows": 0, "stage2_exact": 0,
@@ -1157,6 +1160,154 @@ def test_decode_cuda_backend_matches_torch_backend(cuda_device, h, kh, hd):
         assert not a.isnan().any() and not a[0].any()
         if kw.get("npages") in (None, t // pr):
             assert torch.equal(a, legacy)
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def _tiny_rag_models():
+    """The CPU RAG tests' widths (tests/test_torch_rag.py), f32 compute,
+    parameters drawn on the CPU."""
+    ecfg = embedder.MINILM_CFG.with_(num_layers=2, d_model=32, num_heads=4,
+                                     num_kv_heads=4, d_ff=64, vocab_size=128,
+                                     pooled_dim=32)
+    gcfg = get_config("qwen2-0.5b", smoke=True).with_(
+        compute_dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    return (ecfg, embedder.init_params(ecfg, gen, device="cpu"), gcfg,
+            dense.init_params(gcfg, gen, device="cpu"))
+
+
+@pytest.mark.gpu
+def test_quantization_scales_on_the_card_equal_the_cpu(cuda_device):
+    """The INT8/INT4 scales and codes (per vector and per tensor) and the
+    KV keys' planes and scales come out bit for bit as on the CPU (and so
+    as the reference's): the scale divides by a tensor, since torch on a
+    CUDA tensor multiplies by the reciprocal of a Python divisor."""
+    x = torch.randn(4096, 64, generator=torch.Generator().manual_seed(5))
+    for fn in (quantize_int8, quantization.quantize_int4):
+        for per_vector in (True, False):
+            want = fn(x, per_vector=per_vector)
+            got = fn(x.to(cuda_device), per_vector=per_vector)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w), (fn.__name__, per_vector)
+    k = x.reshape(8, 128, 4, 64)
+    for g, w in zip(sparse_kv.quantize_keys(k.to(cuda_device)),
+                    sparse_kv.quantize_keys(k)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_rag_pipeline_retrieve_on_the_card_matches_the_cpu(cuda_device):
+    """RAGPipeline.retrieve on the card (kernel backend) against the CPU
+    (plain versions): the same ids and ledger, embeddings within 1e-5;
+    on the card the plain backend gives the kernel backend's bits."""
+    ecfg, ep, gcfg, gp = _tiny_rag_models()
+    api = get_model(gcfg)
+    docs = np.random.default_rng(3).integers(0, 128, (40, 12)).astype(
+        np.int32)
+    cpu = RAGPipeline.build(ecfg, ep, api, gp, docs, RetrievalConfig(k=2),
+                            device="cpu")
+    gpu = RAGPipeline.build(ecfg, _to(ep, cuda_device), api,
+                            _to(gp, cuda_device), docs, RetrievalConfig(k=2))
+    q = docs[[5, 17, 23]]
+    ops.reset_launch_counts()
+    res, ledger = gpu.retrieve(q)
+    counts = ops.launch_counts()
+    assert counts["stage1_plane_mma"] + counts["stage1_plane"] == 1
+    assert counts["stage2_by_id"] == 1
+    want, want_ledger = cpu.retrieve(q)
+    assert torch.equal(res.indices.cpu(), want.indices)
+    assert res.indices[:, 0].tolist() == [5, 17, 23]
+    assert ledger.total_uj == want_ledger.total_uj
+    got_e = embedder.encode(gpu.emb_params, torch.from_numpy(q), ecfg)
+    want_e = embedder.encode(cpu.emb_params, torch.from_numpy(q), ecfg)
+    assert float((got_e.cpu() - want_e).abs().max()) < 1e-5
+    gpu.retrieval_cfg = RetrievalConfig(k=2, backend="torch")
+    plain, _ = gpu.retrieve(q)
+    assert torch.equal(plain.indices, res.indices)
+    assert torch.equal(plain.scores, res.scores)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knobs", [dict(top_k=8),
+                                   dict(top_k=6, npages=3, prescreen_c0=10)])
+def test_decode_step_quant_on_the_card_matches_the_cpu(cuda_device, knobs):
+    """One decode_step_quant step at the CPU tests' widths: the card's
+    kernel backend equals its plain backend bit for bit and the CPU within
+    1e-4; a cache quantized on the card from the CPU's K equals the CPU's
+    bit for bit; #2 and #8 launch once per layer when the schedule asks."""
+    _, _, gcfg, gp = _tiny_rag_models()
+    gpu_p = _to(gp, cuda_device)
+    page_rows = 4 if "npages" in knobs else None
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 128, (2, 13)).astype(np.int32))
+    _, cpu_kv = dense.prefill(gp, toks[:, :12], gcfg, max_len=16)
+    _, gpu_kv = dense.prefill(gpu_p, toks[:, :12].to(cuda_device), gcfg,
+                              max_len=16)
+    assert float((gpu_kv.k.cpu() - cpu_kv.k).abs().max()) < 1e-4
+    cpu_q = dense.quantize_cache(cpu_kv, page_rows=page_rows)
+    same_k = dense.quantize_cache(dense.KVCache(
+        k=cpu_kv.k.to(cuda_device), v=cpu_kv.v.to(cuda_device),
+        length=cpu_kv.length.to(cuda_device)), page_rows=page_rows)
+    for f in ("k_msb", "k_lsb", "k_scale", "cent_msb", "cent_scale"):
+        a, b = getattr(same_k, f), getattr(cpu_q, f)
+        assert (a is None and b is None) or torch.equal(a.cpu(), b), f
+    tok = toks[:, 12:13]
+    want, _ = dense.decode_step_quant(gp, cpu_q, tok, gcfg, **knobs)
+    outs = []
+    for backend in ("cuda", "torch"):
+        qc = dense.quantize_cache(dense.KVCache(
+            k=gpu_kv.k.clone(), v=gpu_kv.v, length=gpu_kv.length.clone()),
+            page_rows=page_rows)
+        ops.reset_launch_counts()
+        outs.append(dense.decode_step_quant(gpu_p, qc, tok.to(cuda_device),
+                                            gcfg, backend=backend,
+                                            **knobs)[0])
+        if backend == "cuda":
+            counts = ops.launch_counts()
+            layers = gcfg.num_layers
+            assert counts["stage1_rows"] == (
+                layers if "npages" in knobs else 0)
+            assert counts["stage0_sign_gather"] == (
+                layers if "prescreen_c0" in knobs else 0)
+    assert torch.equal(outs[0], outs[1])
+    assert float((outs[0].cpu() - want).abs().max()) < 1e-4
+
+
+@pytest.mark.gpu
+def test_rag_agent_turn_on_the_card_matches_the_cpu(cuda_device):
+    """RAGAgent.turn over a 2-tenant pipeline on the card and on the CPU,
+    f32 compute: the same slots, ids, greedy tokens, µJ and decode steps;
+    #8 launched once per layer per quantized step."""
+    ecfg, ep, gcfg, gp = _tiny_rag_models()
+    api = get_model(gcfg)
+    rng = np.random.default_rng(0)
+    docs = [rng.integers(0, 128, size=(6, 4)) for _ in range(2)]
+    q = rng.integers(0, 128, size=(2, 4))
+    reps = []
+    for dev in ("cpu", cuda_device):
+        pipe = MultiTenantRAGPipeline.create(
+            ecfg, _to(ep, dev), api, _to(gp, dev), capacity=64, doc_len=4,
+            device=dev)
+        for t in range(2):
+            pipe.ingest(t, docs[t])
+        rt = ServingRuntime(pipe.index, RuntimeConfig(max_batch=2))
+        agent = RAGAgent(pipeline=pipe, runtime=rt, top_k=16, npages=4,
+                         prescreen_c0=24, page_rows=8)
+        ops.reset_launch_counts()
+        reps.append(agent.turn(np.array([0, 1]), q, max_new=6))
+        counts = ops.launch_counts()
+        assert rt.decode_steps == 6
+    assert counts["stage0_sign_gather"] == 5 * gcfg.num_layers
+    assert counts["stage1_rows"] == 5 * gcfg.num_layers + rt.launches
+    cpu, gpu = reps
+    np.testing.assert_array_equal(gpu.retrieved, cpu.retrieved)
+    assert torch.equal(gpu.tokens.cpu(), cpu.tokens)
+    assert (gpu.uj_per_query, gpu.uj_per_token) == (cpu.uj_per_query,
+                                                     cpu.uj_per_token)
 
 
 def test_multi_tenant_index_needs_cuda_or_an_explicit_cpu():
