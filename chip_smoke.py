@@ -35,6 +35,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
                backend's bit for bit, the exact scores must equal the INT8
                dot products, and recall@5 against the planted gold is
                checked.
+ 5b. sharded — ROADMAP A2's serving half, S logical shard slots on this
+               one card (the code path of S cards, not multi-card
+               scaling). (a) `ShardedIndex` over the arena corpus at 1, 3
+               (2 pad rows) and 8 slots, cosine and MIPS, B = 32 batches:
+               bit-identical to the plain backend and to the unsharded
+               engine, no pad id, recall@5 >= 0.95, #1 and #3-by-id
+               launched exactly S times per batch (never dp4a or the
+               gathered rows); #1 at each shard's shape against its bound
+               and `torch._int_mm`; the all-negative MIPS corpus padded to
+               4. (b) `ShardedServingRuntime`: the 512 users as tenants
+               over 4 shards of 2^19 rows, 1536 requests (3 per tenant)
+               with a poll every 32 submits: MIPS spread 1 and 2 (budget
+               2048), cosine (budget 50), MIPS with `fail_shard` at
+               request 768; each equal to a 1-shard baseline (the
+               failover's scores, its indices to the exact oracle), the
+               ledger exactly once, the kernel backend equal to the plain
+               one (cosine). Prints per run the turn p50 and max,
+               queries/s, lanes per shard, stage-1 bytes, launches, and
+               the failover's ms, moved tenants and restored docs. (c),
+               in the rag phase: `RAGPipeline.build(mesh=(4, 2))` equal to
+               the unsharded pipeline, and the launchers with `--data 2
+               --model 2` and with `--shards 4 --fail-at 20`.
   6. autotune — this slice's path. The single-query and fused kernels and
                the dense sign scan (table rows 4, 5, 7, 9, 10) against their
                plain versions, bit-exact at full width (the arena corpus;
@@ -170,8 +192,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 Then the exact wrappers' and the block gather's host microseconds per
 call (`host_us_per_call`).
 The line before the last is a JSON object describing every kernel
-(launches: the sum over the main, autotune, cluster, tenancy, serving,
-decode and rag paths; `stage1_gather_resident` and `stage0_sign_gather_resident`
+(launches: the sum over the main, sharded, autotune, cluster, tenancy,
+serving, decode and rag paths; `stage1_gather_resident` and `stage0_sign_gather_resident`
 are counted by the resident wrappers where they launch, which only the
 serving phase's cached segments call; the `@decode_hd64` rows are #2 and
 #8 at the decode phase's shapes, with the decode path's launches); the last
@@ -208,6 +230,8 @@ from repro_torch.core.engine import (ClusterPolicy,  # noqa: E402
                                      RetrievalEngine, WindowedPolicy,
                                      select_clusters, stage_fns)
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.index import (ShardedIndex,  # noqa: E402
+                                    pad_database, shard_database)
 from repro_torch.core.retrieval import RetrievalConfig  # noqa: E402
 from repro_torch.core.similarity import stable_topk  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
@@ -223,11 +247,14 @@ from repro_torch.kernels.stage1_int4 import (  # noqa: E402
     DEFAULT_ROWS, stage1_int4_batched, stage1_int4_rows, stage1_int4_single)
 from repro_torch.kernels.stage2_int8 import (  # noqa: E402
     stage2_int8_batched, stage2_int8_by_id, stage2_int8_single)
+from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.models import dense, embedder, get_model  # noqa: E402
 from repro_torch.models.common import param_count  # noqa: E402
 from repro_torch.serve import (HotClusterCache,  # noqa: E402
                                MultiTenantRAGPipeline, RAGAgent, RAGPipeline,
-                               RuntimeConfig, ServingRuntime, sparse_kv)
+                               RuntimeConfig, ServingRuntime,
+                               ShardedRuntimeConfig, ShardedServingRuntime,
+                               sparse_kv)
 from repro_torch.tenancy import (CrossTenantBatchScheduler,  # noqa: E402
                                  MultiTenantIndex)
 
@@ -2710,7 +2737,7 @@ def _resident_kernels(dev, cache, arena) -> list[dict]:
 
 
 def _count_against_profile(label, fn, counter, symbol, reps=20,
-                           traces=3) -> None:
+                           traces=8) -> None:
     """ROADMAP C6: `reps` calls of a wrapper with its launch counter read
     before and after and the calls traced: in one window opened at the
     first call (printed), then after a warm-up step (`_traced`). Every
@@ -3321,6 +3348,411 @@ def phase_decode(dev) -> tuple[list[dict], dict[str, int]]:
     return rows, launches
 
 
+# -- the sharded phase -----------------------------------------------------
+# ROADMAP A2's serving half on the card: S logical shard slots on cuda:0
+# (the routing, tournament, placement and failover logic of S cards; no
+# multi-card scaling is measured). (a) `ShardedIndex` over the arena
+# corpus at 1, 3 (2^20 mod 3 = 1: 2 pad rows) and 8 slots (the reference's
+# (4, 2) test mesh); (b) `ShardedServingRuntime` with the arena corpus's
+# 512 users as 512 tenants over 4 shards of 2^19 rows, a 1536-request
+# trace (3 per tenant) driven as the reference launcher's `drive` does
+# (a poll every 32 submits), each run against a 1-shard baseline of 2^20
+# rows; (c) `RAGPipeline.build(mesh=)` and the two launchers, from the
+# rag phase.
+SHARD_SHAPES = ((1, 1), (3, 1), (4, 2))
+SHARD_KERNELS = ("stage1_plane_mma", "stage2_by_id")
+SHARD_OFF_PATH = ("stage1_plane", "stage2_exact")
+SRV_SHARDS, SRV_CAPACITY, SRV_PER_TENANT, SRV_ROUNDS = 4, 1 << 19, 3, 2
+SRV_FAIL_AT = 768       # request 768 is tenant 256's second
+SRV_RUNS = (            # (label, metric, spread, fail at)
+    ("mips", "mips", 1, -1), ("mips_spread2", "mips", 2, -1),
+    ("cosine", "cosine", 1, -1), ("mips_failover", "mips", 1, SRV_FAIL_AT))
+
+
+def _add_counts(total: dict[str, int], counts: dict[str, int]) -> None:
+    for key, n in counts.items():
+        total[key] = total.get(key, 0) + n
+
+
+def _plane_at_shard(card, q_msb, plane) -> None:
+    """#1 at one shard's shape: CUDA-event time, device-only time, bound and
+    `torch._int_mm` (its column count padded to a multiple of 8, as
+    `_int_mm` requires) on the same operands."""
+    n, d2 = plane.shape
+    panel = ops.pack_query_panel(q_msb)
+    want = stage1_int4_batched(panel, plane)
+    n8 = -(-n // 8) * 8
+    unpacked = torch.zeros((n8, D), dtype=torch.int8, device=plane.device)
+    unpacked[:n] = bitplanar.unpack_nibble_plane_signed(plane)
+    unpacked_t = unpacked.t()
+    q8 = q_msb.contiguous()
+    if not torch.equal(torch._int_mm(q8, unpacked_t)[:, :n], want):
+        raise AssertionError("sharded: torch._int_mm disagrees with #1 at "
+                             f"n_local={n}")
+    lib_ms = time_ms(lambda: torch._int_mm(q8, unpacked_t))
+    del unpacked, unpacked_t
+    t_bound, by = bound_ms(2 * B * d2 + n * d2 + B * n * 4, 2 * B * n * D)
+    dev_us = kernel_device_us(lambda: stage1_int4_batched(panel, plane),
+                              "::plane_mma_kernel<")
+    log(f"kernel stage1_plane_mma@shard n_local={n} ({card}): kernel_ms "
+        f"{time_ms(lambda: stage1_int4_batched(panel, plane)):.4f} "
+        f"device_only_us {dev_us} bound_us {t_bound * 1e3:.2f} ({by})"
+        f"{_share(t_bound, dev_us)} library_ms {lib_ms:.4f} (torch._int_mm "
+        f"on the pre-unpacked int8 rows, {n8} columns)")
+
+
+def _pad_rows_on_card(dev) -> None:
+    """tests/test_sharded_serving.py:106-135 on the card: six docs
+    anti-correlated with the query, padded to 4 slots."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    q = torch.randn(64, generator=gen, device=dev)
+    emb = -q[None, :] + 0.05 * torch.randn(6, 64, generator=gen, device=dev)
+    bp = bitplanar.BitPlanarDB.from_quantized(
+        quantization.build_database(emb, device=dev))
+    mesh = make_test_mesh(4, 1)
+    index = ShardedIndex(db=shard_database(pad_database(bp, 4), mesh),
+                         mesh=mesh, n_global=6)
+    qc = quantization.quantize_int8_fixed(q, float(bp.scale))
+    res = index.retrieve_fn(RetrievalConfig(k=3, metric="mips"))(qc)
+    if bool((res.indices >= 6).any()) or bool((res.scores >= 0).any()):
+        raise AssertionError(f"sharded pad rows: ids {res.indices.tolist()} "
+                             f"scores {res.scores.tolist()}")
+
+
+def phase_sharded_index(db, q_codes, gold, dev, card) -> dict[str, int]:
+    """(a): B = 32 batches through `ShardedIndex.retrieve_fn` at 1, 3 and 8
+    shard slots on this card, cosine and MIPS, with the launch counts set
+    to 0 just before each metric's batches and read just after. Returns
+    the path's launches."""
+    total: dict[str, int] = {}
+    q_all = q_codes[:B * BATCHES]
+    for shape in SHARD_SHAPES:
+        s = shape[0] * shape[1]
+        mesh = make_test_mesh(*shape)
+        index = ShardedIndex(db=shard_database(pad_database(db, s), mesh),
+                             mesh=mesh, n_global=N)
+        n_local = index.db[0].num_docs
+        for metric in ("cosine", "mips"):
+            cfg = RetrievalConfig(k=K, metric=metric)
+            fn = index.retrieve_fn(cfg)
+            fn(q_all[:B])
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            lat, outs = [], []
+            for i in range(BATCHES):
+                sl = slice(i * B, (i + 1) * B)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(fn(q_all[sl]))
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t0)
+            counts = ops.launch_counts()
+            _add_counts(total, counts)
+            label = f"sharded index S={s} {metric}"
+            for key in SHARD_KERNELS:
+                if counts[key] != s * BATCHES:
+                    raise AssertionError(f"{label}: {key} launched "
+                                         f"{counts[key]} times, not {s} per "
+                                         f"batch")
+            for key in SHARD_OFF_PATH:
+                if counts[key]:
+                    raise AssertionError(f"{label}: {key} launched")
+            plain = index.retrieve_fn(dataclasses.replace(cfg,
+                                                          backend="torch"))
+            engine_ = RetrievalEngine(cfg, dev)
+            hits = 0
+            for i, res in enumerate(outs):
+                sl = slice(i * B, (i + 1) * B)
+                want = plain(q_all[sl])
+                whole = engine_.retrieve(q_all[sl], db, PlainPolicy())
+                for field in ("indices", "scores", "candidate_indices"):
+                    if not torch.equal(getattr(res, field),
+                                       getattr(want, field)):
+                        raise AssertionError(f"{label} batch {i}: {field} "
+                                             "differs from the plain backend")
+                    if not torch.equal(getattr(res, field),
+                                       getattr(whole, field)):
+                        raise AssertionError(f"{label} batch {i}: {field} "
+                                             "differs from the unsharded "
+                                             "engine")
+                if bool((res.indices >= N).any()):
+                    raise AssertionError(f"{label}: a pad row was returned")
+                hits += int((res.indices.long() == gold[sl][:, None]).any(
+                    dim=1).sum())
+            recall = hits / (B * BATCHES)
+            if recall < 0.95:
+                raise AssertionError(f"{label}: recall@{K} {recall} < 0.95")
+            p50 = statistics.median(lat)
+            kernels = device_profile(lambda: fn(q_all[:B]))
+            busy = sum(t for _, t, _ in kernels) * 1e-6
+            launched = sum(n for _, _, n in kernels)
+            log(f"{label} ({card}): n_local {n_local} "
+                f"({n_local * s - N} pad rows); recall@{K} {recall:.4f} "
+                f"p50_batch_ms {p50 * 1e3:.3f} queries_per_s "
+                f"{B / p50:.1f}; device_busy_ms {busy * 1e3:.3f} (idle "
+                f"share {1 - busy / p50:.3f}); {launched:.0f} kernel "
+                f"launches per batch, #1 and #3-by-id {s} each; equal to "
+                f"the plain backend and to the unsharded engine bit for bit")
+        if s > 1:
+            _plane_at_shard(card, quantization.msb_nibble(q_all[:B]),
+                            index.db[0].msb_plane)
+        del index
+        torch.cuda.empty_cache()
+    _pad_rows_on_card(dev)
+    log(f"sharded index: the all-negative six-document MIPS corpus padded "
+        f"to 4 slots returns no pad id and only negative scores")
+    return total
+
+
+def _srv_cfg(metric, spread, shards, capacity, backend="cuda"):
+    budget = (dict(candidate_frac=1.0, max_candidates=DOCS_PER_USER)
+              if metric == "mips" else {})
+    return ShardedRuntimeConfig(
+        num_shards=shards, capacity_per_shard=capacity, dim=D, spread=spread,
+        retrieval=RetrievalConfig(k=K, metric=metric, backend=backend,
+                                  **budget),
+        runtime=RuntimeConfig(max_batch=B, max_wait=1.0, cache_bytes=0,
+                              auto_flush=False))
+
+
+def _srv_build(cfg, codes) -> tuple[ShardedServingRuntime, float]:
+    """Every user's 2048 codes ingested in SRV_ROUNDS rounds, so each
+    tenant is that many runs of its shard's arena and batches take the
+    Masked policy (#1 over the arena, #3 by id)."""
+    rt = ShardedServingRuntime(cfg)
+    per = DOCS_PER_USER // SRV_ROUNDS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in range(SRV_ROUNDS):
+        for t in range(USERS):
+            lo = t * DOCS_PER_USER + r * per
+            rt.ingest_codes(t, codes[lo:lo + per])
+    torch.cuda.synchronize()
+    return rt, time.perf_counter() - t0
+
+
+def _srv_drive(rt, trace, fail_at=-1):
+    """The reference launcher's drive: submit in order on a simulated
+    clock, poll every 32 submits, flush; `fail_at` kills the shard owning
+    that request's tenant first. Per 32-request turn: host clock around
+    its submits and poll, the card synchronized at its end."""
+    handles, turns, report, fail_ms = [], [], None, None
+    now = 0.0
+    torch.cuda.synchronize()
+    t_start = t_turn = time.perf_counter()
+    for i, (t, q) in enumerate(trace):
+        if i == fail_at:
+            t0 = time.perf_counter()
+            report = rt.fail_shard(rt.placement.shard_of(t), now=now)
+            torch.cuda.synchronize()
+            fail_ms = (time.perf_counter() - t0) * 1e3
+        now += 1e-3
+        handles.append(rt.submit(t, q, now=now))
+        if i % B == B - 1:
+            rt.poll(now=now)
+            torch.cuda.synchronize()
+            turns.append(time.perf_counter() - t_turn)
+            t_turn = time.perf_counter()
+    rt.flush(now=now + 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    return handles, turns, wall, report, fail_ms
+
+
+def _srv_check(label, rt, handles, base, codes, trace, gold_ord,
+               fail_at) -> float:
+    """Every result against its baseline (indices too unless a failover
+    ran) and the exact oracle, the ledger, no foreign row; returns
+    recall@k against the planted gold."""
+    hits = 0
+    for i, (h, (t, q)) in enumerate(zip(handles, trace)):
+        r = h.result()
+        idx, sc = np.asarray(r.indices), np.asarray(r.scores)
+        bi, bs = base[i]
+        if not np.array_equal(sc, bs) or (fail_at < 0
+                                          and not np.array_equal(idx, bi)):
+            raise AssertionError(f"sharded serving {label}: request {i} "
+                                 f"({idx}, {sc}) != 1-shard ({bi}, {bs})")
+        if ((idx < 0) | (idx >= DOCS_PER_USER)).any():
+            raise AssertionError(f"sharded serving {label}: request {i} "
+                                 f"holds ordinals {idx}")
+        rows = codes[t * DOCS_PER_USER + idx].astype(np.int64)
+        if not np.array_equal(rows @ q.astype(np.int64), sc):
+            raise AssertionError(f"sharded serving {label}: request {i} "
+                                 "scores are not its tenant's exact dots")
+        hits += int(gold_ord[i] in idx)
+    led = rt.ledger()
+    fails = int(fail_at >= 0)
+    if not (led["submitted"] == led["resolved"] == len(trace)
+            and led["dropped"] == led["duplicated"] == 0
+            and led["failovers"] == fails):
+        raise AssertionError(f"sharded serving {label}: ledger {led}")
+    return hits / len(trace)
+
+
+def phase_sharded_serving(qdb, dev, card) -> dict[str, int]:
+    """(b): the arena corpus's users as tenants of a ShardedServingRuntime
+    (see SRV_* above). Returns the path's launches."""
+    codes = qdb.values.cpu().numpy()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    tenants = torch.arange(USERS, device=dev).repeat(SRV_PER_TENANT)
+    pick = torch.randint(0, DOCS_PER_USER, (tenants.numel(),),
+                         generator=gen, device=dev)
+    noise = _unit(torch.randn(tenants.numel(), D, generator=gen, device=dev))
+    q = _unit(_unit(qdb.values[tenants * DOCS_PER_USER + pick].float())
+              + NOISE * noise)
+    q_codes, _ = quantization.quantize_int8(q, per_vector=True)
+    trace = list(zip(tenants.tolist(), q_codes.cpu().numpy()))
+    gold_ord = pick.cpu().numpy()
+    total: dict[str, int] = {}
+    bases = {}
+    for metric in ("mips", "cosine"):
+        rt, ingest_s = _srv_build(_srv_cfg(metric, 1, 1, 1 << 20), codes)
+        handles, turns, wall, _, _ = _srv_drive(rt, trace)
+        bases[metric] = [(np.asarray(h.result().indices),
+                          np.asarray(h.result().scores)) for h in handles]
+        log(f"sharded serving baseline {metric} ({card}): 1 shard of 2^20 "
+            f"rows, {N} docs ingested in {ingest_s:.2f} s; "
+            f"{len(trace)} requests p50_turn_ms "
+            f"{statistics.median(turns) * 1e3:.3f} max_turn_ms "
+            f"{max(turns) * 1e3:.3f} queries_per_s {len(trace) / wall:.1f} "
+            f"launches {rt.ledger()['launches']}")
+        del rt, handles
+    for label, metric, spread, fail_at in SRV_RUNS:
+        rt, ingest_s = _srv_build(_srv_cfg(metric, spread, SRV_SHARDS,
+                                           SRV_CAPACITY), codes)
+        ops.reset_launch_counts()
+        handles, turns, wall, report, fail_ms = _srv_drive(rt, trace, fail_at)
+        counts = ops.launch_counts()
+        _add_counts(total, counts)
+        for key in SHARD_KERNELS:
+            if counts[key] <= 0:
+                raise AssertionError(f"sharded serving {label}: {key} was "
+                                     "not launched")
+        for key in SHARD_OFF_PATH:
+            if counts[key]:
+                raise AssertionError(f"sharded serving {label}: {key} was "
+                                     "launched")
+        recall = _srv_check(label, rt, handles, bases[metric], codes, trace,
+                            gold_ord, fail_at)
+        led = rt.ledger()
+        msg = (f"sharded serving {label} ({card}): {SRV_SHARDS} shards x "
+               f"2^19 rows on one card, spread {spread}, {N} docs ingested "
+               f"in {ingest_s:.2f} s; {len(trace)} requests p50_turn_ms "
+               f"{statistics.median(turns) * 1e3:.3f} max_turn_ms "
+               f"{max(turns) * 1e3:.3f} queries_per_s "
+               f"{len(trace) / wall:.1f} recall@{K} {recall:.4f}; lanes per "
+               f"shard {led['shard_lanes_served']}; stage-1 bytes "
+               f"{led['stage1_bytes_hbm']:,}; launches {led['launches']} "
+               f"({ {k: n for k, n in counts.items() if n} }); equal to the "
+               f"1-shard run")
+        if report is not None:
+            moved = report["moved_tenants"]
+            if report["docs_restored"] != DOCS_PER_USER * len(moved) or \
+                    led["docs_restored"] != report["docs_restored"]:
+                raise AssertionError(f"sharded serving {label}: {report}")
+            msg += (f" (scores; indices to the exact oracle); fail_shard "
+                    f"{report['shard']} at request {fail_at}: "
+                    f"{fail_ms:.1f} ms, {len(moved)} tenants moved, "
+                    f"{report['docs_restored']} docs restored, "
+                    f"{report['requests_resubmitted']} requests resubmitted, "
+                    f"live shards {report['live_shards']}")
+        log(msg)
+        if label == "cosine":
+            plain, _ = _srv_build(_srv_cfg(metric, spread, SRV_SHARDS,
+                                           SRV_CAPACITY, backend="torch"),
+                                  codes)
+            want, _, _, _, _ = _srv_drive(plain, trace)
+            for i, (h, w) in enumerate(zip(handles, want)):
+                for field in ("indices", "scores", "candidate_indices"):
+                    if not np.array_equal(getattr(h.result(), field),
+                                          getattr(w.result(), field)):
+                        raise AssertionError(f"sharded serving cosine: "
+                                             f"request {i} {field} differs "
+                                             "from the plain backend")
+            log("sharded serving cosine: the kernel backend equals the "
+                "plain backend bit for bit (indices, scores, candidates)")
+            del plain, want
+        del rt, handles
+        torch.cuda.empty_cache()
+    return total
+
+
+def _rag_sharded(card, pipe, q, ecfg, eparams, gen_api, gparams
+                 ) -> dict[str, int]:
+    """(c): the single user's pipeline rebuilt over a (4, 2) mesh of slots
+    on this card: the same retrieved ids and greedy tokens as the
+    unsharded pipeline; one retrieve launches #1 and #3-by-id 8 times.
+    Returns that retrieve's launches."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spipe = RAGPipeline.build(ecfg, eparams, gen_api, gparams,
+                              pipe.doc_tokens, pipe.retrieval_cfg,
+                              mesh=make_test_mesh(4, 2))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    res, ledger = spipe.retrieve(q)
+    counts = ops.launch_counts()
+    want, want_ledger = pipe.retrieve(q)
+    for key in SHARD_KERNELS:
+        if counts[key] != 8:
+            raise AssertionError(f"rag sharded: {key} launched {counts[key]} "
+                                 "times, not once per slot")
+    if not (torch.equal(res.indices, want.indices)
+            and torch.equal(res.scores, want.scores)
+            and ledger.total_uj == want_ledger.total_uj):
+        raise AssertionError("rag sharded: retrieve differs from the "
+                             "unsharded pipeline")
+    out, ids, _ = spipe.answer(q, max_new=RAG_MAX_NEW)
+    wout, wids, _ = pipe.answer(q, max_new=RAG_MAX_NEW)
+    if not (torch.equal(ids, wids) and torch.equal(out, wout)):
+        raise AssertionError("rag sharded: answer differs from the "
+                             "unsharded pipeline")
+    log(f"rag sharded ({card}): RAGPipeline.build(mesh=make_test_mesh(4, "
+        f"2)) over {RAG_DOCS} docs in {build_s * 1e3:.1f} ms, 8 slots of "
+        f"{spipe.index.db[0].num_docs} rows on one card; retrieve and "
+        f"greedy answer ({RAG_MAX_NEW} tokens) equal to the unsharded "
+        f"pipeline; one retrieve of B = {RAG_B}: "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    return counts
+
+
+def _sharded_launchers(card) -> None:
+    """(c): the two launchers with a mesh and with shards, on this card,
+    run side by side."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = (
+        (["repro_torch.launch.serve", "--requests", "4", "--num-docs", "64",
+          "--max-new", "4", "--data", "2", "--model", "2"],
+         ("top-1 hit 4/4", "mesh={'data': 2, 'model': 2}")),
+        (["repro_torch.launch.serve_tenants", "--tenants", "8",
+          "--capacity", "1024", "--steps", "40", "--shards", "4",
+          "--fail-at", "20"],
+         ("cross-tenant leaks 0", "parity vs single shard: True",
+          "exactly-once: True")))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", *argv], cwd=ROOT,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for argv, _ in runs]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (argv, must), (out, err) in zip(procs, runs, outs):
+        if p.returncode != 0 or not all(m in out for m in must):
+            raise AssertionError(f"{argv[0]}: rc {p.returncode}\n{out}\n"
+                                 f"{err[-4000:]}")
+        keep = [line for line in out.splitlines()
+                if line.startswith(("[offline]", "[online]", "[trace]",
+                                    "[query ]", "[shard ]"))]
+        log(f"sharded launcher ({card}): python -m {' '.join(argv)}: rc 0 "
+            f"(both in {time.perf_counter() - t0:.1f} s); "
+            + " | ".join(keep))
+
+
 # -- the rag phase -------------------------------------------------------
 # The models and the RAG pipeline at both models' full widths:
 # qwen2-0.5b (src/repro_torch/configs/qwen2_0_5b.py: 24 layers x 896, 14
@@ -3644,10 +4076,11 @@ def _rag_launcher(card) -> None:
         f"{time.perf_counter() - t0:.1f} s; " + " | ".join(lines))
 
 
-def phase_rag(dev, card: str) -> dict[str, int]:
+def phase_rag(dev, card: str) -> tuple[dict[str, int], dict[str, int]]:
     """The models and the RAG pipeline at full width (see RAG_* above).
-    Returns the path's launches: the single user's RAGPipeline and the
-    tenants' two agent turns, driven with the counts set to 0 before."""
+    Returns the path's launches (the single user's RAGPipeline and the
+    tenants' two agent turns, driven with the counts set to 0 before) and
+    the sharded pipeline's (`_rag_sharded`)."""
     t0 = time.perf_counter()
     gcfg = get_config("qwen2-0.5b")
     ecfg = get_config("minilm-embedder")
@@ -3692,6 +4125,8 @@ def phase_rag(dev, card: str) -> dict[str, int]:
             f"{agent.runtime.decode_steps}, energy_uj_per_token count "
             f"{reg.snapshot()['histograms']['energy_uj_per_token']['count']}")
         _rag_kernel_equals_plain(pipe, q1, agent, q, gparams, gcfg)
+        sharded = _rag_sharded(card, pipe, q1, ecfg, eparams, gen_api,
+                               gparams)
         del pipe
         _rag_step_times(card, agent, q, gparams, gcfg)
         del agent
@@ -3700,6 +4135,7 @@ def phase_rag(dev, card: str) -> dict[str, int]:
         del gparams, eparams
     torch.cuda.empty_cache()
     _rag_launcher(card)
+    _sharded_launchers(card)
     log(f"rag ({card}): peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; the phase "
         f"took {time.perf_counter() - t0:.1f} s")
@@ -3707,7 +4143,7 @@ def phase_rag(dev, card: str) -> dict[str, int]:
         if launches.get(key, 0) <= 0:
             raise AssertionError(f"kernel {key} was not launched by the rag "
                                  "path")
-    return launches
+    return launches, sharded
 
 
 # Host cost of the exact wrappers and of the block gather on each of its
@@ -3770,6 +4206,8 @@ def main() -> int:
     qdb, db, q_codes, gold = phase_corpus(dev)
     kernels = phase_kernels(db, q_codes, dev)
     launches = phase_main(qdb, db, q_codes, gold, dev)
+    sharded_launches = phase_sharded_index(db, q_codes, gold, dev, card)
+    _add_counts(sharded_launches, phase_sharded_serving(qdb, dev, card))
     new_kernels = phase_new_kernels(db, q_codes, gold, dev)
     tune_launches = phase_autotune(qdb, db, q_codes, gold, dev)
     del qdb, db, q_codes, gold
@@ -3781,11 +4219,14 @@ def main() -> int:
     del served
     torch.cuda.empty_cache()
     decode_rows, decode_launches = phase_decode(dev)
-    rag_launches = phase_rag(dev, card)
+    rag_launches, rag_sharded = phase_rag(dev, card)
+    _add_counts(sharded_launches, rag_sharded)
+    log(f"sharded path launches ({card}): {sharded_launches}")
     for k in kernels:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in (
-            launches, tune_launches, cluster_launches, tenancy_launches,
-            serving.launches, decode_launches, rag_launches))
+            launches, sharded_launches, tune_launches, cluster_launches,
+            tenancy_launches, serving.launches, decode_launches,
+            rag_launches))
     kernels += decode_rows
     phase_host_us(dev)
     log(json.dumps({"kernels": kernels}))

@@ -1,6 +1,8 @@
 """Device selection and host-to-device copies shared by the port."""
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -15,6 +17,27 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the plain PyTorch path on the CPU")
     return dev
+
+
+def visible_devices(device: str | torch.device | None = None
+                    ) -> list[torch.device]:
+    """The devices shard slots are dealt over, as the reference deals them
+    over `jax.devices()`: every visible CUDA device when `device` names
+    CUDA without an index (the default), else `device` alone. Raises as
+    `resolve_device` does."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def current(dev: torch.device):
+    """A context in which `dev` is the current device (the counterpart of
+    `jax.default_device`): launches on a CUDA device go to that card's own
+    current stream. Nothing to switch for the CPU."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
 
 
 def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:

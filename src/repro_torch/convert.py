@@ -5,7 +5,8 @@ pytrees of arrays, and its `Arena` and `ClusterIndex` hold arrays plus
 host counters; a caller turns their leaves into numpy (``np.asarray``)
 and hands them here to get the port's objects on a chosen device, so a
 history begun on the reference continues on the port. Model parameters
-cross the same way (`dense_params`, `embedder_params`). This module
+cross the same way (`dense_params`, `embedder_params`), and a sharded
+index as its padded arrays (`sharded_index`). This module
 imports no JAX.
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.bitplanar import BitPlanarDB
 from repro_torch.core.clustering import ClusterCodebook, ClusterIndex
+from repro_torch.core.index import ShardedIndex, shard_database
 from repro_torch.core.quantization import QuantizedDB
 from repro_torch.tenancy.arena import Arena, ArenaStats
 
@@ -48,6 +50,19 @@ def bitplanar_db(msb_plane, lsb_plane, norms_sq, scale, sign_plane=None, *,
         scale=_tensor(scale, np.float32, "scale", dev),
         sign_plane=(None if sign_plane is None else
                     _tensor(sign_plane, np.uint8, "sign_plane", dev)))
+
+
+def sharded_index(msb_plane, lsb_plane, norms_sq, scale, *, n_global: int,
+                  mesh) -> ShardedIndex:
+    """The reference `ShardedIndex`'s arrays, padded as it holds them
+    (msb/lsb planes (N_pad, D//2) uint8, norms_sq (N_pad,) int32, scale
+    f32, N_pad a multiple of the mesh size, pad rows included) and its
+    `n_global`, as the port's index over `mesh` (a
+    `repro_torch.distributed.Mesh`)."""
+    db = bitplanar_db(msb_plane, lsb_plane, norms_sq, scale,
+                      device=mesh.slots()[0])
+    return ShardedIndex(db=shard_database(db, mesh), mesh=mesh,
+                        n_global=int(n_global))
 
 
 def cluster_codebook(codes, msb_plane, norms_sq, *,

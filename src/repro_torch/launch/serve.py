@@ -2,15 +2,18 @@
 `repro.launch.serve`.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --num-docs 256 \\
-        --requests 8 [--metric cosine] [--topk 3] [--device cpu]
+        --requests 8 [--metric cosine] [--topk 3] [--device cpu] \\
+        [--data 2 --model 2]
 
-Builds the offline index (MiniLM-style embedder -> INT8 nibble-planar DB),
-then serves batched requests through the paper's two-stage hierarchical
-retrieval and the generator's prefill + decode, logging the
+Builds the offline index (MiniLM-style embedder -> INT8 nibble-planar DB,
+split over a (data, model) mesh of shard slots when --data x --model > 1;
+the slots are dealt round-robin over the visible devices), then serves
+batched requests through the paper's two-stage hierarchical retrieval
+and the generator's prefill + decode, logging the
 Table-II-calibrated energy ledger per query. Runs on the CUDA device
 unless `--device` names another. `--smoke` is on always, as in the
 reference (ROADMAP C17); the full widths are driven through the library
-(`chip_smoke.py`). The sharded index (`--data`, `--model`) is ROADMAP A2.
+(`chip_smoke.py`).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import RetrievalConfig
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import embedder, get_model
 from repro_torch.serve import RAGPipeline
 
@@ -37,6 +41,8 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--topk", type=int, default=3)
     ap.add_argument("--metric", choices=("cosine", "mips"), default="cosine")
+    ap.add_argument("--data", type=int, default=1)
+    ap.add_argument("--model", type=int, default=1)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
@@ -57,12 +63,16 @@ def main(argv=None):
 
     docs = rng.integers(0, gcfg.vocab_size,
                         (args.num_docs, args.doc_len)).astype(np.int32)
+    mesh = (make_test_mesh(args.data, args.model, dev)
+            if args.data * args.model > 1 else None)
     t0 = time.time()
     pipe = RAGPipeline.build(
         ecfg, eparams, gen_api, gen_params, docs,
-        RetrievalConfig(k=args.topk, metric=args.metric), device=dev)
+        RetrievalConfig(k=args.topk, metric=args.metric), mesh=mesh,
+        device=dev)
     print(f"[offline] index over {args.num_docs} docs in "
-          f"{time.time() - t0:.1f}s (device={dev})")
+          f"{time.time() - t0:.1f}s (device={pipe.device}, "
+          f"mesh={'none' if mesh is None else mesh.shape})")
 
     gold = rng.integers(0, args.num_docs, args.requests)
     t0 = time.time()

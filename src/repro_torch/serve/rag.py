@@ -2,7 +2,7 @@
 port of `repro.serve.rag`).
 
 offline:  doc tokens --MiniLM embedder--> float embeddings --INT8 quant-->
-          nibble-planar DB
+          nibble-planar DB (optionally split over a mesh's shard slots)
 online:   query tokens -> query embedding -> INT8 codes
           -> TWO-STAGE HIERARCHICAL RETRIEVAL (the paper's core)
           -> augmented prompt = [retrieved doc tokens; query tokens]
@@ -15,13 +15,14 @@ through a `ServingRuntime`: retrieval, then decode over the
 quantized-KV cascade, both charged to the runtime's ledgers.
 
 Every pipeline runs on one device: the CUDA device unless the caller
-passes ``device="cpu"``; the parameters must already be there. Each
-retrieval is priced as the reference prices it: `energy.cost_cascade` of
-the launch's SchedulePlan. The sharded index (`mesh=`) is ROADMAP A2.
+passes ``device="cpu"`` (with a mesh: the mesh's first device); the
+parameters must already be there. Each retrieval is priced as the
+reference prices it: `energy.cost_cascade` of the launch's SchedulePlan.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -31,6 +32,7 @@ from repro_torch._device import resolve_device
 from repro_torch.core import (BitPlanarDB, RetrievalConfig, build_database,
                               energy, quantize_int8)
 from repro_torch.core import engine as engine_mod
+from repro_torch.core.index import ShardedIndex
 from repro_torch.models import dense, registry
 from repro_torch.models import embedder as emb_mod
 from repro_torch.models.common import ModelConfig
@@ -62,10 +64,14 @@ class RAGPipeline:
     gen_params: Any
     retrieval_cfg: RetrievalConfig
     doc_tokens: torch.Tensor               # (N, doc_len) int32
-    db: BitPlanarDB
-    # The engine, built once per retrieval config: replacing
-    # `retrieval_cfg` after construction builds a new one.
-    _engine: Any = dataclasses.field(default=None, repr=False, compare=False)
+    db: BitPlanarDB | None = None          # single-device DB
+    index: ShardedIndex | None = None      # DB split over a mesh
+    # (config, retrieve function): the engine's, or the sharded index's,
+    # built once per retrieval config; replacing `retrieval_cfg` after
+    # construction builds a new one instead of serving the old
+    # k/metric/backend.
+    _retrieve: Any = dataclasses.field(default=None, repr=False,
+                                       compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -73,10 +79,18 @@ class RAGPipeline:
 
     @classmethod
     def build(cls, emb_cfg, emb_params, gen_api, gen_params, doc_tokens,
-              retrieval_cfg: RetrievalConfig | None = None, *,
+              retrieval_cfg: RetrievalConfig | None = None, mesh=None, *,
               encode_batch: int = 64, device=None):
-        """Offline phase: embed + quantize the document corpus."""
-        dev = resolve_device(device)
+        """Offline phase: embed + quantize the document corpus; with a
+        `mesh` (`repro_torch.distributed.Mesh`) the DB is split over its
+        shard slots and the pipeline runs on the mesh's first device."""
+        if mesh is None:
+            dev = resolve_device(device)
+        else:
+            dev = mesh.slots()[0]
+            if device is not None and torch.device(device).type != dev.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{dev}")
         _on(emb_params, dev, "embedder")
         _on(gen_params, dev, "generator")
         doc_tokens = torch.as_tensor(doc_tokens, device=dev).to(torch.int32)
@@ -84,30 +98,41 @@ class RAGPipeline:
             emb_mod.encode(emb_params, doc_tokens[i:i + encode_batch],
                            emb_cfg)
             for i in range(0, doc_tokens.shape[0], encode_batch)])
-        db = BitPlanarDB.from_quantized(build_database(embs, device=dev))
+        if mesh is not None:
+            index, db = ShardedIndex.build(embs, mesh), None
+        else:
+            index = None
+            db = BitPlanarDB.from_quantized(build_database(embs, device=dev))
         return cls(emb_cfg=emb_cfg, emb_params=emb_params, gen_api=gen_api,
                    gen_params=gen_params,
                    retrieval_cfg=retrieval_cfg or RetrievalConfig(),
-                   doc_tokens=doc_tokens, db=db)
+                   doc_tokens=doc_tokens, db=db, index=index)
 
     # -- retrieval ---------------------------------------------------------
 
     def retrieve(self, query_tokens):
         """query_tokens (B, L) -> (batched RetrievalResult, energy ledger)."""
-        if self._engine is None or self._engine.cfg != self.retrieval_cfg:
-            self._engine = engine_mod.RetrievalEngine(self.retrieval_cfg,
-                                                      self.device)
         q_emb = emb_mod.encode(self.emb_params,
                                torch.as_tensor(query_tokens,
                                                device=self.device),
                                self.emb_cfg)
         q_codes, _ = quantize_int8(q_emb, per_vector=True)
-        # One launch for the batch: the plane is streamed once for all
-        # queries. Charge what the schedule streams (the plain plan's
-        # per-stage ledger), as the reference does.
-        res = self._engine.retrieve(q_codes, self.db)
+        # One launch for the batch (one per shard with a mesh): the plane is
+        # streamed once for all queries. Charge what the schedule streams
+        # (the plain plan's per-stage ledger), as the reference does.
+        cfg = self.retrieval_cfg
+        if self._retrieve is None or self._retrieve[0] != cfg:
+            if self.index is not None:
+                fn = self.index.retrieve_fn(cfg)
+            else:
+                engine = engine_mod.RetrievalEngine(cfg, self.device)
+                fn = functools.partial(engine.retrieve, db=self.db)
+            self._retrieve = (cfg, fn)
+        res = self._retrieve[1](q_codes)
+        n_docs = (self.db.num_docs if self.index is None
+                  else self.index.n_global)
         dim = q_emb.shape[-1]
-        plan = engine_mod.plan(self.retrieval_cfg, num_docs=self.db.num_docs,
+        plan = engine_mod.plan(self.retrieval_cfg, num_docs=n_docs,
                                dim=dim, batch=int(q_codes.shape[0]),
                                kind="plain")
         return res, energy.cost_cascade(plan.stages, dim, batch=plan.batch)

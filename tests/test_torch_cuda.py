@@ -1310,6 +1310,81 @@ def test_rag_agent_turn_on_the_card_matches_the_cpu(cuda_device):
                                                      cpu.uj_per_token)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 1), (4, 2)])
+def test_sharded_index_on_the_card_matches_the_cpu(cuda_device, shape):
+    """S shard slots on the card (S row blocks of one plane) give the CPU
+    port's bits, and one batch launches #1 and #3-by-id once per slot."""
+    from repro_torch.core.index import (ShardedIndex, pad_database,
+                                        shard_database)
+    from repro_torch.launch.mesh import make_test_mesh
+    docs, queries, _ = retrieval_corpus(5000, 512, num_queries=8, seed=4)
+    bp = BitPlanarDB.from_quantized(build_database(docs, device="cpu"))
+    q, _ = quantize_int8(torch.from_numpy(queries), per_vector=True)
+    slots = shape[0] * shape[1]
+    padded = pad_database(bp, slots)
+    cpu = ShardedIndex(db=shard_database(padded, make_test_mesh(
+        *shape, "cpu")), mesh=make_test_mesh(*shape, "cpu"), n_global=5000)
+    mesh = make_test_mesh(*shape)
+    card = ShardedIndex(db=shard_database(padded, mesh), mesh=mesh,
+                        n_global=5000)
+    assert all(b.msb_plane.device == cuda_device for b in card.db)
+    for metric in ("cosine", "mips"):
+        cfg = RetrievalConfig(k=5, metric=metric)
+        want = cpu.retrieve_fn(cfg)(q)
+        ops.reset_launch_counts()
+        got = card.retrieve_fn(cfg)(q.to(cuda_device))
+        counts = ops.launch_counts()
+        assert counts["stage1_plane_mma"] == slots, counts
+        assert counts["stage2_by_id"] == slots, counts
+        assert counts["stage1_plane"] == counts["stage2_exact"] == 0
+        for f in ("indices", "scores", "candidate_indices"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.gpu
+def test_sharded_runtime_failover_on_the_card_matches_the_cpu(cuda_device):
+    """The same trace, a failover in its middle, through 3 shards on the
+    card and on the CPU: every result and the ledger bit for bit."""
+    from repro_torch.serve import ShardedRuntimeConfig, ShardedServingRuntime
+    rng = np.random.default_rng(5)
+    nt, nd, dim = 6, 64, 128
+    docs = {t: rng.integers(-40, 41, (nd, dim), dtype=np.int8)
+            for t in range(nt)}
+    qs = [(t, rng.integers(-40, 41, (dim,), dtype=np.int8))
+          for t in list(range(nt)) * 4]
+    cfg = ShardedRuntimeConfig(
+        num_shards=3, capacity_per_shard=1024, dim=dim,
+        retrieval=RetrievalConfig(k=4, metric="mips", candidate_frac=1.0,
+                                  max_candidates=nd),
+        runtime=RuntimeConfig(max_batch=4, max_wait=1.0, cache_bytes=0,
+                              auto_flush=False))
+
+    def drive(devices):
+        rt = ShardedServingRuntime(cfg, devices=devices)
+        for half in (0, 1):
+            for t in range(nt):
+                rt.ingest_codes(t, docs[t][half * nd // 2:
+                                           (half + 1) * nd // 2])
+        out, now = [], 0.0
+        for i, (t, q) in enumerate(qs):
+            if i == len(qs) // 2:
+                rt.fail_shard(rt.placement.shard_of(t), now=now)
+            now += 1e-3
+            out.append(rt.submit(t, q, now=now))
+            if i % 4 == 3:
+                rt.poll(now=now)
+        rt.flush(now=now + 1)
+        return [h.result() for h in out], rt.ledger()
+
+    got, got_ledger = drive(None)
+    want, want_ledger = drive(["cpu"])
+    assert got_ledger == want_ledger and got_ledger["failovers"] == 1
+    for g, w in zip(got, want):
+        for f in ("indices", "scores", "candidate_indices"):
+            np.testing.assert_array_equal(getattr(g, f), getattr(w, f))
+
+
 def test_multi_tenant_index_needs_cuda_or_an_explicit_cpu():
     if torch.cuda.is_available():
         assert MultiTenantIndex(64, 64).arena.owner.is_cuda
