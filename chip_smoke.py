@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's retrieval cascades, models and RAG
-pipeline on one GPU.
+"""Drive the PyTorch/CUDA port's retrieval cascades, models, RAG pipeline
+and training on one GPU.
 
     python3 chip_smoke.py
 
@@ -188,12 +188,37 @@ Phases, each of which fails the run (non-zero exit) on any error:
                launches, its four busiest kernels), the tied head's cast
                per step, the kv_plan bytes against dense, the phase's
                seconds.
+ 12. train   — training and its state at qwen2-0.5b's full width (f32
+               weights, bf16 compute, remat), B = 8 sequences of 64 tokens
+               of the synthetic LM stream, AdamW at lr 3e-4; checkpoints in
+               a directory under build/ that the phase removes. (a) At 2
+               layers and f32 compute, one batch: loss, grads, one AdamW
+               and one Adafactor step (from the same grads) on the card
+               against the port's CPU path, grad_accum 2 against 1, and
+               two INT8 error-feedback rounds bit for bit (TRAIN_* limits).
+               (b) 24 layers through `ElasticTrainer` on 2 slots of the
+               card: 10 steps of one repeated batch, a checkpoint every 5
+               (keep 2), a worker lost at step 7; restarts 1, final_devices
+               1, 10 finite losses, the first within 0.5 of ln V, the last
+               0.5 below the first, the step-5 restore equal to the state
+               saved, bit for bit. (d) The step-10 weights restored and
+               served through `RAGPipeline` with the full-width MiniLM over
+               2048 docs of 64 tokens: top-1 8/8, #1 (`stage1_plane_mma`)
+               and #3 by id launched (counts set to 0 before). (c) The p50
+               of 20 steps and tokens/s, one profiled step (busy, idle
+               share, launches, busiest kernels), the AdamW update's share,
+               peak device memory, a synchronous save and restore of the
+               state with GB/s. (e) `python -m repro_torch.launch.train`
+               at full width (4 steps, a save at 4) and `--smoke
+               --grad-accum 2 --compress-grads`, side by side: rc 0 and the
+               closing line. Prints every number with the card's name and
+               power limit.
 
 Then the exact wrappers' and the block gather's host microseconds per
 call (`host_us_per_call`).
 The line before the last is a JSON object describing every kernel
 (launches: the sum over the main, sharded, autotune, cluster, tenancy,
-serving, decode and rag paths; `stage1_gather_resident` and `stage0_sign_gather_resident`
+serving, decode, rag and train paths; `stage1_gather_resident` and `stage0_sign_gather_resident`
 are counted by the resident wrappers where they launch, which only the
 serving phase's cached segments call; the `@decode_hd64` rows are #2 and
 #8 at the decode phase's shapes, with the decode path's launches); the last
@@ -204,13 +229,17 @@ from __future__ import annotations
 
 import cProfile
 import dataclasses
+import itertools
 import json
+import math
 import os
 import pstats
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -222,7 +251,9 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch import obs  # noqa: E402
+from repro_torch import _tree, obs  # noqa: E402
+from repro_torch.checkpoint import (CheckpointManager,  # noqa: E402
+                                    restore_checkpoint, save_checkpoint)
 from repro_torch.core import (bitplanar, clustering, energy,  # noqa: E402
                               engine, quantization)
 from repro_torch.core.engine import (ClusterPolicy,  # noqa: E402
@@ -234,6 +265,9 @@ from repro_torch.core.index import (ShardedIndex,  # noqa: E402
                                     pad_database, shard_database)
 from repro_torch.core.retrieval import RetrievalConfig  # noqa: E402
 from repro_torch.core.similarity import stable_topk  # noqa: E402
+from repro_torch.data import (LMTaskConfig, lm_batches,  # noqa: E402
+                              shard_batch)
+from repro_torch.distributed import compression  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build, autotune, fused_topk, ops, ref, stage0_sign, stage1_gather,
     stage1_int4)
@@ -255,8 +289,12 @@ from repro_torch.serve import (HotClusterCache,  # noqa: E402
                                RuntimeConfig, ServingRuntime,
                                ShardedRuntimeConfig, ShardedServingRuntime,
                                sparse_kv)
+from repro_torch.runtime import ElasticTrainer, FailureInjector  # noqa: E402
 from repro_torch.tenancy import (CrossTenantBatchScheduler,  # noqa: E402
                                  MultiTenantIndex)
+from repro_torch.train import (adafactor, adamw,  # noqa: E402
+                               make_train_step)
+from repro_torch.train.step import value_and_grad  # noqa: E402
 
 SEED = 20251027
 N, D = 1 << 20, 512
@@ -4146,6 +4184,363 @@ def phase_rag(dev, card: str) -> tuple[dict[str, int], dict[str, int]]:
     return launches, sharded
 
 
+# -- the train phase -----------------------------------------------------
+# Training and its state (ROADMAP A3's training half) at qwen2-0.5b's full
+# width (24 layers x 896, vocab 151936; f32 weights, bf16 compute, remat on)
+# with the reference launcher's batch: B = 8 sequences of 64 tokens of the
+# synthetic LM stream, AdamW at lr 3e-4; checkpoints of the whole state
+# (params, mu, nu: ~5.9 GB) to a directory under build/ that the phase
+# removes. Then the trained weights are served through RAGPipeline.
+TRAIN_B, TRAIN_S, TRAIN_LR = 8, 64, 3e-4
+TRAIN_STEPS, TRAIN_SAVE_EVERY, TRAIN_KEEP, TRAIN_FAIL_AT = 10, 5, 2, 7
+TRAIN_TIMED_STEPS = 20
+# (a) the card against the port's CPU, at f32 compute over 2 layers: the
+# loss within a relative 1e-5; each grad leaf within 1e-4 of its largest
+# |grad| (f32 sums in other orders, over K up to 151936); AdamW and
+# Adafactor fed the same grads within 1e-6 absolute on the parameters
+# (their state within a relative 1e-5); grad_accum 2 against 1 on the card
+# within the same bounds; the INT8 error feedback bit for bit.
+TRAIN_CHECK_LAYERS = 2
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_OPT_ATOL = 1e-5, 1e-4, 1e-6
+# (b) the first loss within 0.5 of ln V (random logits); the last at least
+# 0.5 below the first (the batch repeats, so its own tokens are learned).
+TRAIN_LN_V_TOL, TRAIN_MIN_DROP = 0.5, 0.5
+TRAIN_KERNELS = ("stage1_plane_mma", "stage2_by_id")
+
+
+def _leaf_rel_err(got, want) -> float:
+    """Largest |got - want| over each leaf's largest |want|, on the CPU."""
+    worst = 0.0
+    for (name, a), (_, b) in zip(_tree.named_leaves(got),
+                                 _tree.named_leaves(want), strict=True):
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        worst = max(worst, float((a - b).abs().max())
+                    / max(float(b.abs().max()), 1e-30))
+    return worst
+
+
+def _leaf_abs_err(got, want) -> float:
+    return max(float((a.detach().cpu().double() - b.detach().cpu().double())
+                     .abs().max())
+               for a, b in zip(_tree.leaves(got), _tree.leaves(want),
+                               strict=True))
+
+
+def _bitwise(got, want) -> bool:
+    return all(torch.equal(a.detach().cpu(), b.detach().cpu())
+               for a, b in zip(_tree.leaves(got), _tree.leaves(want),
+                               strict=True))
+
+
+def _train_card_vs_cpu(card, dev) -> None:
+    """(a) qwen2-0.5b at full width and 2 layers, f32 compute, one batch:
+    the card against the port's plain path on the CPU."""
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-0.5b").with_(num_layers=TRAIN_CHECK_LAYERS,
+                                         compute_dtype="float32")
+    api = get_model(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED + 12),
+                      device=dev)
+    cparams = _tree.tree_map(lambda t: t.cpu(), params)
+    host = next(lm_batches(LMTaskConfig(cfg.vocab_size, TRAIN_S, TRAIN_B)))
+    batch, cbatch = shard_batch(host, dev), shard_batch(host, "cpu")
+    loss, grads = value_and_grad(api.loss_fn, params, batch)
+    closs, cgrads = value_and_grad(api.loss_fn, cparams, cbatch)
+    loss_err = abs(float(loss) - float(closs)) / abs(float(closs))
+    grad_err = _leaf_rel_err(grads, cgrads)
+    ghost = _tree.tree_map(lambda t: t.cpu(), grads)
+    opt_errs = {}
+    for name, opt in (("adamw", adamw(lr=TRAIN_LR, weight_decay=0.1)),
+                      ("adafactor", adafactor(lr=TRAIN_LR))):
+        p1, s1 = opt.update(grads, opt.init(params), params)
+        cp1, cs1 = opt.update(ghost, opt.init(cparams), cparams)
+        opt_errs[name] = (_leaf_abs_err(p1, cp1), _leaf_rel_err(s1, cs1))
+        del p1, s1, cp1, cs1
+    seen, accum_loss = {}, {}
+    for ga in (1, 2):
+        opt = adamw(lr=TRAIN_LR)
+        step = make_train_step(api.loss_fn, opt, grad_accum=ga,
+                               clip_norm=None,
+                               grad_transform=lambda g, ga=ga: seen.setdefault(
+                                   ga, g))
+        metrics = step(params, opt.init(params), batch)[2]
+        accum_loss[ga] = float(metrics["loss"])
+    accum_err = (abs(accum_loss[2] - accum_loss[1]) / abs(accum_loss[1]),
+                 _leaf_rel_err(seen[2], seen[1]))
+    del seen
+    # two error-feedback rounds from the card's grads, card against CPU
+    err, cerr = (compression.init_error_state(g) for g in (grads, ghost))
+    same_ef = True
+    for _ in range(2):
+        out, err = compression.apply_error_feedback(grads, err)
+        cout, cerr = compression.apply_error_feedback(ghost, cerr)
+        same_ef &= _bitwise(out, cout) and _bitwise(err, cerr)
+    codes = all(
+        _bitwise(compression.quantize_int8_tensor(g.float()),
+                 compression.quantize_int8_tensor(c.float()))
+        for g, c in zip(_tree.leaves(grads), _tree.leaves(ghost)))
+    log(f"train card vs cpu ({card}): {cfg.name} at full width, "
+        f"{cfg.num_layers} layers, f32 compute, B = {TRAIN_B} x "
+        f"{TRAIN_S}: loss {float(loss):.6f} (CPU {float(closs):.6f}, rel "
+        f"err {loss_err:.3g}, limit {TRAIN_LOSS_RTOL}); grads max err "
+        f"{grad_err:.3g} of each leaf's max (limit {TRAIN_GRAD_RTOL}); one "
+        f"step from the same grads: AdamW params {opt_errs['adamw'][0]:.3g} "
+        f"state {opt_errs['adamw'][1]:.3g}, Adafactor params "
+        f"{opt_errs['adafactor'][0]:.3g} state {opt_errs['adafactor'][1]:.3g}"
+        f" (limits {TRAIN_OPT_ATOL} abs, {TRAIN_LOSS_RTOL} rel); grad_accum "
+        f"2 vs 1 on the card: loss {accum_err[0]:.3g}, grads "
+        f"{accum_err[1]:.3g}; INT8 error feedback card = CPU bit for bit: "
+        f"codes and scales {codes}, outputs and residuals {same_ef}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_RTOL
+            and all(p <= TRAIN_OPT_ATOL and s <= TRAIN_LOSS_RTOL
+                    for p, s in opt_errs.values())
+            and accum_err[0] <= TRAIN_LOSS_RTOL
+            and accum_err[1] <= TRAIN_GRAD_RTOL and codes and same_ef):
+        raise AssertionError("train card vs cpu: a check failed (above)")
+
+
+class _Recording(CheckpointManager):
+    """A CheckpointManager that keeps a host copy of the state it is asked
+    to save at `hold` (taken apart from its own snapshot), checks each
+    restore of that step against it bit for bit, and times its calls."""
+
+    def __init__(self, directory, keep, hold):
+        super().__init__(directory, keep=keep)
+        self.hold, self.held, self.checked = hold, None, []
+        self.snapshot_ms, self.restore_ms = [], []
+
+    def save_async(self, step, tree):
+        if step == self.hold:
+            self.held = _tree.tree_map(
+                lambda t: t.detach().to("cpu", copy=True), tree)
+        self.wait()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        super().save_async(step, tree)
+        self.snapshot_ms.append((step, (time.perf_counter() - t0) * 1e3))
+
+    def restore_latest(self, like, device=None):
+        self.wait()
+        t0 = time.perf_counter()
+        tree, step = super().restore_latest(like, device)
+        torch.cuda.synchronize()
+        self.restore_ms.append((step, (time.perf_counter() - t0) * 1e3))
+        if step == self.hold:
+            self.checked.append(_bitwise(tree, self.held))
+        return tree, step
+
+
+def _rounded(pairs) -> list:
+    return [(step, round(ms, 1)) for step, ms in pairs]
+
+
+def _state_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _tree.leaves(tree))
+
+
+def _train_elastic(card, dev, root) -> tuple:
+    """(b) the full-width model through ElasticTrainer on 2 slots of the
+    card, a worker lost at step 7. Returns (api, optimizer, train step,
+    batch, manager)."""
+    cfg = get_config("qwen2-0.5b")
+    api = get_model(cfg)
+    opt = adamw(lr=TRAIN_LR)
+    raw = make_train_step(api.loss_fn, opt)
+    batch = shard_batch(next(lm_batches(LMTaskConfig(
+        cfg.vocab_size, TRAIN_S, TRAIN_B, seed=SEED))), dev)
+
+    def make_state(mesh):
+        slot = mesh.slots()[0]
+        params = api.init(torch.Generator(device=slot).manual_seed(SEED + 13),
+                          device=slot)
+        return (params, opt.init(params),
+                lambda p, o, b, mesh: raw(p, o, b), None)
+
+    ckpt = _Recording(os.path.join(root, "elastic"), TRAIN_KEEP,
+                      TRAIN_SAVE_EVERY)
+    trainer = ElasticTrainer(make_state=make_state, ckpt=ckpt,
+                             save_every=TRAIN_SAVE_EVERY)
+    t0 = time.perf_counter()
+    out = trainer.run(itertools.repeat(batch), num_steps=TRAIN_STEPS,
+                      injector=FailureInjector({TRAIN_FAIL_AT: 1}),
+                      devices=[dev, dev])
+    run_s = time.perf_counter() - t0
+    losses = out["losses"]
+    ln_v = math.log(cfg.vocab_size)
+    log(f"train elastic ({card}): {cfg.name} full width ({cfg.num_layers} "
+        f"layers, {param_count(ckpt.held[0])} parameters, f32 weights, "
+        f"{cfg.compute_dtype} compute, remat {cfg.remat}), AdamW lr "
+        f"{TRAIN_LR}, B = {TRAIN_B} x {TRAIN_S} repeated, 2 slots of the "
+        f"card, worker lost at step {TRAIN_FAIL_AT}: {TRAIN_STEPS} steps in "
+        f"{run_s:.1f} s, restarts {out['restarts']}, final_devices "
+        f"{out['final_devices']}, monitored {out['monitored']}; losses "
+        f"{[round(x, 4) for x in losses]} (ln V = {ln_v:.4f}); async save "
+        f"snapshots (step, ms) {_rounded(ckpt.snapshot_ms)}, restores "
+        f"(step, ms) {_rounded(ckpt.restore_ms)}; step "
+        f"{TRAIN_SAVE_EVERY}'s restore = its save bit for bit: "
+        f"{ckpt.checked}")
+    problems = []
+    if (out["restarts"], out["final_devices"], len(losses)) != (
+            1, 1, TRAIN_STEPS) or not all(map(math.isfinite, losses)):
+        problems.append("restarts, devices or losses")
+    if abs(losses[0] - ln_v) > TRAIN_LN_V_TOL:
+        problems.append(f"first loss {losses[0]} not within "
+                        f"{TRAIN_LN_V_TOL} of ln V")
+    if losses[-1] > losses[0] - TRAIN_MIN_DROP:
+        problems.append(f"last loss {losses[-1]} not {TRAIN_MIN_DROP} below "
+                        "the first")
+    if ckpt.checked != [True]:
+        problems.append(f"restore of step {TRAIN_SAVE_EVERY}: {ckpt.checked}")
+    if problems:
+        raise AssertionError("train elastic: " + "; ".join(problems))
+    return api, opt, raw, batch, ckpt
+
+
+def _train_then_serve(card, dev, api, state, rng) -> dict[str, int]:
+    """(d) the trained parameters served through RAGPipeline with the
+    full-width MiniLM over one user's 2048 docs of 64 tokens. Returns the
+    path's launches."""
+    ecfg = get_config("minilm-embedder")
+    with torch.inference_mode():
+        eparams = embedder.init_params(
+            ecfg, torch.Generator(device=dev).manual_seed(SEED + 14),
+            device=dev)
+        ops.reset_launch_counts()
+        _rag_single_user(card, ecfg, eparams, api, state[0], rng, dev)
+        launches = ops.launch_counts()
+    log(f"train serve ({card}): the restored step-{TRAIN_STEPS} weights "
+        f"behind RAGPipeline (top-1 {RAG_B}/{RAG_B} above); launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    for key in TRAIN_KERNELS:
+        if launches.get(key, 0) <= 0:
+            raise AssertionError(f"kernel {key} was not launched by the "
+                                 "train-then-serve path")
+    return launches
+
+
+def _train_step_times(card, dev, api, opt, raw, batch, state, root) -> None:
+    """(c) the p50 step, one profiled step, the optimizer's share, peak
+    device memory, and a synchronous save and restore of the state."""
+    box = list(state)
+
+    def one():
+        box[0], box[1], _ = raw(box[0], box[1], batch)
+    torch.cuda.reset_peak_memory_stats()
+    p50 = _median_step_s(one, TRAIN_TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    kernels = device_profile(one, reps=1)
+    busy = sum(t for _, t, _ in kernels) * 1e-3
+    top = "; ".join(f"{name[:50]} {t * 1e-3:.3f} ms x{n:.0f}"
+                    for name, t, n in kernels[:5])
+    _, grads = value_and_grad(api.loss_fn, box[0], batch)
+    opt_kernels = device_profile(lambda: opt.update(grads, box[1], box[0]),
+                                 reps=1)
+    opt_busy = sum(t for _, t, _ in opt_kernels) * 1e-3
+    del grads
+    tokens = TRAIN_B * TRAIN_S
+    log(f"train step ({card}): p50 of {TRAIN_TIMED_STEPS} steps "
+        f"{p50 * 1e3:.3f} ms (host clock + synchronize), "
+        f"{tokens / p50:.1f} tokens/s; one profiled step after a warm-up: "
+        f"device_busy_ms {busy:.3f} idle_share {1 - busy / (p50 * 1e3):.3f} "
+        f"kernel_launches {sum(n for _, _, n in kernels):.0f}; the AdamW "
+        f"update alone busy {opt_busy:.3f} ms "
+        f"({sum(n for _, _, n in opt_kernels):.0f} launches), "
+        f"{opt_busy / busy:.3f} of the step; peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB; busiest: {top}")
+    nbytes = _state_bytes(box)
+    path = os.path.join(root, "sync")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(path, 1, tuple(box))
+    save_s = time.perf_counter() - t0
+    like = _tree.tree_map(lambda t: torch.empty_like(t, device="meta"),
+                          tuple(box))
+    t0 = time.perf_counter()
+    got, _ = restore_checkpoint(path, like, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = _bitwise(got, tuple(box))
+    log(f"train checkpoint ({card}): the state ({nbytes} bytes) saved in "
+        f"{save_s * 1e3:.1f} ms ({nbytes / save_s / 1e9:.2f} GB/s, device to "
+        f"host copy and .npy files), restored to the card in "
+        f"{restore_s * 1e3:.1f} ms ({nbytes / restore_s / 1e9:.2f} GB/s); "
+        f"bit for bit: {same}")
+    if not same:
+        raise AssertionError("train checkpoint: the restore differs")
+
+
+def _train_launchers(card, root) -> None:
+    """(e) the launcher at full width and at the smoke widths with
+    --grad-accum 2 --compress-grads, on this card, side by side."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = (["--arch", "qwen2-0.5b", "--steps", "4", "--save-every", "4",
+             "--ckpt-dir", os.path.join(root, "launch_full")],
+            ["--smoke", "--grad-accum", "2", "--compress-grads", "--steps",
+             "4", "--ckpt-dir", os.path.join(root, "launch_smoke")])
+    line = re.compile(r"^qwen2-0\.5b: 4 steps in [0-9.]+s; loss [0-9.]+ -> "
+                      r"[0-9.]+; restarts 0$", re.M)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m",
+                               "repro_torch.launch.train", *argv], cwd=ROOT,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for argv in runs]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, argv, (out, err) in zip(procs, runs, outs):
+        if p.returncode != 0 or not line.search(out):
+            raise AssertionError(f"train launcher {argv}: rc {p.returncode}"
+                                 f"\n{out}\n{err[-4000:]}")
+        log(f"train launcher ({card}): python -m repro_torch.launch.train "
+            f"{' '.join(argv[:-2])}: rc 0 (both in "
+            f"{time.perf_counter() - t0:.1f} s); {out.strip()}")
+
+
+def phase_train(dev, card: str) -> dict[str, int]:
+    """Training and its state at full width (see TRAIN_* above): (a) the
+    card against the CPU, (b) the elastic trainer with a lost worker, (d)
+    the trained weights served, (c) step time, memory and checkpoint I/O,
+    (e) the launcher. Returns the launches of (d)'s serving path, driven
+    with the counts set to 0 before it."""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_", dir=os.path.join(ROOT, "build"))
+    free = shutil.disk_usage(root).free
+    log(f"train ({card}): checkpoints under {root}, {free / 2 ** 30:.1f} GiB "
+        "free")
+    try:
+        _train_card_vs_cpu(card, dev)
+        torch.cuda.empty_cache()
+        api, opt, raw, batch, ckpt = _train_elastic(card, dev, root)
+        like = ckpt.held
+        del ckpt
+        t1 = time.perf_counter()
+        state, step = restore_checkpoint(os.path.join(root, "elastic"), like,
+                                         device=dev)
+        torch.cuda.synchronize()
+        log(f"train restore ({card}): step {step} ({_state_bytes(state)} "
+            f"bytes) to the card in {(time.perf_counter() - t1) * 1e3:.1f} "
+            "ms")
+        del like
+        shutil.rmtree(os.path.join(root, "elastic"))
+        launches = _train_then_serve(card, dev, api, state,
+                                     np.random.default_rng(SEED + 14))
+        torch.cuda.empty_cache()
+        _train_step_times(card, dev, api, opt, raw, batch, state, root)
+        del state, batch
+        shutil.rmtree(os.path.join(root, "sync"))
+        torch.cuda.empty_cache()
+        _train_launchers(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"train ({card}): the phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # Host cost of the exact wrappers and of the block gather on each of its
 # kernels: HOST_CALLS back-to-back calls at the main path's shapes (B = 32,
 # C = 50, D = 512; one query for the single form; one lane and one block
@@ -4221,12 +4616,13 @@ def main() -> int:
     decode_rows, decode_launches = phase_decode(dev)
     rag_launches, rag_sharded = phase_rag(dev, card)
     _add_counts(sharded_launches, rag_sharded)
+    train_launches = phase_train(dev, card)
     log(f"sharded path launches ({card}): {sharded_launches}")
     for k in kernels:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in (
             launches, sharded_launches, tune_launches, cluster_launches,
             tenancy_launches, serving.launches, decode_launches,
-            rag_launches))
+            rag_launches, train_launches))
     kernels += decode_rows
     phase_host_us(dev)
     log(json.dumps({"kernels": kernels}))

@@ -183,3 +183,25 @@ def embedder_params(params, *, device=None) -> dict:
     return _param_tree(params, {"embed": None, "blocks": _BLOCK,
                                 "final_norm": None, "proj": None},
                        resolve_device(device), "")
+
+
+def optimizer_state(state, *, device=None) -> dict:
+    """The reference optimizer's state (`repro.train.optim`; numpy leaves)
+    as the port's, on `device`: AdamW's {"step", "mu", "nu"} or
+    Adafactor's {"step", "v"} (per parameter {"vr", "vc"} or {"v"}). The
+    step is an int32 scalar, every other leaf float32."""
+    dev = resolve_device(device)
+    if not isinstance(state, dict) or set(state) not in (
+            {"step", "mu", "nu"}, {"step", "v"}):
+        raise ValueError("optimizer state must be AdamW's {step, mu, nu} "
+                         "or Adafactor's {step, v}")
+    step = _tensor(state["step"], np.int32, "step", dev)
+    if step.ndim:
+        raise ValueError("step must be a scalar")
+
+    def tree(t, where):
+        if isinstance(t, dict):
+            return {k: tree(v, f"{where}{k}.") for k, v in t.items()}
+        return _tensor(t, np.float32, where.rstrip("."), dev)
+    return {k: step if k == "step" else tree(v, f"{k}.")
+            for k, v in state.items()}

@@ -1,1 +1,2 @@
-from repro_torch.data.synthetic import retrieval_corpus
+from repro_torch.data.synthetic import (LMTaskConfig, lm_batches,
+                                        retrieval_corpus, shard_batch)

@@ -1,12 +1,62 @@
-"""Synthetic retrieval corpora with planted relevance (numpy only).
+"""Synthetic data (port of `repro.data.synthetic`): the same seed gives the
+same numpy arrays, bit for bit.
 
-Port of `repro.data.synthetic.retrieval_corpus`: the same seed gives the
-same arrays, bit for bit. Documents are random unit vectors; each query is
-a noisy copy of its gold document.
+  * LM token streams with LEARNABLE structure (a mixture of affine
+    next-token rules), so a falling train loss means something.
+  * Retrieval corpora with PLANTED relevance: documents are random unit
+    vectors; each query is a noisy copy of its gold document.
+
+Batches are host numpy; `shard_batch` puts one on a device, or on a
+mesh's first slot (training runs on one device: ROADMAP A2's training
+half holds the data-parallel split).
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Iterator
+
 import numpy as np
+
+from repro_torch._device import resolve_device, upload
+from repro_torch.distributed.sharding import Mesh
+
+
+@dataclasses.dataclass
+class LMTaskConfig:
+    vocab_size: int
+    seq_len: int
+    batch_size: int
+    num_rules: int = 7
+    noise: float = 0.05
+    seed: int = 0
+
+
+def lm_batches(cfg: LMTaskConfig) -> Iterator[dict]:
+    """Deterministic stream of {tokens, labels} (B, S) int32 numpy batches;
+    labels are the tokens shifted by one."""
+    rng = np.random.default_rng(cfg.seed)
+    v = cfg.vocab_size
+    a = rng.integers(1, v, size=cfg.num_rules)
+    c = rng.integers(0, v, size=cfg.num_rules)
+    while True:
+        rule = rng.integers(0, cfg.num_rules, size=(cfg.batch_size, 1))
+        toks = np.empty((cfg.batch_size, cfg.seq_len + 1), np.int32)
+        toks[:, 0] = rng.integers(0, v, size=cfg.batch_size)
+        for t in range(1, cfg.seq_len + 1):
+            nxt = (toks[:, t - 1] * a[rule[:, 0]] + c[rule[:, 0]]) % v
+            flip = rng.random(cfg.batch_size) < cfg.noise
+            nxt = np.where(flip, rng.integers(0, v, cfg.batch_size), nxt)
+            toks[:, t] = nxt
+        yield {"tokens": toks[:, :-1].astype(np.int32),
+               "labels": toks[:, 1:].astype(np.int32)}
+
+
+def shard_batch(batch: dict, target) -> dict:
+    """A host numpy batch as tensors on `target`: a device (the CUDA device
+    when None) or a `Mesh`, whose first slot takes it."""
+    dev = (target.slots()[0] if isinstance(target, Mesh)
+           else resolve_device(target))
+    return {k: upload(v, dev) for k, v in batch.items()}
 
 
 def _unit(x):

@@ -9,12 +9,16 @@ device of their inputs.
 
 The reference's GSPMD hints (`constrain`, `constrain_kv`,
 `residual_pattern`) do nothing on one device and have no counterpart
-here (ROADMAP A2); `cross_entropy_loss` is training (ROADMAP A3).
+here (ROADMAP A2's training half).
 
-`ModelConfig` holds only the fields that the dense model, the embedder
-and the registry read. The MoE, SSM, hybrid, enc-dec and frontend fields
-come with those families, and the training knobs (`remat`, `scan_layers`,
-`seq_shard`, `optimizer`) with training (both ROADMAP A3).
+`ModelConfig` holds the fields that the dense model, the embedder, the
+registry and training read, with the reference's defaults. Of the
+training knobs, `remat` checkpoints each dense block while autograd
+records and `optimizer` names the launcher's optimizer; `scan_layers`
+and `seq_shard` are kept for parity and do nothing here: the layers
+always run one after another, and one device needs no sequence-sharding
+hint (ROADMAP C22). The MoE, SSM, hybrid, enc-dec and frontend fields
+come with those families (ROADMAP A3).
 """
 from __future__ import annotations
 
@@ -44,6 +48,10 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     attn_chunk: int = 2048         # flash-attention block size
+    remat: bool = True             # checkpoint each block under autograd
+    scan_layers: bool = True       # no-op: the layers run in a loop
+    seq_shard: bool = False        # no-op: one device, no sharding hint
+    optimizer: Literal["adamw", "adafactor"] = "adamw"
     tie_embeddings: bool = False
     # embedder head (MiniLM-style sentence encoder)
     pooled_dim: int = 0            # >0: mean-pool + project to this dim
@@ -138,6 +146,21 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
         cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(dt)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> torch.Tensor:
+    """Mean CE over positions with label >= 0 (negative = padding).
+
+    logits (..., V) any float dtype (upcast to f32); labels (...) int."""
+    logits = logits.to(torch.float32)
+    labels = torch.as_tensor(labels, device=logits.device)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).to(torch.int64)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask),
+                                                         min=1.0)
 
 
 def param_count(params: Params) -> int:

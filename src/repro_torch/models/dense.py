@@ -1,5 +1,5 @@
-"""Dense decoder-only transformer (GQA + RoPE + SwiGLU, pre-RMSNorm): the
-serving half of `repro.models.dense`.
+"""Dense decoder-only transformer (GQA + RoPE + SwiGLU, pre-RMSNorm): port
+of `repro.models.dense`.
 
 Covers qwen2 (QKV bias, tied embeddings) and the LM backbone of a VLM
 (optional prefix embeddings). Layer parameters are stacked on a leading
@@ -12,20 +12,24 @@ the cache it is given, in place, and returns a cache over the same
 tensors; the reference returns new arrays (ROADMAP C14). A write past the
 cache's allocated length raises, where the reference drops it.
 
-The training loss (`loss_fn`) waits for ROADMAP A3.
+`loss_fn` is the training loss. Under `cfg.remat`, while autograd
+records, `forward` runs each block through `torch.utils.checkpoint`
+(the counterpart of the reference's `jax.checkpoint`): the block's
+activations are recomputed in the backward pass instead of kept.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (ModelConfig, Params, apply_rope,
-                                       check_generator, dense_init,
-                                       embed_init, layer, rmsnorm,
-                                       rope_tables, swiglu)
+                                       check_generator, cross_entropy_loss,
+                                       dense_init, embed_init, layer,
+                                       rmsnorm, rope_tables, swiglu)
 from repro_torch.serve import sparse_kv
 
 
@@ -157,15 +161,41 @@ def _positions(s: int, dev) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=dev)
 
 
+def _block_out(p, x, cos, sin, cfg: ModelConfig) -> torch.Tensor:
+    return block_fwd(p, x, cos, sin, cfg)[0]
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Teacher-forcing forward -> logits (B, S(+P), V)."""
     x = embed_tokens(params, tokens, cfg, prefix_embeds)
     cos, sin = rope_tables(_positions(x.shape[1], x.device), cfg.hd,
                            cfg.rope_theta)
+    remat = cfg.remat and torch.is_grad_enabled() and (
+        x.requires_grad
+        or any(t.requires_grad for t in params["blocks"].values()))
     for i in range(cfg.num_layers):
-        x, _ = block_fwd(layer(params["blocks"], i), x, cos, sin, cfg)
+        p = layer(params["blocks"], i)
+        if remat:
+            x = checkpoint(_block_out, p, x, cos, sin, cfg,
+                           use_reentrant=False)
+        else:
+            x = _block_out(p, x, cos, sin, cfg)
     return _logits(params, x, cfg)
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token CE of batch["tokens"] against batch["labels"]; with
+    batch["prefix_embeds"] (the VLM's patches) their positions are
+    labelled -1, so they carry no loss."""
+    prefix = batch.get("prefix_embeds")
+    logits = forward(params, batch["tokens"], cfg, prefix)
+    labels = torch.as_tensor(batch["labels"], device=logits.device)
+    if prefix is not None:
+        pad = torch.full((labels.shape[0], prefix.shape[1]), -1,
+                         dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    return cross_entropy_loss(logits, labels)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,

@@ -1,11 +1,11 @@
 """MiniLM-style sentence embedder, the paper's embedding model (port of
-`repro.models.embedder`, its serving half).
+`repro.models.embedder`).
 
 A small bidirectional transformer encoder + masked mean pooling + linear
 projection to `pooled_dim` (512 in the paper) + L2 normalization. Its
 attention takes no mask: the mask weights only the pooling, as in the
-reference. The contrastive loss (`info_nce_loss`) is training (ROADMAP
-A3).
+reference. `info_nce_loss` trains it: an in-batch-negative contrastive
+loss over (query, positive-doc) pairs.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.core.quantization import true_div
 from repro_torch.models.common import (ModelConfig, Params, apply_rope,
                                        check_generator, dense_init,
                                        embed_init, layer, rmsnorm,
@@ -21,7 +22,7 @@ from repro_torch.models.common import (ModelConfig, Params, apply_rope,
 MINILM_CFG = ModelConfig(
     name="minilm-embedder", family="dense", num_layers=6, d_model=384,
     num_heads=12, num_kv_heads=12, d_ff=1536, vocab_size=30522,
-    pooled_dim=512, rope_theta=1e4, compute_dtype="float32")
+    pooled_dim=512, rope_theta=1e4, compute_dtype="float32", remat=False)
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
@@ -81,3 +82,15 @@ def encode(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     emb = pooled @ params["proj"].to(torch.float32)
     return emb / torch.clamp(torch.linalg.vector_norm(emb, dim=-1,
                                                       keepdim=True), min=1e-9)
+
+
+def info_nce_loss(params: Params, batch: dict, cfg: ModelConfig,
+                  temperature: float = 0.05) -> torch.Tensor:
+    """In-batch-negative contrastive loss over (query, positive-doc)
+    pairs: query i's positive is doc i, the batch's other docs its
+    negatives."""
+    q = encode(params, batch["query_tokens"], cfg, batch.get("query_mask"))
+    d = encode(params, batch["doc_tokens"], cfg, batch.get("doc_mask"))
+    logits = true_div(q @ d.T, temperature)                  # (B, B)
+    return torch.mean(torch.logsumexp(logits, dim=-1)
+                      - torch.diagonal(logits))

@@ -1,11 +1,11 @@
-"""Uniform model API: family dispatch for init / prefill / decode (port of
-`repro.models.registry`, its serving half).
+"""Uniform model API: family dispatch for init / loss / prefill / decode
+(port of `repro.models.registry`).
 
 `get_model(cfg)` returns a ModelApi whose members close over cfg, so the
-launcher and the RAG pipelines treat every ported architecture the same
-way. The `vlm` family is the dense model fed stub patch embeddings
-(prefix_embeds). The other families and the training loss wait for
-ROADMAP A3.
+launchers, the trainer and the RAG pipelines treat every ported
+architecture the same way. The `vlm` family is the dense model fed stub
+patch embeddings (prefix_embeds). The MoE, SSM, hybrid and enc-dec
+families wait for ROADMAP A3.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from repro_torch.models.common import ModelConfig
 class ModelApi:
     cfg: ModelConfig
     init: Callable[..., Any]             # (generator, device=None) -> params
+    loss_fn: Callable[..., Any]          # (params, batch) -> scalar
     prefill: Callable[..., Any]          # (params, batch, max_len) -> (logits, cache)
     decode_step: Callable[..., Any]      # (params, cache, tokens) -> (logits, cache)
     init_cache: Callable[..., Any]       # (batch_size, max_len, device=None) -> cache
@@ -36,6 +37,9 @@ def get_model(cfg: ModelConfig) -> ModelApi:
     def init(gen: torch.Generator, device=None):
         return dense.init_params(cfg, gen, device=device)
 
+    def loss(params, batch):
+        return dense.loss_fn(params, batch, cfg)
+
     def prefill(params, batch, max_len=None):
         return dense.prefill(params, batch["tokens"], cfg, max_len=max_len,
                              lengths=batch.get("lengths"),
@@ -47,5 +51,5 @@ def get_model(cfg: ModelConfig) -> ModelApi:
     def init_cache(batch_size, max_len, device=None):
         return dense.init_cache(cfg, batch_size, max_len, device=device)
 
-    return ModelApi(cfg=cfg, init=init, prefill=prefill, decode_step=decode,
-                    init_cache=init_cache)
+    return ModelApi(cfg=cfg, init=init, loss_fn=loss, prefill=prefill,
+                    decode_step=decode, init_cache=init_cache)

@@ -1,8 +1,9 @@
-"""Runtime fault tolerance: the heartbeat and straggler monitors.
-
-Port of `repro.runtime`'s serving half (`fault.py`); the elastic trainer
-(`elastic.py`) waits for the training port (ROADMAP A3).
-"""
+"""Runtime fault tolerance: the heartbeat and straggler monitors
+(`fault.py`) and the elastic checkpoint-restart trainer (`elastic.py`),
+the port of `repro.runtime`."""
+from repro_torch.runtime.elastic import (ElasticTrainer, FailureInjector,
+                                         WorkerFailure, build_mesh_from)
 from repro_torch.runtime.fault import HeartbeatMonitor, StragglerDetector
 
-__all__ = ["HeartbeatMonitor", "StragglerDetector"]
+__all__ = ["ElasticTrainer", "FailureInjector", "HeartbeatMonitor",
+           "StragglerDetector", "WorkerFailure", "build_mesh_from"]
