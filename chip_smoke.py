@@ -213,6 +213,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
                --grad-accum 2 --compress-grads`, side by side: rc 0 and the
                closing line. Prints every number with the card's name and
                power limit.
+ 12b. train_sharded — a training state sharded over 4 torch.distributed
+               ranks that share this one card over gloo (the code path of a
+               (data 2, model 2) mesh, not multi-card scaling; see SH_*
+               below): a probe of the gloo collectives on CUDA tensors; (a)
+               the sharded step at 2 layers and f32 against the one-rank
+               step; (b) the two-level INT8 all-reduce at (pod 2, data 2);
+               (c) qwen2-0.5b FULL through the SPMD ElasticTrainer, 2 ranks
+               dropped at step 3, the step-2 checkpoint restored onto (data
+               1, model 2), each rank holding only its blocks; (d) the
+               launcher at --smoke --data 2 --model 2. No kernel runs here.
 
 Then the exact wrappers' and the block gather's host microseconds per
 call (`host_us_per_call`).
@@ -267,7 +277,9 @@ from repro_torch.core.retrieval import RetrievalConfig  # noqa: E402
 from repro_torch.core.similarity import stable_topk  # noqa: E402
 from repro_torch.data import (LMTaskConfig, lm_batches,  # noqa: E402
                               shard_batch)
+from repro_torch.distributed import collectives as coll  # noqa: E402
 from repro_torch.distributed import compression  # noqa: E402
+from repro_torch.distributed import sharding as sh  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build, autotune, fused_topk, ops, ref, stage0_sign, stage1_gather,
     stage1_int4)
@@ -293,7 +305,7 @@ from repro_torch.runtime import ElasticTrainer, FailureInjector  # noqa: E402
 from repro_torch.tenancy import (CrossTenantBatchScheduler,  # noqa: E402
                                  MultiTenantIndex)
 from repro_torch.train import (adafactor, adamw,  # noqa: E402
-                               make_train_step)
+                               make_sharded_train_step, make_train_step)
 from repro_torch.train.step import value_and_grad  # noqa: E402
 
 SEED = 20251027
@@ -4541,6 +4553,407 @@ def phase_train(dev, card: str) -> dict[str, int]:
     return launches
 
 
+# -- the train_sharded phase ----------------------------------------------
+# A training state sharded over SH_RANKS torch.distributed ranks (ROADMAP
+# A2's training half). The machine has one card, so the ranks share cuda:0
+# and talk over gloo (NCCL does not place two ranks on one GPU): this is
+# the code path of a (data 2, model 2) mesh, not multi-card scaling. Every
+# rank is one process (`collectives.spawn`); the run has a time limit and
+# so does each process group. In one spawn each rank runs, in order:
+#   probe — every gloo collective of the path on CUDA tensors (all_reduce
+#           SUM and MAX on f32 and int32, reduce_scatter, all_gather,
+#           barrier) against its plain answer;
+#   (a)   — qwen2-0.5b at full width, 2 layers, f32 compute, B = 8 x 64, on
+#           a (2, 2) mesh against the one-rank port step on the card from
+#           the same weights and batch: AdamW (wd 0.1) 2 steps with
+#           grad_accum 2 (each data rank's rows are one microbatch) and no
+#           clipping, the loss within 1e-6 relative and every parameter
+#           within 1e-5 of its leaf's largest |value|; AdamW one step with
+#           grad_accum 1 (the batch's halves summed across ranks) and
+#           clipping: the loss and the clip norm within 1e-6 and the
+#           grads within 1e-5 of each leaf's largest (its parameters are
+#           not held: Adam turns last-bit grad differences in near-zero
+#           grads, the key bias's, into lr-sized moves, and a clip scale
+#           an ulp apart does the same at the next step); Adafactor one
+#           step (grad_accum 2, clipping), its parameters within 1e-5;
+#   (b)   — `make_two_level_all_reduce` on CUDA tensors at (pod 2, data 2),
+#           one (896, 4864) gradient per rank: within scale + 1e-5 of the
+#           mean on every rank, with its time;
+#   (c)   — qwen2-0.5b FULL (24 layers, f32 weights, bf16 compute, remat)
+#           through the SPMD ElasticTrainer on (data 2, model 2), B = 8 x
+#           64 repeated, AdamW lr 3e-4, 6 steps, a sharded checkpoint every
+#           2 (rank 0 writes, keep 2); 2 ranks dropped at step 3, the
+#           survivors re-form (data 1, model 2), restore step 2 and finish.
+#           Fails unless the losses fall, the restored state gathered whole
+#           equals the checkpoint's files bit for bit, and each rank's
+#           resident parameter and optimizer bytes equal its blocks (about
+#           a quarter of the whole before the shrink, half after). Prints
+#           the p50 step on each mesh, the collectives' share of it (host
+#           clock, each collective after a synchronize), the bytes each
+#           rank sends per step (ring model), and each rank's peak memory.
+# Then (d): `python -m repro_torch.launch.train --smoke --data 2 --model 2`
+# on the card, rc 0 and its closing line.
+SH_RANKS, SH_RUN_S = 4, 900
+SH_STEPS, SH_SAVE_EVERY, SH_FAIL_AT, SH_DROP, SH_KEEP = 6, 2, 3, 2, 2
+SH_LOSS_RTOL, SH_PARAM_TOL = 1e-6, 1e-5
+SH_TWO_LEVEL_SHAPE = (896, 4864)
+
+
+def _sharded_state(mesh, cfg, api, opt, seed):
+    """Every rank draws the whole state from `seed` on its device and keeps
+    its blocks. Returns (params, state, param and state shardings, the
+    whole state as meta tensors)."""
+    full = api.init(torch.Generator(device=mesh.device).manual_seed(seed),
+                    device=mesh.device)
+    meta = _tree.tree_map(lambda t: t.to("meta"), full)
+    pshard = sh.param_shardings(full, mesh, cfg)
+    oshard = sh.opt_state_shardings(opt.init(meta), meta, mesh, cfg)
+    params = sh.shard_tree(full, pshard)
+    del full
+    return params, opt.init(params), pshard, oshard, (meta, opt.init(meta))
+
+
+def _probe_gloo(mesh) -> dict[str, bool]:
+    n, r, dev = mesh.size, mesh.rank, mesh.device
+    axes = mesh.axis_names
+    base = torch.arange(8 * n, dtype=torch.float32)
+    x = (base + r).to(dev)
+    total = sum(base + k for k in range(n))
+    top = base + n - 1
+    out = {
+        "all_reduce_sum_f32": torch.equal(
+            coll.all_reduce(x, mesh, axes).cpu(), total),
+        "all_reduce_max_f32": torch.equal(
+            coll.all_reduce(x, mesh, axes, "max").cpu(), top),
+        "all_reduce_sum_i32": torch.equal(
+            coll.all_reduce(x.to(torch.int32), mesh, axes).cpu(),
+            total.to(torch.int32)),
+        "all_reduce_max_i32": torch.equal(
+            coll.all_reduce(x.to(torch.int32), mesh, axes, "max").cpu(),
+            top.to(torch.int32)),
+        "reduce_scatter": torch.equal(
+            coll.reduce_scatter(x, mesh, axes).cpu(),
+            total[r * 8:(r + 1) * 8]),
+        "all_gather": torch.equal(
+            coll.all_gather(x[:8], mesh, axes).cpu(),
+            torch.cat([base[:8] + k for k in range(n)]))}
+    coll.barrier(mesh)
+    out["barrier"] = True
+    return out
+
+
+def _grab(store: list, shardings):
+    """A grad_transform that keeps the first step's grads, whole."""
+    def hook(g):
+        if not store:
+            store.append(sh.gather_tree(g, shardings))
+        return g
+    return hook
+
+
+def _sharded_parity(mesh) -> dict | None:
+    """(a) on every rank; rank 0 runs the one-rank steps and returns the
+    comparison."""
+    cfg = get_config("qwen2-0.5b").with_(num_layers=TRAIN_CHECK_LAYERS,
+                                         compute_dtype="float32")
+    api = get_model(cfg)
+    batch = next(lm_batches(LMTaskConfig(cfg.vocab_size, TRAIN_S, TRAIN_B)))
+    # (name, optimizer, steps, grad_accum, clip_norm)
+    cases = (("adamw_aligned", lambda: adamw(lr=TRAIN_LR, weight_decay=0.1),
+              2, 2, None),
+             ("adamw_split", lambda: adamw(lr=TRAIN_LR), 1, 1, 1.0),
+             ("adafactor", lambda: adafactor(lr=TRAIN_LR), 1, 2, 1.0))
+    out = {}
+    for name, make_opt, steps, accum, clip in cases:
+        opt = make_opt()
+        params, state, pshard, _, _ = _sharded_state(mesh, cfg, api, opt,
+                                                     SEED + 15)
+        grads: list = []
+        step = make_sharded_train_step(api.loss_fn, opt, mesh, pshard,
+                                       grad_accum=accum, clip_norm=clip,
+                                       grad_transform=_grab(grads, pshard))
+        losses, norms = [], []
+        for _ in range(steps):
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        whole = sh.gather_tree(params, pshard)
+        del params, state
+        if mesh.rank == 0:
+            one = api.init(torch.Generator(device=mesh.device).manual_seed(
+                SEED + 15), device=mesh.device)
+            ograds: list = []
+            raw = make_train_step(api.loss_fn, opt, grad_accum=accum,
+                                  clip_norm=clip,
+                                  grad_transform=lambda g, s=ograds: (
+                                      s.append(g) if not s else None) or g)
+            ostate = opt.init(one)
+            tb = shard_batch(batch, mesh.device)
+            olosses, onorms = [], []
+            for _ in range(steps):
+                one, ostate, m = raw(one, ostate, tb)
+                olosses.append(float(m["loss"]))
+                onorms.append(float(m["grad_norm"]))
+            out[name] = {
+                "losses": losses, "one_rank": olosses,
+                "loss_err": max(abs(a - b) / abs(b)
+                                for a, b in zip(losses, olosses)),
+                "norm_err": max(abs(a - b) / max(abs(b), 1e-30)
+                                for a, b in zip(norms, onorms)),
+                "grad_err": _leaf_rel_err(grads[0], ograds[0]),
+                "param_err": (_leaf_rel_err(whole, one) if accum == 2
+                              else None)}
+            del one, ostate, ograds
+        del whole, grads
+        torch.cuda.empty_cache()
+    return out if mesh.rank == 0 else None
+
+
+def _two_level(mesh) -> dict:
+    """(b) on every rank of a (pod 2, data 2) mesh."""
+    def grad(rank):
+        gen = torch.Generator(device=mesh.device).manual_seed(SEED + 16 +
+                                                              rank)
+        return torch.randn(SH_TWO_LEVEL_SHAPE, generator=gen,
+                           device=mesh.device)
+    fn = compression.make_two_level_all_reduce(mesh)
+    g = grad(mesh.rank)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn({"w": g})["w"]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    every = [grad(k) for k in range(mesh.size)]
+    mean = sum(every) / mesh.size
+    scale = max(float(t.abs().max()) for t in every) / 127.0
+    return {"err": float((got - mean).abs().max()), "scale": scale,
+            "ms": statistics.median(times) * 1e3}
+
+
+class _ShardedRecording(CheckpointManager):
+    """A sharded CheckpointManager that, when it restores step `hold`,
+    gathers the restored state whole and checks it against the step's
+    files bit for bit (rank 0 reads them), and times its calls."""
+
+    def __init__(self, directory, keep, hold):
+        super().__init__(directory, keep=keep)
+        self.hold, self.checked = hold, []
+        self.save_s, self.restore_s = [], []
+
+    def save_async(self, step, tree, shardings=None):
+        t0 = time.perf_counter()
+        super().save_async(step, tree, shardings)
+        self.save_s.append((step, round(time.perf_counter() - t0, 2)))
+
+    def restore_latest(self, like, device=None, shardings=None):
+        t0 = time.perf_counter()
+        tree, step = super().restore_latest(like, device, shardings)
+        torch.cuda.synchronize()
+        self.restore_s.append((step, round(time.perf_counter() - t0, 2)))
+        if step == self.hold:
+            path = os.path.join(self.directory, f"step_{step:08d}")
+            same = True
+            for i, (t, s) in enumerate(zip(_tree.leaves(tree),
+                                           _tree.leaves(shardings),
+                                           strict=True)):
+                whole = sh.gather(t, s)
+                if s.mesh.rank == 0:
+                    want = np.load(os.path.join(path, f"{i:05d}.npy"),
+                                   mmap_mode="r")
+                    same &= np.array_equal(whole.cpu().numpy(), want)
+                del whole
+            self.checked.append(same)
+        return tree, step
+
+
+def _sharded_elastic(world, root) -> dict:
+    """(c) on every rank."""
+    cfg = get_config("qwen2-0.5b")
+    api = get_model(cfg)
+    opt = adamw(lr=TRAIN_LR)
+    batch = next(lm_batches(LMTaskConfig(cfg.vocab_size, TRAIN_S, TRAIN_B,
+                                         seed=SEED)))
+    sizes, steps = [], []
+
+    def make_state(mesh):
+        params, state, pshard, oshard, whole = _sharded_state(
+            mesh, cfg, api, opt, SEED + 17)
+        sizes.append({"mesh": dict(mesh.shape),
+                      "resident": sh.resident_bytes((params, state)),
+                      "blocks": sh.block_bytes(whole, (pshard, oshard)),
+                      "whole": _state_bytes(whole)})
+        raw = make_sharded_train_step(api.loss_fn, opt, mesh, pshard)
+
+        def step_fn(p, o, b, mesh):
+            torch.cuda.synchronize()
+            mesh.reset_comm()
+            t0 = time.perf_counter()
+            out = raw(p, o, b)
+            torch.cuda.synchronize()
+            steps.append((tuple(mesh.shape.values()),
+                          time.perf_counter() - t0, mesh.comm["seconds"],
+                          mesh.comm["bytes_sent"], mesh.comm["calls"]))
+            return out
+        return params, state, step_fn, (pshard, oshard)
+
+    ckpt = _ShardedRecording(root, SH_KEEP, SH_SAVE_EVERY)
+    torch.cuda.reset_peak_memory_stats()
+    out = ElasticTrainer(make_state=make_state, ckpt=ckpt,
+                         save_every=SH_SAVE_EVERY, model_parallel=2).run(
+        itertools.repeat(batch), num_steps=SH_STEPS,
+        injector=FailureInjector({SH_FAIL_AT: SH_DROP}), world=world)
+    out.update(sizes=sizes, steps=steps, checked=ckpt.checked,
+               save_s=ckpt.save_s, restore_s=ckpt.restore_s,
+               peak=torch.cuda.max_memory_allocated())
+    return out
+
+
+def _train_sharded_rank(world, root) -> dict:
+    """One rank of the phase: the probe and (a) on a (data 2, model 2)
+    mesh, (b) on (pod 2, data 2), then (c)."""
+    t0 = time.perf_counter()
+    mesh = world.join(range(world.size), (2, 2), ("data", "model"),
+                      "parity")
+    out = {"probe": _probe_gloo(mesh), "parity": _sharded_parity(mesh)}
+    out["parity_s"] = time.perf_counter() - t0
+    mesh = world.join(range(world.size), (2, 2), ("pod", "data"),
+                      "two_level")
+    out["two_level"] = _two_level(mesh)
+    world.leave()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["elastic"] = _sharded_elastic(world, root)
+    out["elastic_s"] = time.perf_counter() - t0
+    return out
+
+
+def _sharded_launcher(card, root) -> None:
+    """(d) the launcher at --data 2 --model 2 on the card."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    argv = ["--smoke", "--data", "2", "--model", "2", "--steps", "4",
+            "--ckpt-dir", os.path.join(root, "launch_sharded")]
+    line = re.compile(r"^qwen2-0\.5b: 4 steps in [0-9.]+s; loss [0-9.]+ -> "
+                      r"[0-9.]+; restarts 0$", re.M)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *argv], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0 or not line.search(out.stdout):
+        raise AssertionError(f"sharded launcher {argv}: rc {out.returncode}"
+                             f"\n{out.stdout}\n{out.stderr[-4000:]}")
+    log(f"train_sharded launcher ({card}): python -m "
+        f"repro_torch.launch.train {' '.join(argv[:-2])}: rc 0 in "
+        f"{time.perf_counter() - t0:.1f} s; {out.stdout.strip()}")
+
+
+def _p50(steps, shape) -> tuple[float, float, float, int]:
+    """(p50 step s, its collectives' share, bytes sent per step, calls)
+    over the steps run on a mesh of `shape`."""
+    mine = [s for s in steps if s[0] == shape]
+    mid = sorted(mine, key=lambda s: s[1])[len(mine) // 2]
+    return mid[1], mid[2] / mid[1], mid[3], mid[4]
+
+
+def phase_train_sharded(card: str) -> None:
+    """The sharded training state on SH_RANKS ranks sharing the card (see
+    SH_* above). Fails on any check or a rank's failure."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_sharded_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        outs = coll.spawn(_train_sharded_rank, SH_RANKS,
+                          os.path.join(root, "elastic"), device="cuda:0",
+                          timeout_s=SH_RUN_S)
+        problems = []
+        probe = outs[0]["probe"]
+        log(f"train_sharded probe ({card}): gloo collectives on CUDA "
+            f"tensors, {SH_RANKS} ranks on cuda:0: {probe}")
+        if not all(all(o["probe"].values()) for o in outs):
+            problems.append("a gloo collective on CUDA tensors")
+        for name, r in outs[0]["parity"].items():
+            log(f"train_sharded parity ({card}): qwen2-0.5b full width, "
+                f"{TRAIN_CHECK_LAYERS} layers, f32, B = {TRAIN_B} x "
+                f"{TRAIN_S}, (data 2, model 2) against one rank: {name} "
+                f"losses {[round(x, 6) for x in r['losses']]} (one rank "
+                f"{[round(x, 6) for x in r['one_rank']]}), loss rel err "
+                f"{r['loss_err']:.3g} (limit {SH_LOSS_RTOL}), clip norm "
+                f"rel err {r['norm_err']:.3g} (limit {SH_LOSS_RTOL}), step-1 "
+                f"grads "
+                f"{r['grad_err']:.3g} of each leaf's max, params "
+                f"{'not held' if r['param_err'] is None else format(r['param_err'], '.3g')}"
+                f" (limit {SH_PARAM_TOL})")
+            if max(r["loss_err"], r["norm_err"]) > SH_LOSS_RTOL \
+                    or r["grad_err"] > SH_PARAM_TOL \
+                    or (r["param_err"] or 0.0) > SH_PARAM_TOL:
+                problems.append(f"parity {name}")
+        log(f"train_sharded parity ({card}): {outs[0]['parity_s']:.1f} s "
+            "with the probe")
+        two = [o["two_level"] for o in outs]
+        log(f"train_sharded two_level ({card}): make_two_level_all_reduce "
+            f"at (pod 2, data 2), one {SH_TWO_LEVEL_SHAPE} f32 gradient per "
+            f"rank on cuda:0: max err vs the mean per rank "
+            f"{[round(t['err'], 6) for t in two]} (limit scale + 1e-5 = "
+            f"{two[0]['scale'] + 1e-5:.6f}); median of 3 per rank (ms) "
+            f"{[round(t['ms'], 1) for t in two]}")
+        if any(t["err"] > t["scale"] + 1e-5 for t in two):
+            problems.append("two-level all-reduce")
+        el = [o["elastic"] for o in outs]
+        kept = [e for e in el if not e["dropped"]]
+        for rank, e in enumerate(el):
+            sizes = "; ".join(
+                f"{z['mesh']} resident {z['resident']} = blocks "
+                f"{z['blocks']}: {z['resident'] == z['blocks']}, "
+                f"{z['blocks'] / z['whole']:.4f} of the whole "
+                f"{z['whole']}" for z in e["sizes"])
+            log(f"train_sharded elastic ({card}) rank {rank}: dropped "
+                f"{e['dropped']}, restarts {e['restarts']}, final_devices "
+                f"{e['final_devices']}, monitored {e['monitored']}; {sizes}; "
+                f"peak device memory {e['peak'] / 2 ** 30:.2f} GiB")
+            if any(z["resident"] != z["blocks"] for z in e["sizes"]):
+                problems.append(f"rank {rank} holds more than its blocks")
+        e = kept[0]
+        losses = e["losses"]
+        log(f"train_sharded elastic ({card}): qwen2-0.5b FULL, "
+            f"(data 2, model 2) -> (data 1, model 2) at step {SH_FAIL_AT}, "
+            f"{SH_STEPS} steps, B = {TRAIN_B} x {TRAIN_S}: losses "
+            f"{[round(x, 4) for x in losses]}; saves (step, s on the "
+            f"caller) {e['save_s']}; restores {e['restore_s']}; step "
+            f"{SH_SAVE_EVERY}'s restore gathered = its files bit for bit: "
+            f"{e['checked']}; the run {outs[0]['elastic_s']:.1f} s")
+        for shape in ((2, 2), (1, 2)):
+            rows = []
+            for rank, ee in enumerate(el):
+                if any(st[0] == shape for st in ee["steps"]):
+                    p50, share, sent, calls = _p50(ee["steps"], shape)
+                    rows.append(f"rank {rank}: p50 {p50 * 1e3:.1f} ms, "
+                                f"collectives {share:.3f} of it ({calls} "
+                                f"calls), sends {sent / 1e9:.3f} GB/step")
+            log(f"train_sharded step ({card}) at (data, model) = {shape}: "
+                + "; ".join(rows))
+        if len(kept) != SH_RANKS - SH_DROP or any(
+                x["restarts"] != 1 or x["final_devices"] != SH_RANKS - SH_DROP
+                or x["monitored"] != ["0", "1"] or x["losses"] != losses
+                for x in kept):
+            problems.append("the survivors' runs")
+        if len(losses) != SH_STEPS or not all(map(math.isfinite, losses)) \
+                or losses[-1] >= losses[0]:
+            problems.append(f"losses {losses}")
+        if e["checked"] != [True]:
+            problems.append(f"restore of step {SH_SAVE_EVERY}: {e['checked']}")
+        shutil.rmtree(os.path.join(root, "elastic"), ignore_errors=True)
+        if problems:
+            raise AssertionError("train_sharded: " + "; ".join(problems))
+        _sharded_launcher(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"train_sharded ({card}): the phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 # Host cost of the exact wrappers and of the block gather on each of its
 # kernels: HOST_CALLS back-to-back calls at the main path's shapes (B = 32,
 # C = 50, D = 512; one query for the single form; one lane and one block
@@ -4617,6 +5030,7 @@ def main() -> int:
     rag_launches, rag_sharded = phase_rag(dev, card)
     _add_counts(sharded_launches, rag_sharded)
     train_launches = phase_train(dev, card)
+    phase_train_sharded(card)
     log(f"sharded path launches ({card}): {sharded_launches}")
     for k in kernels:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in (

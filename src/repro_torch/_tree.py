@@ -47,6 +47,20 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree, path: tuple = ()):
+    """fn(path, leaf) over the leaves of `tree`; a path is the tuple of
+    dict keys and sequence indices from the root (the port's counterpart
+    of `jax.tree_util.tree_map_with_path`)."""
+    items = _items(tree)
+    if items is None:
+        return fn(path, tree)
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, sub, path + (k,))
+                for k, sub in items}
+    return type(tree)(tree_map_with_path(fn, sub, path + (k,))
+                      for k, sub in items)
+
+
 def unflatten(like, new_leaves) -> Any:
     """A tree shaped like `like` whose leaves are `new_leaves`, in the
     order `leaves(like)` gives."""

@@ -6,9 +6,9 @@ same numpy arrays, bit for bit.
   * Retrieval corpora with PLANTED relevance: documents are random unit
     vectors; each query is a noisy copy of its gold document.
 
-Batches are host numpy; `shard_batch` puts one on a device, or on a
-mesh's first slot (training runs on one device: ROADMAP A2's training
-half holds the data-parallel split).
+Batches are host numpy; `shard_batch` puts one on a device or a slot
+mesh's first slot, or, given shardings (`batch_shardings` over a
+`RankMesh`), keeps this rank's block of it on this rank's device.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from typing import Iterator
 import numpy as np
 
 from repro_torch._device import resolve_device, upload
-from repro_torch.distributed.sharding import Mesh
+from repro_torch.distributed.sharding import Mesh, NamedSharding, block_slices
 
 
 @dataclasses.dataclass
@@ -53,7 +53,15 @@ def lm_batches(cfg: LMTaskConfig) -> Iterator[dict]:
 
 def shard_batch(batch: dict, target) -> dict:
     """A host numpy batch as tensors on `target`: a device (the CUDA device
-    when None) or a `Mesh`, whose first slot takes it."""
+    when None), a `Mesh`, whose first slot takes it, or a NamedSharding
+    (or a dict of them, one per key), of which this rank keeps its block
+    (`batch_spec`: rows split over the batch axes) on its device."""
+    if isinstance(target, (dict, NamedSharding)):
+        def put(k, v):
+            s = target[k] if isinstance(target, dict) else target
+            v = np.asarray(v)
+            return upload(v[block_slices(v.shape, s)], s.mesh.device)
+        return {k: put(k, v) for k, v in batch.items()}
     dev = (target.slots()[0] if isinstance(target, Mesh)
            else resolve_device(target))
     return {k: upload(v, dev) for k, v in batch.items()}

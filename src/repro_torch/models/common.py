@@ -8,20 +8,28 @@ parameter tree carried across from the reference (`convert.dense_params`,
 device of their inputs.
 
 The reference's GSPMD hints (`constrain`, `constrain_kv`,
-`residual_pattern`) do nothing on one device and have no counterpart
-here (ROADMAP A2's training half).
+`residual_pattern`) pin an activation's sharding inside `jit`. Their spec
+resolution is ported as pure functions (`constrain_spec`,
+`constrain_kv_spec`: the PartitionSpec the reference would pin for a
+shape, a pattern and a mesh), and `set_mesh` is the active-mesh context.
+The hints themselves return their input, on one device as in the
+reference and under a sharded mesh as well: the port does not split
+compute over the model axis. Under the sharded train step each rank runs
+its own batch block, so the "dp" part of every pin holds by
+construction; the "mp" part is not realized (ROADMAP C24).
 
 `ModelConfig` holds the fields that the dense model, the embedder, the
 registry and training read, with the reference's defaults. Of the
 training knobs, `remat` checkpoints each dense block while autograd
 records and `optimizer` names the launcher's optimizer; `scan_layers`
-and `seq_shard` are kept for parity and do nothing here: the layers
-always run one after another, and one device needs no sequence-sharding
-hint (ROADMAP C22). The MoE, SSM, hybrid, enc-dec and frontend fields
-come with those families (ROADMAP A3).
+and `seq_shard` are kept for parity: the layers always run one after
+another (ROADMAP C22), and `seq_shard` only changes the spec
+`residual_pattern` names. The MoE, SSM, hybrid, enc-dec and frontend
+fields come with those families (ROADMAP A3).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Literal
 
@@ -50,7 +58,7 @@ class ModelConfig:
     attn_chunk: int = 2048         # flash-attention block size
     remat: bool = True             # checkpoint each block under autograd
     scan_layers: bool = True       # no-op: the layers run in a loop
-    seq_shard: bool = False        # no-op: one device, no sharding hint
+    seq_shard: bool = False        # Megatron-SP pin (a spec only: C24)
     optimizer: Literal["adamw", "adafactor"] = "adamw"
     tie_embeddings: bool = False
     # embedder head (MiniLM-style sentence encoder)
@@ -117,7 +125,10 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     g = x @ w_gate.to(x.dtype)
     u = x @ w_up.to(x.dtype)
-    return (torch.nn.functional.silu(g) * u) @ w_down.to(x.dtype)
+    h = torch.nn.functional.silu(g) * u
+    if h.ndim == 3:                       # (B, S, F): TP-shard the hidden
+        h = constrain(h, "dp", None, "mp")
+    return h @ w_down.to(x.dtype)
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
@@ -172,3 +183,97 @@ def param_count(params: Params) -> int:
 def layer(blocks: dict, i: int) -> dict:
     """Layer i's parameters: a view of every stacked block tensor."""
     return {name: t[i] for name, t in blocks.items()}
+
+
+def residual_pattern(cfg) -> tuple:
+    """Sharding pins for the (B, S, D) residual stream: plain TP keeps it
+    batch-sharded only; Megatron-SP (cfg.seq_shard) also shards S over
+    the model axis between blocks."""
+    return ("dp", "mp", None) if cfg.seq_shard else ("dp", None, None)
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding constraints (GSPMD hints)
+# ---------------------------------------------------------------------------
+
+_ACTIVE: list = []
+
+
+@contextlib.contextmanager
+def set_mesh(mesh):
+    """The active mesh for the hints below (the reference's
+    `jax.set_mesh`): any object with `.shape` and `.axis_names`."""
+    _ACTIVE.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _ACTIVE.pop()
+
+
+def active_mesh():
+    """The innermost mesh set by `set_mesh`, or None."""
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+def _axes(mesh) -> tuple[tuple[str, ...], str | None]:
+    names = tuple(mesh.axis_names)
+    mp = "model" if "model" in names else None
+    return tuple(n for n in names if n != "model"), mp
+
+
+def constrain_spec(shape: tuple[int, ...], pattern, mesh) -> tuple:
+    """The spec the reference's `constrain` pins on an activation of
+    `shape`: pattern entries are 'dp' (batch axes), 'mp' (model axis) or
+    None, one per dim; each entry divisibility-guarded, each axis used
+    once. A tuple of entries (None, an axis name or a tuple of names)."""
+    dp, mp = _axes(mesh)
+    spec = []
+    used = set()
+    for dim, want in enumerate(pattern):
+        d = shape[dim] if dim < len(shape) else 0
+        if want == "dp" and "dp" not in used and dp:
+            size = 1
+            for a in dp:
+                size *= mesh.shape[a]
+            if d % size == 0 and d > 0:
+                spec.append(dp if len(dp) > 1 else dp[0])
+                used.add("dp")
+                continue
+        if want == "mp" and "mp" not in used and mp:
+            if d % mesh.shape[mp] == 0 and d > 0:
+                spec.append(mp)
+                used.add("mp")
+                continue
+        spec.append(None)
+    return tuple(spec)
+
+
+def constrain_kv_spec(shape: tuple[int, ...], mesh) -> tuple:
+    """The spec the reference's `constrain_kv` pins on a KV-cache slice
+    (B, T, KH, hd): B -> dp; KH -> mp when divisible, else T -> mp
+    (context-parallel decode)."""
+    dp, mp = _axes(mesh)
+    b, t, kh, _ = shape
+    dsz = 1
+    for a in dp:
+        dsz *= mesh.shape[a]
+    bspec = (dp if len(dp) > 1 else dp[0]) if (dp and b % dsz == 0) else None
+    if mp and kh % mesh.shape[mp] == 0:
+        return (bspec, None, mp, None)
+    if mp and t % mesh.shape[mp] == 0:
+        return (bspec, mp, None, None)
+    return (bspec, None, None, None)
+
+
+def constrain(x: torch.Tensor, *pattern: str | None) -> torch.Tensor:
+    """Pin an activation's sharding (`constrain_spec`). Returns x: outside
+    a mesh there is nothing to pin, as in the reference; under a sharded
+    mesh the batch block a rank runs is the "dp" pin, and the "mp" pin is
+    not realized (ROADMAP C24)."""
+    return x
+
+
+def constrain_kv(kc: torch.Tensor) -> torch.Tensor:
+    """Pin a KV-cache slice's sharding (`constrain_kv_spec`); returns kc,
+    as `constrain` does."""
+    return kc

@@ -27,9 +27,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (ModelConfig, Params, apply_rope,
-                                       check_generator, cross_entropy_loss,
+                                       check_generator, constrain,
+                                       constrain_kv, cross_entropy_loss,
                                        dense_init, embed_init, layer,
-                                       rmsnorm, rope_tables, swiglu)
+                                       residual_pattern, rmsnorm,
+                                       rope_tables, swiglu)
 from repro_torch.serve import sparse_kv
 
 
@@ -86,9 +88,12 @@ def _qkv(p, x, cfg: ModelConfig):
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    return (q.reshape(b, s, cfg.num_heads, cfg.hd),
-            k.reshape(b, s, cfg.num_kv_heads, cfg.hd),
-            v.reshape(b, s, cfg.num_kv_heads, cfg.hd))
+    return (constrain(q.reshape(b, s, cfg.num_heads, cfg.hd),
+                      "dp", None, "mp", None),
+            constrain(k.reshape(b, s, cfg.num_kv_heads, cfg.hd),
+                      "dp", None, "mp", None),
+            constrain(v.reshape(b, s, cfg.num_kv_heads, cfg.hd),
+                      "dp", None, "mp", None))
 
 
 def _mlp_residual(p, x, cfg: ModelConfig) -> torch.Tensor:
@@ -103,8 +108,9 @@ def block_fwd(p, x, cos, sin, cfg: ModelConfig):
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     o = attn.chunked_causal_attention(q, k, v, cfg.attn_chunk)
-    x = x + o.reshape(*o.shape[:2], -1) @ p["wo"].to(x.dtype)
-    return _mlp_residual(p, x, cfg), (k, v)
+    x = constrain(x + o.reshape(*o.shape[:2], -1) @ p["wo"].to(x.dtype),
+                  *residual_pattern(cfg))
+    return constrain(_mlp_residual(p, x, cfg), *residual_pattern(cfg)), (k, v)
 
 
 def _step_slots(length: torch.Tensor, t: int
@@ -136,6 +142,7 @@ def _block_decode(p, x, kc, vc, length, slots, cos, sin, cfg: ModelConfig):
     rows, idx = slots
     kc[rows, idx] = k[:, 0]
     vc[rows, idx] = v[:, 0]
+    kc, vc = constrain_kv(kc), constrain_kv(vc)
     o = attn.decode_attention(q, kc, vc, length)
     x = x + o.reshape(x.shape[0], 1, -1) @ p["wo"].to(x.dtype)
     return _mlp_residual(p, x, cfg), kc, vc
@@ -147,14 +154,14 @@ def embed_tokens(params, tokens, cfg: ModelConfig,
     x = params["embed"][torch.as_tensor(tokens, device=dev)].to(cfg.cdtype)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(dev, cfg.cdtype), x], dim=1)
-    return x
+    return constrain(x, "dp", None, None)
 
 
 def _logits(params, x, cfg: ModelConfig) -> torch.Tensor:
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        return x @ params["embed"].to(x.dtype).T
-    return x @ params["lm_head"].to(x.dtype)
+    head = (params["embed"].to(x.dtype).T if cfg.tie_embeddings
+            else params["lm_head"].to(x.dtype))
+    return constrain(x @ head, "dp", None, "mp")
 
 
 def _positions(s: int, dev) -> torch.Tensor:

@@ -13,10 +13,19 @@ Failures are simulated (FailureInjector raises at chosen steps and
 shrinks the worker set), the path a deployment takes when a process
 group reports a lost rank. Mesh shapes degrade along the data axis first.
 
-A worker is a mesh slot, named by its ordinal in the device list the run
-was given ("0", "1", ...); the reference names a worker by its JAX
-device id. Slots may repeat a card (`distributed.Mesh`), so two workers
-on one H100 are two names for one device (ROADMAP C22).
+Two forms. In one process, a worker is a mesh slot, named by its ordinal
+in the device list the run was given ("0", "1", ...); the reference names
+a worker by its JAX device id. Slots may repeat a card
+(`distributed.Mesh`), so two workers on one H100 are two names for one
+device (ROADMAP C22). Given a `collectives.World` (SPMD: every rank of a
+spawned run calls `run` with the same arguments), a worker is a rank,
+named by its ordinal in the run; the mesh is a `RankMesh` over a process
+group of the mesh's ranks, and the state is sharded (make_state returns
+its shardings as the placement). On a failure every rank leaves the
+group; the dropped ranks return, and the survivors form a new group over
+themselves (new rank numbers, a new store per generation), make the
+state on the smaller mesh and restore the newest checkpoint with its new
+shardings.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import torch
 
 from repro_torch._device import visible_devices
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.distributed.collectives import World
 from repro_torch.distributed.sharding import Mesh, device_array
 from repro_torch.runtime.fault import HeartbeatMonitor, StragglerDetector
 
@@ -51,13 +61,19 @@ class FailureInjector:
         return workers
 
 
-def build_mesh_from(devices: Sequence, model_parallel: int) -> Mesh:
-    """Largest (data, model) mesh from the surviving devices (slots)."""
+def build_mesh_from(devices: Sequence, model_parallel: int,
+                    world: World | None = None, tag: str = "mesh"):
+    """Largest (data, model) mesh from the surviving devices (slots), or,
+    with a World, from the surviving ranks: a RankMesh over a new process
+    group of them (its store named by `tag`)."""
     n = len(devices)
     mp = model_parallel
     while mp > 1 and n % mp:
         mp //= 2
     dp = n // mp
+    if world is not None:
+        return world.join([int(r) for r in devices[:dp * mp]], (dp, mp),
+                          ("data", "model"), tag)
     return Mesh(device_array(list(devices[:dp * mp]), (dp, mp)),
                 ("data", "model"))
 
@@ -70,7 +86,9 @@ class ElasticTrainer:
                  on every (re)mesh; step_fn(params, opt_state, batch,
                  mesh) -> (params, opt_state, metrics); placement is where
                  a restore puts the state (a device, a tree of devices, or
-                 None for the devices of the fresh state);
+                 None for the devices of the fresh state; with a World,
+                 the shardings of (params, opt_state), used to save and
+                 restore this rank's blocks);
     ckpt:        CheckpointManager;
     save_every:  checkpoint cadence in steps.
     """
@@ -82,25 +100,46 @@ class ElasticTrainer:
 
     def run(self, batches, num_steps: int,
             injector: FailureInjector | None = None,
-            devices: Sequence | None = None) -> dict:
+            devices: Sequence | None = None,
+            world: World | None = None) -> dict:
         """Train `num_steps` steps over the slots `devices` (every visible
-        CUDA device when None)."""
-        devs = (visible_devices() if devices is None
-                else [torch.device(d) for d in devices])
-        workers = [(str(i), d) for i, d in enumerate(devs)]
+        CUDA device when None), or, given `world`, over the ranks of a
+        spawned run (`devices` unused). With a world the result also says
+        whether this rank was dropped."""
+        if world is not None:
+            workers = [(str(r), r) for r in range(world.size)]
+        else:
+            devs = (visible_devices() if devices is None
+                    else [torch.device(d) for d in devices])
+            workers = [(str(i), d) for i, d in enumerate(devs)]
         monitor = HeartbeatMonitor(timeout_s=self.heartbeat_timeout_s)
         stragglers = StragglerDetector()
         history: list[float] = []
         restarts = 0
         step = 0
 
+        def result(**extra) -> dict:
+            return {"losses": history, "restarts": restarts,
+                    "final_devices": len(workers),
+                    "monitored": monitor.workers(),
+                    "stragglers": stragglers.stragglers(), **extra}
+
         while step < num_steps:
-            mesh = build_mesh_from([d for _, d in workers],
-                                   self.model_parallel)
+            if world is None:
+                mesh = build_mesh_from([d for _, d in workers],
+                                       self.model_parallel)
+            else:
+                mesh = build_mesh_from([r for _, r in workers],
+                                       self.model_parallel, world,
+                                       tag=f"generation{restarts}")
             params, opt_state, step_fn, placement = self.make_state(mesh)
+            # one process: where to restore; SPMD: the state's shardings,
+            # which every save and restore of this rank's blocks needs
+            spmd = {} if world is None else {"shardings": placement}
+            restore_to = spmd or {"device": placement}
             try:
                 (params, opt_state), latest = self.ckpt.restore_latest(
-                    (params, opt_state), placement)
+                    (params, opt_state), **restore_to)
                 step = latest
                 # Steps latest..failure-1 are about to re-run; their
                 # pre-failure losses would otherwise stay as duplicates
@@ -128,7 +167,8 @@ class ElasticTrainer:
                     history.append(float(metrics["loss"]))
                     step += 1
                     if step % self.save_every == 0 or step == num_steps:
-                        self.ckpt.save_async(step, (params, opt_state))
+                        self.ckpt.save_async(step, (params, opt_state),
+                                             **spmd)
                 self.ckpt.wait()
             except WorkerFailure as wf:
                 restarts += 1
@@ -141,11 +181,15 @@ class ElasticTrainer:
                 for name in dead:
                     monitor.remove(name)
                     stragglers.remove(name)
+                if world is not None:
+                    world.leave()
+                    if str(world.rank) in dead:
+                        return result(dropped=True)
                 if not workers:
                     raise
                 continue
 
-        return {"losses": history, "restarts": restarts,
-                "final_devices": len(workers),
-                "monitored": monitor.workers(),
-                "stragglers": stragglers.stragglers()}
+        if world is not None:
+            world.leave()
+            return result(dropped=False)
+        return result()

@@ -15,6 +15,13 @@ a different optimizer. The step's scalars are f32 tensors (`b1 ** t` in
 f32, as the reference computes it), and every division by a Python
 number divides by a tensor (`true_div`: on the card torch turns `/ 2.0`
 into a multiply by the reciprocal).
+
+On a sharded state, `update(..., shardings=)` takes each rank's blocks of
+the grads, state and params and a NamedSharding per parameter. AdamW is
+elementwise and ignores it; Adafactor's row and column means, the mean
+of its row statistics and its two RMS means reduce over dims that a mesh
+axis may split, so each sums its block and all-reduces the sum over
+exactly the axes that split the dims it reduces.
 """
 from __future__ import annotations
 
@@ -24,14 +31,15 @@ import torch
 
 from repro_torch import _tree
 from repro_torch.core.quantization import true_div
+from repro_torch.distributed import collectives as coll
 
 F32 = torch.float32
 
 
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
-    # (grads, state, params) -> (params, state)
-    update: Callable[[Any, Any, Any], tuple[Any, Any]]
+    # (grads, state, params, shardings=None) -> (params, state)
+    update: Callable[..., tuple[Any, Any]]
 
 
 def _step(params) -> torch.Tensor:
@@ -63,7 +71,7 @@ def adamw(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.95,
                 params)
         return {"step": _step(params), "mu": zeros(), "nu": zeros()}
 
-    def update(grads, state, params):
+    def update(grads, state, params, shardings=None):
         step = state["step"] + 1
         t = step.to(F32)
         c1 = 1.0 - _pow(b1, t)
@@ -88,6 +96,26 @@ def adamw(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.95,
 # Adafactor (Shazeer & Stern 2018), factored over the last two dims
 # ---------------------------------------------------------------------------
 
+def _mean(x: torch.Tensor, dims, sharding, param_dims, keepdim=False
+          ) -> torch.Tensor:
+    """torch.mean of x over `dims` (None: all); with a sharding, x is a
+    block and `param_dims` are the parameter dims that `dims` stand for,
+    whose split axes the block sum is all-reduced over."""
+    if sharding is None:
+        return torch.mean(x, dim=dims, keepdim=keepdim)
+    mesh, spec = sharding.mesh, sharding.spec
+    axes = {a for d in param_dims if d < len(spec)
+            for a in coll.axes_of(spec[d])}
+    axes = tuple(a for a in mesh.axis_names if a in axes)
+    total = (torch.sum(x) if dims is None
+             else torch.sum(x, dim=dims, keepdim=keepdim))
+    count = (x.numel() if dims is None else x.shape[dims])
+    if axes:
+        total = coll.all_reduce(total, mesh, axes)
+        count *= mesh.axes_size(axes)
+    return true_div(total, count)
+
+
 def adafactor(lr: float = 1e-3, decay: float = 0.8, eps1: float = 1e-30,
               eps2: float = 1e-3, clip_threshold: float = 1.0) -> Optimizer:
     def init(params):
@@ -100,18 +128,21 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps1: float = 1e-30,
             return {"v": torch.zeros(p.shape, dtype=F32, device=p.device)}
         return {"step": _step(params), "v": _tree.tree_map(leaf, params)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, shardings=None):
         step = state["step"] + 1
         t = step.to(F32)
         beta = 1.0 - t ** -decay                 # increasing decay schedule
 
-        def upd(p, g, s):
+        def upd(p, g, s, sh=None):
             g = g.to(F32)
             g2 = torch.square(g) + eps1
+            every = tuple(range(p.ndim))
             if p.ndim >= 2:
-                vr = beta * s["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
-                vc = beta * s["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
-                denom = torch.mean(vr, dim=-1, keepdim=True)
+                last, penult = p.ndim - 1, p.ndim - 2
+                vr = beta * s["vr"] + (1 - beta) * _mean(g2, -1, sh, (last,))
+                vc = beta * s["vc"] + (1 - beta) * _mean(g2, -2, sh,
+                                                         (penult,))
+                denom = _mean(vr, -1, sh, (penult,), keepdim=True)
                 u = g / (torch.sqrt(vr / denom)[..., None]
                          * torch.sqrt(vc)[..., None, :] + eps1)
                 ns = {"vr": vr, "vc": vc}
@@ -120,13 +151,16 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps1: float = 1e-30,
                 u = g / (torch.sqrt(v) + eps1)
                 ns = {"v": v}
             # update clipping (RMS)
-            rms = torch.sqrt(torch.mean(torch.square(u)) + eps1)
+            rms = torch.sqrt(_mean(torch.square(u), None, sh, every) + eps1)
             u = u / torch.clamp(true_div(rms, clip_threshold), min=1.0)
-            scale = torch.clamp(
-                torch.sqrt(torch.mean(torch.square(p.to(F32)))), min=eps2)
+            scale = torch.clamp(torch.sqrt(
+                _mean(torch.square(p.to(F32)), None, sh, every)), min=eps2)
             return (p - (lr * scale * u).to(p.dtype)).to(p.dtype), ns
 
-        out = _tree.tree_map(upd, params, grads, state["v"])
+        if shardings is None:
+            out = _tree.tree_map(upd, params, grads, state["v"])
+        else:
+            out = _tree.tree_map(upd, params, grads, state["v"], shardings)
         new_p, new_s = _split(params, out, 2)
         return new_p, {"step": step, "v": new_s}
 

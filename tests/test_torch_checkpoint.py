@@ -102,9 +102,9 @@ def test_other_dtypes_and_other_states_raise(tmp_path):
     with pytest.raises(TypeError, match="b__c is int64"):
         save_checkpoint(str(tmp_path), 1, {"a": torch.zeros(2),
                                            "b": {"c": torch.arange(3)}})
-    with pytest.raises(TypeError, match="0__w is bfloat16"):
+    with pytest.raises(TypeError, match="0__w is float16"):
         save_checkpoint(str(tmp_path), 1,
-                        ({"w": torch.zeros(2, dtype=torch.bfloat16)},))
+                        ({"w": torch.zeros(2, dtype=torch.float16)},))
     assert latest_step(str(tmp_path)) is None
     save_checkpoint(str(tmp_path), 2, tree())
     with pytest.raises(ValueError, match="holds leaves"):
@@ -187,3 +187,58 @@ def test_both_packages_write_the_same_manifest(tmp_path):
     names = [leaf["name"] for leaf in manifests[0]["leaves"]]
     assert names[0] == "0__blocks__bk" and "1__mu__embed" in names
     assert names[-1] == "1__step"
+
+
+# --- bfloat16 leaves (ROADMAP C23) --------------------------------------------
+
+def _bf16_state():
+    """A reference state with a bfloat16 leaf: the smoke params with the
+    embedding in bfloat16 (an ml_dtypes array, as the reference holds it)."""
+    params, state = _reference_state()
+    params = dict(params, embed=params["embed"].astype(jnp.bfloat16))
+    return params, state
+
+
+def test_reference_bfloat16_leaf_restores_in_the_port_bit_for_bit(tmp_path):
+    jstate = _bf16_state()
+    jsave_checkpoint(str(tmp_path / "ref"), 4, jstate)
+    manifest = json.load(open(tmp_path / "ref" / "step_00000004" /
+                              "manifest.json"))
+    entry = next(leaf for leaf in manifest["leaves"]
+                 if leaf["name"] == "0__embed")
+    assert entry["dtype"] == "bfloat16"
+    host = jax.tree.map(np.asarray, jstate)
+    like = _tree.tree_map(torch.zeros_like, (
+        dict(convert.dense_params(dict(host[0], embed=host[0]["embed"]
+                                       .astype(np.float32)), device="cpu")),
+        convert.optimizer_state(host[1], device="cpu")))
+    like[0]["embed"] = like[0]["embed"].to(torch.bfloat16)
+    got, step = restore_checkpoint(str(tmp_path / "ref"), like)
+    assert step == 4 and got[0]["embed"].dtype == torch.bfloat16
+    want_bits = np.asarray(jstate[0]["embed"]).view(np.uint16)
+    np.testing.assert_array_equal(
+        got[0]["embed"].view(torch.int16).numpy().view(np.uint16), want_bits)
+    # and the port writes the same bytes back
+    save_checkpoint(str(tmp_path / "port"), 4, got)
+    for leaf in manifest["leaves"]:
+        a = (tmp_path / "ref" / "step_00000004" / leaf["file"]).read_bytes()
+        b = (tmp_path / "port" / "step_00000004" / leaf["file"]).read_bytes()
+        assert a == b, leaf["name"]
+    assert json.load(open(tmp_path / "port" / "step_00000004" /
+                          "manifest.json")) == manifest
+
+
+def test_port_bfloat16_leaf_restores_in_the_reference(tmp_path):
+    """The reference's own restore hands a bfloat16 leaf back as its raw
+    2-byte records (numpy `V2`), a property the port does not copy; the
+    bits are the port's."""
+    w = torch.randn((3, 5), generator=torch.Generator().manual_seed(1)
+                    ).to(torch.bfloat16)
+    save_checkpoint(str(tmp_path), 1, {"w": w, "s": torch.tensor(2)
+                                       .to(torch.int32)})
+    like = {"w": jnp.zeros((3, 5), jnp.bfloat16),
+            "s": jnp.zeros((), jnp.int32)}
+    got, _ = jrestore_checkpoint(str(tmp_path), like)
+    assert np.asarray(got["w"]).dtype.str == "|V2"
+    np.testing.assert_array_equal(np.asarray(got["w"]).view(np.uint16),
+                                  w.view(torch.int16).numpy().view(np.uint16))

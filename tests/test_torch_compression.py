@@ -4,8 +4,8 @@
 tests/test_compression.py on the port, and codes, scales, outputs and
 residuals bit-identical to the reference's on the same numpy inputs
 (the scale divides by a tensor, so the division is correctly rounded in
-both). The two-level all-reduce needs collectives and is not ported
-(ROADMAP A2)."""
+both). The two-level all-reduce runs over spawned ranks, in
+tests/test_torch_sharded_elastic.py."""
 import pytest
 
 torch = pytest.importorskip("torch")

@@ -1,8 +1,9 @@
 """The port's training launcher (`repro_torch.launch.train`) on the CPU,
 as a user runs it (`python -m ...`, plain and with --grad-accum 2
---compress-grads), its refusals (a sharded state: ROADMAP A2's training
-half; the families not ported: A3), its resume from the newest
-checkpoint, and the training modules' imports (no JAX, no reference).
+--compress-grads), its refusals (a mesh axis below 1; the families not
+ported: A3), its resume from the newest checkpoint, and the training
+modules' imports (no JAX, no reference). Its sharded runs (--data/--model
+above 1) are in tests/test_torch_sharded_train.py.
 The reference's launcher (`repro.launch.train`) prints the same closing
 line."""
 import pytest
@@ -54,8 +55,8 @@ def test_launcher_resumes_from_the_newest_checkpoint(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("args,err,match", [
-    (["--data", "2"], NotImplementedError, "A2's training half"),
-    (["--model", "2"], NotImplementedError, "A2's training half"),
+    (["--data", "0"], ValueError, "mesh axes must be >= 1"),
+    (["--model", "0"], ValueError, "mesh axes must be >= 1"),
     (["--arch", "mamba2-2.7b"], KeyError, "ROADMAP A3")])
 def test_launcher_refuses_what_is_not_ported(tmp_path, args, err, match):
     with pytest.raises(err, match=match):
@@ -68,6 +69,7 @@ def test_training_modules_import_neither_jax_nor_the_reference():
         "import sys\n"
         "import repro_torch.train, repro_torch.checkpoint\n"
         "import repro_torch.runtime, repro_torch.distributed.compression\n"
+        "import repro_torch.distributed.collectives\n"
         "import repro_torch.data, repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
         "             or m.startswith(('jax.', 'repro.')))\n"
