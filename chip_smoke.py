@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's retrieval cascades, models, RAG pipeline
-and training on one GPU.
+"""Drive the PyTorch/CUDA port's retrieval cascades, models (dense, vlm,
+MoE), RAG pipeline and training on one GPU.
 
     python3 chip_smoke.py
 
@@ -213,6 +213,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
                --grad-accum 2 --compress-grads`, side by side: rc 0 and the
                closing line. Prints every number with the card's name and
                power limit.
+ 12a. models  — the dense, vlm and MoE configs at full width with random
+               weights (see MD_* below): llama4-scout (1 layer, f32) on
+               the card against the port's CPU path (routing exact with
+               near-ties counted, logits, the MoE dispatch bit-identical
+               across two runs); llama4-scout (4 layers), llama4-maverick
+               (one superblock, bf16), minitron-4b, internvl2-26b (8
+               layers), deepseek-coder-33b and deepseek-67b (4 layers)
+               one at a time behind `RAGPipeline.answer` (top-1 8/8, #1
+               and #3 by id counted, prefill and decode p50, one
+               profiled step, peak memory; decode against `forward` at
+               f32 for the dense and vlm ones); llama4-scout (1 layer)
+               trained through `ElasticTrainer` with Adafactor, its
+               checkpoint restored bit for bit; three launchers with the
+               new `--arch` ids.
  12b. train_sharded — a training state sharded over 4 torch.distributed
                ranks that share this one card over gloo (the code path of a
                (data 2, model 2) mesh, not multi-card scaling; see SH_*
@@ -228,7 +242,7 @@ Then the exact wrappers' and the block gather's host microseconds per
 call (`host_us_per_call`).
 The line before the last is a JSON object describing every kernel
 (launches: the sum over the main, sharded, autotune, cluster, tenancy,
-serving, decode, rag and train paths; `stage1_gather_resident` and `stage0_sign_gather_resident`
+serving, decode, rag, train and models paths; `stage1_gather_resident` and `stage0_sign_gather_resident`
 are counted by the resident wrappers where they launch, which only the
 serving phase's cached segments call; the `@decode_hd64` rows are #2 and
 #8 at the decode phase's shapes, with the decode path's launches); the last
@@ -294,7 +308,7 @@ from repro_torch.kernels.stage1_int4 import (  # noqa: E402
 from repro_torch.kernels.stage2_int8 import (  # noqa: E402
     stage2_int8_batched, stage2_int8_by_id, stage2_int8_single)
 from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
-from repro_torch.models import dense, embedder, get_model  # noqa: E402
+from repro_torch.models import dense, embedder, get_model, moe  # noqa: E402
 from repro_torch.models.common import param_count  # noqa: E402
 from repro_torch.serve import (HotClusterCache,  # noqa: E402
                                MultiTenantRAGPipeline, RAGAgent, RAGPipeline,
@@ -4553,6 +4567,453 @@ def phase_train(dev, card: str) -> dict[str, int]:
     return launches
 
 
+# -- the models phase ------------------------------------------------------
+# The families the port gained in ROADMAP A3a-A3b, each at its published
+# width (random weights from a seeded generator on the card), depth cut to
+# fit one 80 GB card:
+#   (a) llama4-scout at full width (d 5120, 40 heads over 8 KV heads, d_ff
+#       8192, 16 experts + a shared one, vocab 202048), 1 layer, f32
+#       compute: a prefill of B = 2 x 32 tokens and 4 decode steps on the
+#       card and on the port's plain path on the CPU from the same weights.
+#       Routing (each token's expert, kept or dropped, its buffer slot)
+#       must be equal, except tokens whose top-2 router probabilities lie
+#       within MD_TIE_ULPS ulp on either side, and every later token of
+#       their chunk routed to either of their experts (exempted and
+#       counted); the logits of the other positions within MD_LOGITS_ATOL;
+#       the MoE FFN bit-identical across two runs on the card, at f32 and
+#       at bf16 compute.
+#   (b) each of MD_SERVE behind RAGPipeline (the rag phase's corpus: the
+#       full-width MiniLM over 2048 docs of 64 tokens, k = 5, so 384-token
+#       prompts), B = 8 queries that copy docs, `answer` with 16 new
+#       tokens: top-1 8/8, finite prefill and decode logits, #1 and #3 by
+#       id counted; the dense and vlm configs also at f32 compute: a
+#       64-token prompt (after 1024 patch embeddings for the vlm) + 4
+#       decode steps against `forward`, within MD_TF_ATOL. One config at a
+#       time, each freed before the next.
+#   (c) llama4-scout at full width, 1 layer, B = 8 x 64 of the LM stream
+#       (one batch, repeated) through ElasticTrainer for 6 steps with
+#       Adafactor (lr 3e-4; a cut: AdamW's f32 state for 4.27 B
+#       parameters does not fit the card beside its grads), one
+#       checkpoint at step 6 restored bit for bit; the losses must fall.
+#   (d) the launchers: `launch.serve --arch llama4-scout-17b-a16e
+#       --smoke`, `launch.train --arch internvl2-26b --smoke --steps 4`
+#       and `launch.train --arch llama4-maverick-400b-a17b --smoke --data
+#       2 --model 2 --steps 4`, started with the phase and collected
+#       before (b): rc 0 and their closing lines.
+MD_CHECK_B, MD_CHECK_S, MD_CHECK_STEPS = 2, 32, 4
+MD_TIE_ULPS = 2
+MD_LOGITS_ATOL = 1e-3
+MD_B, MD_MAX_NEW, MD_STEPS = 8, 16, 20
+MD_TF_PROMPT, MD_TF_STEPS, MD_TF_ATOL = 64, 4, 1e-3
+# (arch, layers kept: None = all)
+MD_SERVE = (("llama4-scout-17b-a16e", 4),
+            ("llama4-maverick-400b-a17b", 2),
+            ("minitron-4b", None),
+            ("internvl2-26b", 8),
+            ("deepseek-coder-33b", 4),
+            ("deepseek-67b", 4))
+MD_TRAIN_B, MD_TRAIN_S, MD_TRAIN_STEPS = 8, 64, 6
+MD_KERNELS = ("stage1_plane_mma", "stage2_by_id")
+
+
+class _RouteLog:
+    """Records every `moe.route` call: (probs, eidx, keep, slot) on the
+    CPU, and the chunk size."""
+
+    def __init__(self):
+        self.calls = []
+        self._route = moe.route
+
+    def __call__(self, p, xt, cfg, chunk):
+        out = self._route(p, xt, cfg, chunk)
+        probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)
+        eidx, _, keep, slot, _ = out
+        self.calls.append((probs.cpu(), eidx.cpu(), keep.cpu(), slot.cpu(),
+                           chunk))
+        return out
+
+
+def _exempt(probs_a, probs_b, e_a, e_b, chunk) -> np.ndarray:
+    """Tokens whose top-2 router probabilities lie within MD_TIE_ULPS ulp
+    on either side, and every later token of their chunk routed (on
+    either side) to one of their experts."""
+    out = np.zeros(len(e_a), bool)
+    e_a, e_b = e_a.numpy(), e_b.numpy()
+    for probs in (probs_a.numpy(), probs_b.numpy()):
+        top = np.sort(probs, axis=-1)[:, -2:]
+        tie = top[:, 1] - top[:, 0] <= MD_TIE_ULPS * np.spacing(top[:, 1])
+        for t in np.flatnonzero(tie):
+            experts = list({int(e_a[t]), int(e_b[t]),
+                            *np.argsort(probs[t])[-2:].tolist()})
+            later = np.arange(t, (t // chunk + 1) * chunk)
+            out[later[np.isin(e_a[later], experts)
+                      | np.isin(e_b[later], experts)]] = True
+    return out
+
+
+def _scout_run(params, cfg, toks, dev):
+    """Prefill MD_CHECK_S tokens, then MD_CHECK_STEPS decode steps of the
+    given tokens: (logits (B, S + steps, V) on the CPU, route calls)."""
+    log_ = _RouteLog()
+    t = toks.to(dev)
+    with mock.patch.object(moe, "route", log_):
+        lg, cache = moe.prefill(params, t[:, :MD_CHECK_S], cfg,
+                                max_len=MD_CHECK_S + MD_CHECK_STEPS)
+        outs = [lg.cpu()]
+        for i in range(MD_CHECK_S, MD_CHECK_S + MD_CHECK_STEPS):
+            lg, cache = moe.decode_step(params, cache, t[:, i:i + 1], cfg)
+            outs.append(lg.cpu())
+    return torch.cat(outs, 1), log_.calls
+
+
+def _models_card_vs_cpu(card, dev) -> None:
+    """(a) llama4-scout at full width, 1 layer, f32 compute: card against
+    the CPU."""
+    t0 = time.perf_counter()
+    cfg = get_config("llama4-scout-17b-a16e").with_(
+        num_layers=1, compute_dtype="float32")
+    api = get_model(cfg)
+    b, s = MD_CHECK_B, MD_CHECK_S
+    with torch.inference_mode():
+        params = api.init(torch.Generator(device=dev).manual_seed(SEED + 16),
+                          device=dev)
+        cparams = _tree.tree_map(lambda t: t.cpu(), params)
+        toks = torch.from_numpy(np.random.default_rng(SEED + 16).integers(
+            0, cfg.vocab_size, (b, s + MD_CHECK_STEPS)).astype(np.int32))
+        t1 = time.perf_counter()
+        got, calls = _scout_run(params, cfg, toks, dev)
+        card_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        want, ccalls = _scout_run(cparams, cfg, toks, "cpu")
+        cpu_s = time.perf_counter() - t1
+        del cparams
+        # positions of each call's tokens in the (B, S + steps) logits
+        where = [np.stack(np.unravel_index(np.arange(b * s), (b, s)), 1)]
+        where += [np.stack([np.arange(b), np.full(b, s + i)], 1)
+                  for i in range(MD_CHECK_STEPS)]
+        skip = np.zeros((b, s + MD_CHECK_STEPS), bool)
+        routing_equal, exempted, dropped = True, 0, 0
+        for (pa, ea, ka, sa, chunk), (pb, eb, kb, sb, _), pos in zip(
+                calls, ccalls, where, strict=True):
+            ex = _exempt(pa, pb, ea, eb, chunk)
+            exempted += int(ex.sum())
+            dropped += int((~ka).sum())
+            ok = torch.from_numpy(~ex)
+            routing_equal &= (torch.equal(ea[ok], eb[ok])
+                              and torch.equal(ka[ok], kb[ok])
+                              and torch.equal(sa[ok], sb[ok]))
+            skip[pos[ex, 0], pos[ex, 1]] = True
+        keep = torch.from_numpy(~skip)
+        err = float((got - want)[keep].abs().max())
+        scale = float(want.abs().max())
+        # the dispatch twice on the card, at f32 and at bf16 compute
+        mp = {k: v[0] for k, v in params["moe"].items()}
+        h = torch.randn((MD_B, 416, cfg.d_model), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            SEED + 17))
+        same = []
+        for c, x in ((cfg, h), (cfg.with_(compute_dtype="bfloat16"),
+                               h.to(torch.bfloat16))):
+            ys = [moe.moe_ffn(mp, x, c) for _ in range(2)]
+            same.append(torch.equal(ys[0], ys[1]))
+        again, _ = _scout_run(params, cfg, toks, dev)
+        same_logits = torch.equal(again, got)
+        del params, mp, h, ys
+    log(f"models card vs cpu ({card}): {cfg.name} at full width, 1 layer, "
+        f"f32 compute: prefill B = {b} x {s} + {MD_CHECK_STEPS} decode "
+        f"steps on the card ({card_s:.2f} s) and on the CPU ({cpu_s:.2f} "
+        f"s); routing equal: {routing_equal} ({len(calls)} route calls, "
+        f"{exempted} tokens exempted as near-ties within {MD_TIE_ULPS} ulp,"
+        f" {dropped} dropped by capacity on the card); logits max abs err "
+        f"{err:.3g} over the positions not exempted (limit "
+        f"{MD_LOGITS_ATOL}; logits up to {scale:.3g}); MoE FFN at B = "
+        f"{MD_B} x 416 bit-identical across two runs: f32 {same[0]}, bf16 "
+        f"{same[1]}; the whole run's logits again bit for bit: "
+        f"{same_logits}; {time.perf_counter() - t0:.1f} s")
+    if not (routing_equal and err <= MD_LOGITS_ATOL and all(same)):
+        raise AssertionError("models card vs cpu: a check failed (above)")
+
+
+def _models_tf(cfg, params, dev) -> float:
+    """Prefill + MD_TF_STEPS decode steps against `forward` at f32 compute
+    (a vlm after its patch embeddings): the largest abs difference."""
+    c32 = cfg.with_(compute_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    n = MD_TF_PROMPT + MD_TF_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (2, n), generator=gen,
+                         device=dev, dtype=torch.int32)
+    prefix, p = None, 0
+    if cfg.family == "vlm":
+        p = cfg.num_prefix_embeds
+        prefix = torch.randn((2, p, cfg.d_model), generator=gen, device=dev)
+    full = dense.forward(params, toks, c32, prefix)[:, p + MD_TF_PROMPT:]
+    _, cache = dense.prefill(params, toks[:, :MD_TF_PROMPT], c32,
+                             max_len=p + n, prefix_embeds=prefix)
+    outs = []
+    for i in range(MD_TF_PROMPT, n):
+        lg, cache = dense.decode_step(params, cache, toks[:, i:i + 1], c32)
+        outs.append(lg)
+    return float((torch.cat(outs, 1) - full).abs().max())
+
+
+def _models_serve(card, dev) -> dict[str, int]:
+    """(b) every MD_SERVE config behind RAGPipeline. Returns the launches
+    of the pipelines' `answer` calls (counts set to 0 before each)."""
+    ecfg = get_config("minilm-embedder")
+    rng = np.random.default_rng(SEED + 17)
+    docs = rng.integers(0, ecfg.vocab_size,
+                        (RAG_DOCS, RAG_DOC_LEN)).astype(np.int32)
+    gold = rng.choice(RAG_DOCS, MD_B, replace=False)
+    q = torch.from_numpy(docs[gold]).to(dev)
+    launches: dict[str, int] = {}
+    base = None
+    with torch.inference_mode():
+        eparams = embedder.init_params(
+            ecfg, torch.Generator(device=dev).manual_seed(SEED + 17),
+            device=dev)
+        for arch, layers in MD_SERVE:
+            full = get_config(arch)
+            cfg = full if layers is None else full.with_(num_layers=layers)
+            api = get_model(cfg)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params = api.init(torch.Generator(device=dev).manual_seed(
+                SEED + 18), device=dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            if base is None:
+                base = dataclasses.replace(RAGPipeline.build(
+                    ecfg, eparams, api, params, docs,
+                    RetrievalConfig(k=RAG_K), device=dev),
+                    gen_api=None, gen_params=None)
+            pipe = dataclasses.replace(base, gen_api=api, gen_params=params)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out, ids, _ = pipe.answer(q, max_new=MD_MAX_NEW)
+            torch.cuda.synchronize()
+            answer_s = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            _add_counts(launches, counts)
+            hits = int((ids[:, 0].cpu().numpy() == gold).sum())
+            prompt = torch.cat([pipe.doc_tokens[ids.reshape(-1)].reshape(
+                MD_B, -1), q], 1).clamp(0, cfg.vocab_size - 1)
+            total = prompt.shape[1] + MD_STEPS + 8
+            batch = {"tokens": prompt}
+            lg, cache = api.prefill(params, batch, max_len=total)
+            finite = bool(torch.isfinite(lg).all())
+            del lg
+            p_s = _median_step_s(lambda: api.prefill(params, batch,
+                                                     max_len=total), 3)
+            tok = prompt[:, -1:]
+            box = [cache]
+
+            def step():
+                lg, box[0] = api.decode_step(params, box[0], tok)
+                return lg
+            d_s = _median_step_s(step, MD_STEPS)
+            kernels = device_profile(step, reps=1)
+            finite &= bool(torch.isfinite(step()).all())
+            busy = sum(t for _, t, _ in kernels) * 1e-3
+            del box, cache
+            peak = torch.cuda.max_memory_allocated()
+            tf = (_models_tf(cfg, params, dev)
+                  if cfg.family in ("dense", "vlm") else None)
+            cut = ("full depth" if layers is None
+                   else f"{layers} of {full.num_layers} layers")
+            log(f"models serve {arch} ({card}): full width ({cut}, "
+                f"{param_count(params)} parameters, {cfg.param_dtype} "
+                f"weights, {cfg.compute_dtype} compute), drawn in "
+                f"{init_s:.1f} s; RAGPipeline.answer B = {MD_B}, prompt "
+                f"{prompt.shape[1]} tokens, {MD_MAX_NEW} new: "
+                f"{answer_s * 1e3:.1f} ms, top-1 hit {hits}/{MD_B}; prefill "
+                f"p50 {p_s * 1e3:.3f} ms; decode step p50 {d_s * 1e3:.3f} ms"
+                f" ({MD_B / d_s:.1f} tokens/s); one profiled step: "
+                f"device_busy_ms {busy:.3f} idle_share "
+                f"{1 - busy / (d_s * 1e3):.3f} kernel_launches "
+                f"{sum(n for _, _, n in kernels):.0f}; peak device memory {peak / 2 ** 30:.2f} GiB; finite "
+                f"logits {finite}; launches "
+                f"{ {k: n for k, n in counts.items() if n} }"
+                + ("" if tf is None else
+                   f"; decode continues prefill at f32: max abs err "
+                   f"{tf:.3g} (limit {MD_TF_ATOL})"))
+            if (hits != MD_B or not finite
+                    or tuple(out.shape) != (MD_B, MD_MAX_NEW)
+                    or (tf is not None and not tf <= MD_TF_ATOL)
+                    or any(counts.get(k, 0) <= 0 for k in MD_KERNELS)):
+                raise AssertionError(f"models serve {arch}: a check failed "
+                                     "(above)")
+            del pipe, params, out, ids, prompt, batch
+        del base, eparams
+    torch.cuda.empty_cache()
+    return launches
+
+
+class _TimedSave(CheckpointManager):
+    """A CheckpointManager that times each save from its call to the end
+    of its write."""
+
+    def __init__(self, directory, keep):
+        super().__init__(directory, keep=keep)
+        self.t0, self.save_s = None, []
+
+    def save_async(self, step, tree, shardings=None):
+        self.wait()
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+        super().save_async(step, tree, shardings)
+
+    def wait(self):
+        busy = self._thread is not None
+        super().wait()
+        if busy and self.t0 is not None:
+            self.save_s.append(time.perf_counter() - self.t0)
+            self.t0 = None
+
+
+def _models_train(card, dev, root) -> None:
+    """(c) llama4-scout at full width, 1 layer, through ElasticTrainer."""
+    t0 = time.perf_counter()
+    cfg = get_config("llama4-scout-17b-a16e").with_(num_layers=1)
+    api = get_model(cfg)
+    opt = adafactor(lr=TRAIN_LR)
+    raw = make_train_step(api.loss_fn, opt)
+    batch = shard_batch(next(lm_batches(LMTaskConfig(
+        cfg.vocab_size, MD_TRAIN_S, MD_TRAIN_B, seed=SEED))), dev)
+    times, box = [], [None, None]
+
+    def step_fn(p, o, b, mesh):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        box[0], box[1], m = raw(p, o, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        return box[0], box[1], m
+
+    def make_state(mesh):
+        slot = mesh.slots()[0]
+        params = api.init(torch.Generator(device=slot).manual_seed(SEED + 19),
+                          device=slot)
+        return params, opt.init(params), step_fn, None
+
+    ckpt = _TimedSave(os.path.join(root, "models"), 1)
+    torch.cuda.reset_peak_memory_stats()
+    out = ElasticTrainer(make_state=make_state, ckpt=ckpt,
+                         save_every=MD_TRAIN_STEPS).run(
+        itertools.repeat(batch), num_steps=MD_TRAIN_STEPS, devices=[dev])
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    state = tuple(box)
+    nbytes = _state_bytes(state)
+    like = _tree.tree_map(lambda t: torch.empty_like(t, device="meta"), state)
+    t1 = time.perf_counter()
+    got, step = restore_checkpoint(os.path.join(root, "models"), like,
+                                   device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    same = step == MD_TRAIN_STEPS and _bitwise(got, state)
+    n_params = param_count(state[0])
+    del got, like, state
+    shutil.rmtree(os.path.join(root, "models"))
+
+    def one():
+        box[0], box[1], _ = raw(box[0], box[1], batch)
+    kernels = device_profile(one, reps=1)
+    busy = sum(t for _, t, _ in kernels) * 1e-3
+    _, grads = value_and_grad(api.loss_fn, box[0], batch)
+    opt_kernels = device_profile(lambda: opt.update(grads, box[1], box[0]),
+                                 reps=1)
+    opt_busy = sum(t for _, t, _ in opt_kernels) * 1e-3
+    del grads, box[:]
+    p50 = statistics.median(times)
+    log(f"models train ({card}): {cfg.name} at full width, 1 of 48 layers "
+        f"({n_params} parameters, f32 weights, "
+        f"{cfg.compute_dtype} compute, remat {cfg.remat}), Adafactor lr "
+        f"{TRAIN_LR}, B = {MD_TRAIN_B} x {MD_TRAIN_S} repeated, "
+        f"ElasticTrainer {MD_TRAIN_STEPS} steps: losses "
+        f"{[round(x, 4) for x in losses]}, restarts {out['restarts']}; step "
+        f"p50 {p50 * 1e3:.3f} ms (host clock + synchronize, the "
+        f"{len(times)} steps) {MD_TRAIN_B * MD_TRAIN_S / p50:.1f} tokens/s; "
+        f"one profiled step after a warm-up: device_busy_ms {busy:.3f} "
+        f"idle_share {1 - busy / (p50 * 1e3):.3f} kernel_launches "
+        f"{sum(n for _, _, n in kernels):.0f}; the Adafactor update alone "
+        f"busy {opt_busy:.3f} ms ({opt_busy / busy:.3f} of the step); peak "
+        f"device memory {peak / 2 ** 30:.2f} GiB; the step-"
+        f"{MD_TRAIN_STEPS} save ({nbytes} bytes) {ckpt.save_s[0]:.2f} s "
+        f"({nbytes / ckpt.save_s[0] / 1e9:.2f} GB/s, call to written), "
+        f"restored to the card in {restore_s:.2f} s "
+        f"({nbytes / restore_s / 1e9:.2f} GB/s), bit for bit: {same}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (len(losses) == MD_TRAIN_STEPS and all(map(math.isfinite, losses))
+            and losses[-1] < losses[0] and same and out["restarts"] == 0):
+        raise AssertionError("models train: a check failed (above)")
+
+
+MD_LAUNCHERS = (
+    (["repro_torch.launch.serve", "--arch", "llama4-scout-17b-a16e",
+      "--smoke"], r"top-1 hit 8/8"),
+    (["repro_torch.launch.train", "--arch", "internvl2-26b", "--smoke",
+      "--steps", "4"], r"^internvl2-26b: 4 steps in [0-9.]+s; loss "
+                       r"[0-9.]+ -> [0-9.]+; restarts 0$"),
+    (["repro_torch.launch.train", "--arch", "llama4-maverick-400b-a17b",
+      "--smoke", "--data", "2", "--model", "2", "--steps", "4"],
+     r"^llama4-maverick-400b-a17b: 4 steps in [0-9.]+s; loss [0-9.]+ -> "
+     r"[0-9.]+; restarts 0$"))
+
+
+def _models_launchers_start(root):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for i, (argv, _) in enumerate(MD_LAUNCHERS):
+        extra = ([] if argv[0].endswith("serve")
+                 else ["--ckpt-dir", os.path.join(root, f"launch_{i}")])
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", *argv, *extra], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return time.perf_counter(), procs
+
+
+def _models_launchers_check(card, started) -> None:
+    """(d) collect the launchers started with the phase."""
+    t0, procs = started
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (argv, want), (out, err) in zip(procs, MD_LAUNCHERS, outs):
+        if p.returncode != 0 or not re.search(want, out, re.M):
+            raise AssertionError(f"models launcher {argv}: rc {p.returncode}"
+                                 f"\n{out}\n{err[-4000:]}")
+        log(f"models launcher ({card}): python -m {' '.join(argv)}: rc 0 "
+            f"(all three in {time.perf_counter() - t0:.1f} s); "
+            + " | ".join(out.strip().splitlines()))
+
+
+def phase_models(dev, card: str) -> dict[str, int]:
+    """The dense, vlm and MoE configs at full width (see MD_* above): (a)
+    scout on the card against the CPU, (b) six configs served, (c) scout
+    trained, (d) the launchers. Returns the launches of (b)'s serving
+    path."""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="models_", dir=os.path.join(ROOT, "build"))
+    try:
+        started = _models_launchers_start(root)
+        _models_card_vs_cpu(card, dev)
+        torch.cuda.empty_cache()
+        _models_launchers_check(card, started)
+        launches = _models_serve(card, dev)
+        _models_train(card, dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"models path launches ({card}): "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    log(f"models ({card}): the phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # -- the train_sharded phase ----------------------------------------------
 # A training state sharded over SH_RANKS torch.distributed ranks (ROADMAP
 # A2's training half). The machine has one card, so the ranks share cuda:0
@@ -5030,13 +5491,14 @@ def main() -> int:
     rag_launches, rag_sharded = phase_rag(dev, card)
     _add_counts(sharded_launches, rag_sharded)
     train_launches = phase_train(dev, card)
+    models_launches = phase_models(dev, card)
     phase_train_sharded(card)
     log(f"sharded path launches ({card}): {sharded_launches}")
     for k in kernels:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in (
             launches, sharded_launches, tune_launches, cluster_launches,
             tenancy_launches, serving.launches, decode_launches,
-            rag_launches, train_launches))
+            rag_launches, train_launches, models_launches))
     kernels += decode_rows
     phase_host_us(dev)
     log(json.dumps({"kernels": kernels}))

@@ -6,8 +6,9 @@ host counters; a caller turns their leaves into numpy (``np.asarray``)
 and hands them here to get the port's objects on a chosen device, so a
 history begun on the reference continues on the port. Model parameters
 cross the same way (`dense_params`, `embedder_params`), and a sharded
-index as its padded arrays (`sharded_index`). This module
-imports no JAX.
+index as its padded arrays (`sharded_index`); the MoE model's through
+`moe_params`. A bfloat16 parameter (numpy's `ml_dtypes.bfloat16`) stays
+bfloat16 bit for bit. This module imports no JAX.
 """
 from __future__ import annotations
 
@@ -145,10 +146,23 @@ def cluster_index(centroids, sums, counts, *, generation: int, seed: int = 0,
     return out
 
 
+def _float_leaf(a, name: str, dev: torch.device) -> torch.Tensor:
+    """A float32 or bfloat16 leaf; bfloat16 crosses as its uint16 bits
+    (torch.from_numpy takes no ml_dtypes bfloat16)."""
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        bits = np.array(arr.view(np.uint16), order="C", copy=True)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(dev)
+    if arr.dtype != np.float32:
+        raise TypeError(f"{name} must be float32 or bfloat16, got "
+                        f"{arr.dtype}")
+    return _tensor(arr, np.float32, name, dev)
+
+
 def _param_tree(tree, keys: dict, dev: torch.device, where: str) -> dict:
-    """A nested dict of float32 numpy leaves -> the same dict of tensors;
-    `keys` names the required leaves (a dict for a subtree, None for a
-    leaf) and the optional ones in `_OPTIONAL`."""
+    """A nested dict of float32 or bfloat16 numpy leaves -> the same dict
+    of tensors; `keys` names the required leaves (a dict for a subtree,
+    None for a leaf) and the optional ones in `_OPTIONAL`."""
     if not isinstance(tree, dict):
         raise TypeError(f"{where or 'params'} must be a dict")
     missing = sorted(set(keys) - set(tree))
@@ -158,14 +172,18 @@ def _param_tree(tree, keys: dict, dev: torch.device, where: str) -> dict:
                          f"unexpected {extra}")
     return {name: (_param_tree(leaf, keys[name], dev, f"{where}{name}.")
                    if isinstance(keys.get(name), dict)
-                   else _tensor(leaf, np.float32, f"{where}{name}", dev))
+                   else _float_leaf(leaf, f"{where}{name}", dev))
             for name, leaf in tree.items()}
 
 
 _BLOCK = dict.fromkeys(("ln1", "wq", "wk", "wv", "wo", "ln2", "w_gate",
                         "w_up", "w_down"))
-# qwen2's QKV bias and an untied head
-_OPTIONAL = frozenset(("bq", "bk", "bv", "lm_head"))
+_ATTN = dict.fromkeys(("ln1", "wq", "wk", "wv", "wo", "ln2"))
+_FFN = dict.fromkeys(("w_gate", "w_up", "w_down"))
+_MOE = dict.fromkeys(("router", "w_gate", "w_up", "w_down"))
+# qwen2's QKV bias, an untied head, the MoE's shared expert
+_OPTIONAL = frozenset(("bq", "bk", "bv", "lm_head", "sh_gate", "sh_up",
+                       "sh_down"))
 
 
 def dense_params(params, *, device=None) -> dict:
@@ -175,6 +193,27 @@ def dense_params(params, *, device=None) -> dict:
     return _param_tree(params, {"embed": None, "blocks": _BLOCK,
                                 "final_norm": None},
                        resolve_device(device), "")
+
+
+def moe_params(params, *, device=None) -> dict:
+    """The reference MoE model's parameters (`repro.models.moe`: `embed`,
+    `blocks` of attention only, `dense_ffn` ((SB, period-1, ...), or {}
+    when the period is 1), `moe` (router, expert banks, `sh_*` with a
+    shared expert), `final_norm`, `lm_head` where untied; float32 or
+    bfloat16 numpy leaves) as the port's, on `device`. A bfloat16 leaf
+    stays torch.bfloat16, bit for bit."""
+    if not isinstance(params, dict):
+        raise TypeError("params must be a dict")
+    keys = {"embed": None, "blocks": _ATTN, "dense_ffn": _FFN, "moe": _MOE,
+            "final_norm": None}
+    no_dense = params.get("dense_ffn") == {}        # period 1
+    if no_dense:
+        params = {k: v for k, v in params.items() if k != "dense_ffn"}
+        del keys["dense_ffn"]
+    out = _param_tree(params, keys, resolve_device(device), "")
+    if no_dense:
+        out["dense_ffn"] = {}
+    return out
 
 
 def embedder_params(params, *, device=None) -> dict:

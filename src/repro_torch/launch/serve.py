@@ -2,15 +2,17 @@
 `repro.launch.serve`.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --num-docs 256 \\
-        --requests 8 [--metric cosine] [--topk 3] [--device cpu] \\
-        [--data 2 --model 2]
+        --requests 8 [--arch qwen2-0.5b] [--metric cosine] [--topk 3] \\
+        [--device cpu] [--data 2 --model 2]
 
 Builds the offline index (MiniLM-style embedder -> INT8 nibble-planar DB,
 split over a (data, model) mesh of shard slots when --data x --model > 1;
 the slots are dealt round-robin over the visible devices), then serves
 batched requests through the paper's two-stage hierarchical retrieval
 and the generator's prefill + decode, logging the
-Table-II-calibrated energy ledger per query. Runs on the CUDA device
+Table-II-calibrated energy ledger per query. `--arch` takes every ported
+decoder LM (dense, vlm and MoE): the pipeline drives the generator
+through `generate`, which is family-agnostic. Runs on the CUDA device
 unless `--device` names another. `--smoke` is on always, as in the
 reference (ROADMAP C17); the full widths are driven through the library
 (`chip_smoke.py`).

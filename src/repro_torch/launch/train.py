@@ -16,7 +16,10 @@ With `--data D --model M` and D * M > 1 the launcher spawns D * M ranks
 one-card machine, talking over gloo), and the training state is sharded
 over their (data, model) mesh by `distributed.sharding`'s rules (the
 sharded step: `train.make_sharded_train_step`); a rank's failure ends the
-run with a non-zero status. Families the port lacks wait for ROADMAP A3.
+run with a non-zero status. The dense, vlm and MoE families train; a vlm
+batch carries zero patch embeddings (`prefix_embeds` of (batch,
+num_prefix_embeds, d_model)), as in the reference. The SSM, hybrid and
+enc-dec families wait for ROADMAP A3.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import os
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import _tree
@@ -65,16 +69,18 @@ def _parser() -> argparse.ArgumentParser:
 
 def _model(args):
     cfg = get_config(args.arch, smoke=args.smoke)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"--arch {args.arch}: the {cfg.family} batch branch waits for "
-            "ROADMAP A3")
     return cfg, get_model(cfg), get_optimizer(cfg.optimizer, lr=args.lr)
 
 
 def _batches(cfg, args):
-    return lm_batches(LMTaskConfig(vocab_size=cfg.vocab_size,
-                                   seq_len=args.seq, batch_size=args.batch))
+    """The LM stream's batches; a vlm's with zero patch embeddings."""
+    for batch in lm_batches(LMTaskConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=args.seq,
+                                         batch_size=args.batch)):
+        if cfg.family == "vlm":
+            batch["prefix_embeds"] = np.zeros(
+                (args.batch, cfg.num_prefix_embeds, cfg.d_model), np.float32)
+        yield batch
 
 
 def _trainer(args, make_state) -> ElasticTrainer:

@@ -18,14 +18,22 @@ compute over the model axis. Under the sharded train step each rank runs
 its own batch block, so the "dp" part of every pin holds by
 construction; the "mp" part is not realized (ROADMAP C24).
 
-`ModelConfig` holds the fields that the dense model, the embedder, the
-registry and training read, with the reference's defaults. Of the
-training knobs, `remat` checkpoints each dense block while autograd
+`ModelConfig` holds the fields that the dense, vlm and MoE models, the
+embedder, the registry and training read, with the reference's
+defaults: the MoE fields (`num_experts`, `moe_top_k`, `moe_layer_period`,
+`shared_expert`, `capacity_factor`) and the vlm frontend's
+(`num_prefix_embeds`, `frontend_dim`). Of the training knobs, `remat`
+checkpoints each dense block (each MoE superblock) while autograd
 records and `optimizer` names the launcher's optimizer; `scan_layers`
 and `seq_shard` are kept for parity: the layers always run one after
 another (ROADMAP C22), and `seq_shard` only changes the spec
-`residual_pattern` names. The MoE, SSM, hybrid, enc-dec and frontend
-fields come with those families (ROADMAP A3).
+`residual_pattern` names. The SSM, hybrid and enc-dec fields come with
+those families (ROADMAP A3).
+
+`batch_block` tells the layers which rows of the global microbatch a
+rank runs (the sharded train step sets it): the MoE dispatch enforces
+its capacity per batch shard of the global microbatch, as the reference
+does under a mesh (ROADMAP C25).
 """
 from __future__ import annotations
 
@@ -50,6 +58,15 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0              # 0 -> d_model // num_heads
     qkv_bias: bool = False         # qwen2-style QKV bias
+    # --- MoE ---
+    num_experts: int = 0
+    moe_top_k: int = 1
+    moe_layer_period: int = 1      # 1 = every layer MoE; 2 = interleaved
+    shared_expert: bool = False
+    capacity_factor: float = 1.25
+    # --- frontends (VLM): stubbed embeddings prepended ---
+    num_prefix_embeds: int = 0     # VLM: image patch embeddings per sample
+    frontend_dim: int = 0          # embedding dim delivered by the stub
     # --- numerics / misc ---
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
@@ -213,6 +230,32 @@ def set_mesh(mesh):
 def active_mesh():
     """The innermost mesh set by `set_mesh`, or None."""
     return _ACTIVE[-1] if _ACTIVE else None
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchBlock:
+    rows: int       # rows of the global microbatch
+    start: int      # the first of them that this call runs
+
+
+_BLOCK: list = []
+
+
+@contextlib.contextmanager
+def batch_block(rows: int, start: int):
+    """Calls inside run rows [start, start + b) of a global microbatch of
+    `rows` rows (b the rows they are given)."""
+    _BLOCK.append(BatchBlock(int(rows), int(start)))
+    try:
+        yield
+    finally:
+        _BLOCK.pop()
+
+
+def active_batch_block() -> BatchBlock | None:
+    """The innermost block set by `batch_block`, or None: the call runs
+    the whole microbatch."""
+    return _BLOCK[-1] if _BLOCK else None
 
 
 def _axes(mesh) -> tuple[tuple[str, ...], str | None]:

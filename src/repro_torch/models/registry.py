@@ -4,8 +4,8 @@
 `get_model(cfg)` returns a ModelApi whose members close over cfg, so the
 launchers, the trainer and the RAG pipelines treat every ported
 architecture the same way. The `vlm` family is the dense model fed stub
-patch embeddings (prefix_embeds). The MoE, SSM, hybrid and enc-dec
-families wait for ROADMAP A3.
+patch embeddings (prefix_embeds); `moe` is `models/moe.py`. The SSM,
+hybrid and enc-dec families wait for ROADMAP A3.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.models import dense
+from repro_torch.models import dense, moe
 from repro_torch.models.common import ModelConfig
 
 
@@ -29,27 +29,31 @@ class ModelApi:
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family in ("dense", "vlm"):
+        mod = dense
+    elif cfg.family == "moe":
+        mod = moe
+    else:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP A3); the "
-            "port serves the dense and vlm families")
+            "port serves the dense, vlm and moe families")
 
     def init(gen: torch.Generator, device=None):
-        return dense.init_params(cfg, gen, device=device)
+        return mod.init_params(cfg, gen, device=device)
 
     def loss(params, batch):
-        return dense.loss_fn(params, batch, cfg)
+        return mod.loss_fn(params, batch, cfg)
 
     def prefill(params, batch, max_len=None):
-        return dense.prefill(params, batch["tokens"], cfg, max_len=max_len,
-                             lengths=batch.get("lengths"),
-                             prefix_embeds=batch.get("prefix_embeds"))
+        return mod.prefill(params, batch["tokens"], cfg, max_len=max_len,
+                           lengths=batch.get("lengths"),
+                           prefix_embeds=batch.get("prefix_embeds"))
 
     def decode(params, cache, tokens):
-        return dense.decode_step(params, cache, tokens, cfg)
+        return mod.decode_step(params, cache, tokens, cfg)
 
     def init_cache(batch_size, max_len, device=None):
-        return dense.init_cache(cfg, batch_size, max_len, device=device)
+        return mod.init_cache(cfg, batch_size, max_len, device=device)
 
     return ModelApi(cfg=cfg, init=init, loss_fn=loss, prefill=prefill,
                     decode_step=decode, init_cache=init_cache)

@@ -26,7 +26,10 @@ local blocks. The loss is the reference's global masked mean: each rank
 weighs its block's mean by its share of the global count of labelled
 positions, so the sum over ranks of the weighted losses (and grads) is
 the mean over the whole batch, not a mean of per-rank means. Global-norm
-clipping sums each element once over the mesh (`sharding.owns`).
+clipping sums each element once over the mesh (`sharding.owns`). Each
+microbatch runs under `batch_block`, so a layer that acts on the whole
+microbatch (the MoE's capacity per batch shard) sees which of its rows
+the rank runs.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ from repro_torch.core.quantization import true_div
 from repro_torch.data.synthetic import shard_batch
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import sharding as sh
-from repro_torch.models.common import set_mesh
+from repro_torch.models.common import batch_block, set_mesh
 from repro_torch.train.optim import Optimizer
 
 F32 = torch.float32
@@ -173,8 +176,9 @@ def make_sharded_train_step(loss_fn: Callable[[Any, Any], torch.Tensor],
                 w = (torch.clamp(counts[i], min=1.0)
                      / torch.clamp(totals[i], min=1.0))
                 micro = {k: v[a:b] for k, v in local.items()}
-                part, g = value_and_grad(
-                    lambda p, m, w=w: loss_fn(p, m) * w, full, micro)
+                with batch_block(mb, lo + a - i * mb):
+                    part, g = value_and_grad(
+                        lambda p, m, w=w: loss_fn(p, m) * w, full, micro)
                 grads = g if grads is None else _tree.tree_map(
                     lambda x, y: x + y.to(F32), grads, g)
                 loss = loss + part

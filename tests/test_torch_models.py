@@ -41,7 +41,7 @@ from repro.models import embedder as jembedder
 from repro.models import common as jcommon
 from repro.models.common import ModelConfig as JModelConfig
 from repro_torch import convert
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import bitplanar
 from repro_torch.models import attention, common, dense, embedder, get_model
 from repro_torch.models.common import ModelConfig
@@ -588,7 +588,7 @@ def test_configs_equal_the_reference_and_refuse_unported_ids():
     leaves out is training-only or at the reference's default, so the
     port drops no setting that these configs make."""
     defaults = {f.name: f.default for f in dataclasses.fields(JModelConfig)}
-    for arch in ("qwen2-0.5b", "minilm-embedder"):
+    for arch in ARCH_IDS + ("minilm-embedder",):
         for smoke in (False, True):
             got, want = get_config(arch, smoke), jget_config(arch, smoke)
             kept = set(got.__dataclass_fields__)
@@ -605,7 +605,7 @@ def test_configs_equal_the_reference_and_refuse_unported_ids():
         get_config("mamba2-2.7b")
     with pytest.raises(KeyError, match="unknown"):
         get_config("gpt-5")
-    for family in ("moe", "ssm", "hybrid", "encdec"):
+    for family in ("ssm", "hybrid", "encdec"):
         with pytest.raises(NotImplementedError, match="ROADMAP A3"):
             get_model(full.with_(family=family))
 
@@ -651,7 +651,10 @@ def test_entry_points_run_on_the_card_unless_asked_for_the_cpu(
                  lambda: dense.init_cache(cfg, 1, 4),
                  lambda: dense.init_quant_cache(cfg, 1, 4),
                  lambda: get_model(cfg).init(gen),
-                 lambda: convert.dense_params({})):
+                 lambda: get_model(get_config(
+                     "llama4-scout-17b-a16e", smoke=True)).init(gen),
+                 lambda: convert.dense_params({}),
+                 lambda: convert.moe_params({})):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     with pytest.raises(ValueError, match="generator is on"):

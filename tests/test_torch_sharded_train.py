@@ -15,6 +15,12 @@ tests/torch_rank_cases.py, which imports no JAX):
     turns that in near-zero grads (the key bias's) into lr-sized moves, so
     there the first step's grads carry the check; each rank's resident
     parameter and optimizer bytes equal its blocks;
+  * the MoE SMOKE model (scout's, capacity 1.0) one step on the same
+    mesh, each rank's rows half a microbatch (grad_accum 1) and a whole
+    one (grad_accum 2): the loss within 1e-5 relative and the grads
+    within 1e-5 of each leaf's largest against the reference's step with
+    its shard-aligned dispatch on 2 batch shards (its `_dp_shards`
+    patched to 2, a test-side patch; ROADMAP C25);
   * sharded checkpoints: written by 4 ranks, restored by the reference's
     `restore_checkpoint` bit for bit; written by the reference, restored
     on 4 ranks, each keeping its block bit for bit.
@@ -38,6 +44,7 @@ from repro.checkpoint import save_checkpoint as jsave_checkpoint
 from repro.configs import get_config as jget_config
 from repro.distributed import compression as jcomp
 from repro.models import get_model as jget_model
+from repro.models import moe as jmoe
 from repro.train import adafactor as jadafactor
 from repro.train import adamw as jadamw
 from repro.train import make_train_step as jmake_train_step
@@ -69,7 +76,16 @@ def ref():
 
 
 @pytest.fixture(scope="module")
-def steps(ref, tmp_path_factory):
+def moe_ref():
+    """The reference's MoE SMOKE params on the host and its model."""
+    cfg = jget_config("llama4-scout-17b-a16e", smoke=True).with_(
+        compute_dtype="float32", capacity_factor=1.0)
+    api = jget_model(cfg)
+    return jax.tree.map(np.asarray, api.init(jax.random.PRNGKey(0))), api
+
+
+@pytest.fixture(scope="module")
+def steps(ref, moe_ref, tmp_path_factory):
     """Rank results of tests/torch_rank_cases.py::step_cases, plus the
     checkpoint paths: the reference writes one the ranks restore, the
     ranks write one the reference restores."""
@@ -82,7 +98,7 @@ def steps(ref, tmp_path_factory):
     jsave_checkpoint(str(root / "ref"), 7, (params, state))
     outs = collectives.spawn(cases.step_cases, 4, host, batch,
                              str(root / "ref"), str(root / "ranks"),
-                             timeout_s=RUN_S)
+                             moe_ref[0], timeout_s=RUN_S)
     return outs, root, (params, state)
 
 
@@ -179,6 +195,36 @@ def test_sharded_step_matches_one_process_and_reference(ref, steps, name):
     np.testing.assert_allclose(got["losses"], jlosses, rtol=REF_LOSS_RTOL)
     assert _rel(got["grads"][0], convert.dense_params(
         jgrads[0], device="cpu")) <= PARAM_TOL
+
+
+@pytest.mark.parametrize("name", list(cases.MOE_CASES))
+def test_sharded_moe_step_matches_reference_shard_aligned(moe_ref, steps,
+                                                          name, monkeypatch):
+    host, api = moe_ref
+    accum = cases.MOE_CASES[name]
+    outs = steps[0]
+    for other in outs[1:]:
+        assert other[name]["loss"] == outs[0][name]["loss"]
+
+    @jax.jit
+    def one(params, batch):
+        seen = []
+
+        def transform(g):
+            seen.append(g)
+            return g
+        opt = jadamw(lr=1e-3)
+        *_, m = jmake_train_step(api.loss_fn, opt, grad_accum=accum,
+                                 clip_norm=None, grad_transform=transform)(
+            params, opt.init(params), batch)
+        return m["loss"], seen[0]
+    monkeypatch.setattr(jmoe, "_dp_shards", lambda: 2)
+    loss, grads = one(jax.tree.map(jnp.asarray, host),
+                      {k: jnp.asarray(v) for k, v in cases.batch().items()})
+    got = outs[0][name]
+    assert abs(got["loss"] - float(loss)) <= REF_LOSS_RTOL * abs(float(loss))
+    assert _rel(got["grads"], convert.moe_params(
+        jax.tree.map(np.asarray, grads), device="cpu")) <= PARAM_TOL
 
 
 @pytest.mark.parametrize("name", list(cases.STEP_CASES))

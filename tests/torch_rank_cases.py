@@ -42,6 +42,13 @@ STEP_CASES = {
 }
 
 
+# The MoE SMOKE model (scout's, capacity 1.0 so tokens drop) one AdamW
+# step on the (2, 2) mesh: grad_accum 1, each data rank's rows one chunk
+# of the microbatch's capacity; grad_accum 2, each rank's rows a whole
+# microbatch of two chunks (the reference's shard-aligned dispatch).
+MOE_CASES = {"moe": 1, "moe_accum2": 2}
+
+
 def aligned(name) -> bool:
     return STEP_CASES[name][2] == 2
 
@@ -67,6 +74,12 @@ def smoke():
     return cfg, get_model(cfg)
 
 
+def moe_smoke():
+    cfg = get_config("llama4-scout-17b-a16e", smoke=True).with_(
+        compute_dtype="float32", capacity_factor=1.0)
+    return cfg, get_model(cfg)
+
+
 def batch():
     """The (8, 16) batch every case trains on; two rows carry padding
     labels, so the global count of labelled positions matters."""
@@ -81,10 +94,10 @@ def abstract(tree):
     return _tree.tree_map(lambda t: torch.empty_like(t, device="meta"), tree)
 
 
-def sharded_state(mesh, cfg, opt, host):
+def sharded_state(mesh, cfg, opt, host, to_port=convert.dense_params):
     """(param blocks, opt-state blocks, param shardings, opt shardings)
     from the whole host params, on every rank alike."""
-    full = convert.dense_params(host, device="cpu")
+    full = to_port(host, device="cpu")
     meta = abstract(full)
     pshard = sh.param_shardings(full, mesh, cfg)
     oshard = sh.opt_state_shardings(opt.init(meta), meta, mesh, cfg)
@@ -102,13 +115,31 @@ def _numpy(tree):
     return _tree.tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
-def step_cases(world, host, batch, ref_ckpt, out_ckpt):
+def moe_steps(mesh, host, batch) -> dict:
+    """Each MOE_CASES entry: (loss, grads) of one sharded AdamW step."""
+    cfg, api = moe_smoke()
+    out = {}
+    for name, accum in MOE_CASES.items():
+        opt = adamw(lr=1e-3)
+        params, state, pshard, _ = sharded_state(mesh, cfg, opt, host,
+                                                 convert.moe_params)
+        grads = []
+        step = make_sharded_train_step(
+            api.loss_fn, opt, mesh, pshard, grad_accum=accum, clip_norm=None,
+            grad_transform=transform_with(grads, False, params, pshard))
+        m = step(params, state, batch)[2]
+        out[name] = {"loss": float(m["loss"]), "grads": grads[0]}
+    return out
+
+
+def step_cases(world, host, batch, ref_ckpt, out_ckpt, moe_host=None):
     """Every STEP_CASES entry on a (2, 2) mesh from the same host params
     and batch; then a sharded save of the AdamW state into `out_ckpt` and
-    a sharded restore of the reference-written `ref_ckpt`."""
+    a sharded restore of the reference-written `ref_ckpt`; with
+    `moe_host` (the MoE SMOKE params) the MOE_CASES too."""
     mesh = make_test_mesh(2, 2, world=world)
     cfg, api = smoke()
-    out = {}
+    out = {} if moe_host is None else moe_steps(mesh, moe_host, batch)
     for name, (make_opt, steps, accum, clip, compress) in STEP_CASES.items():
         opt = make_opt()
         params, state, pshard, oshard = sharded_state(mesh, cfg, opt, host)
