@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's retrieval cascades, models (dense, vlm,
-MoE), RAG pipeline and training on one GPU.
+MoE, SSM, hybrid), RAG pipeline and training on one GPU.
 
     python3 chip_smoke.py
 
@@ -227,7 +227,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
                trained through `ElasticTrainer` with Adafactor, its
                checkpoint restored bit for bit; three launchers with the
                new `--arch` ids.
- 12b. train_sharded — a training state sharded over 4 torch.distributed
+ 12b. ssm     — the SSM and hybrid configs at full width with random
+               weights (see SSM_* below): mamba2-2.7b (2 layers; prefills
+               of 512 and 384 tokens) and zamba2-2.7b (one superblock) at
+               f32 on the card against the port's CPU path, and the
+               chunked SSD scan at the full head shape against the f64
+               recurrence; both at full depth behind `RAGPipeline.answer`
+               (top-1 8/8, #1 and #3 by id counted, decode against
+               `forward` at f32); mamba2 (16 layers) and zamba2 (12
+               layers) trained with AdamW through `ElasticTrainer`, the
+               state restored bit for bit; four launchers with the new
+               `--arch` ids.
+ 12c. train_sharded — a training state sharded over 4 torch.distributed
                ranks that share this one card over gloo (the code path of a
                (data 2, model 2) mesh, not multi-card scaling; see SH_*
                below): a probe of the gloo collectives on CUDA tensors; (a)
@@ -242,7 +253,7 @@ Then the exact wrappers' and the block gather's host microseconds per
 call (`host_us_per_call`).
 The line before the last is a JSON object describing every kernel
 (launches: the sum over the main, sharded, autotune, cluster, tenancy,
-serving, decode, rag, train and models paths; `stage1_gather_resident` and `stage0_sign_gather_resident`
+serving, decode, rag, train, models and ssm paths; `stage1_gather_resident` and `stage0_sign_gather_resident`
 are counted by the resident wrappers where they launch, which only the
 serving phase's cached segments call; the `@decode_hd64` rows are #2 and
 #8 at the decode phase's shapes, with the decode path's launches); the last
@@ -308,7 +319,8 @@ from repro_torch.kernels.stage1_int4 import (  # noqa: E402
 from repro_torch.kernels.stage2_int8 import (  # noqa: E402
     stage2_int8_batched, stage2_int8_by_id, stage2_int8_single)
 from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
-from repro_torch.models import dense, embedder, get_model, moe  # noqa: E402
+from repro_torch.models import (dense, embedder, get_model,  # noqa: E402
+                                mamba2, moe, zamba2)
 from repro_torch.models.common import param_count  # noqa: E402
 from repro_torch.serve import (HotClusterCache,  # noqa: E402
                                MultiTenantRAGPipeline, RAGAgent, RAGPipeline,
@@ -4734,9 +4746,15 @@ def _models_card_vs_cpu(card, dev) -> None:
         raise AssertionError("models card vs cpu: a check failed (above)")
 
 
+# the families whose decode is held against `forward` (the MoE's routing
+# is held in (a) instead)
+TF_MODULES = {"dense": dense, "vlm": dense, "ssm": mamba2, "hybrid": zamba2}
+
+
 def _models_tf(cfg, params, dev) -> float:
     """Prefill + MD_TF_STEPS decode steps against `forward` at f32 compute
     (a vlm after its patch embeddings): the largest abs difference."""
+    mod = TF_MODULES[cfg.family]
     c32 = cfg.with_(compute_dtype="float32")
     gen = torch.Generator(device=dev).manual_seed(SEED + 18)
     n = MD_TF_PROMPT + MD_TF_STEPS
@@ -4746,19 +4764,21 @@ def _models_tf(cfg, params, dev) -> float:
     if cfg.family == "vlm":
         p = cfg.num_prefix_embeds
         prefix = torch.randn((2, p, cfg.d_model), generator=gen, device=dev)
-    full = dense.forward(params, toks, c32, prefix)[:, p + MD_TF_PROMPT:]
-    _, cache = dense.prefill(params, toks[:, :MD_TF_PROMPT], c32,
-                             max_len=p + n, prefix_embeds=prefix)
+    full = mod.forward(params, toks, c32, prefix)[:, p + MD_TF_PROMPT:]
+    _, cache = mod.prefill(params, toks[:, :MD_TF_PROMPT], c32,
+                           max_len=p + n, prefix_embeds=prefix)
     outs = []
     for i in range(MD_TF_PROMPT, n):
-        lg, cache = dense.decode_step(params, cache, toks[:, i:i + 1], c32)
+        lg, cache = mod.decode_step(params, cache, toks[:, i:i + 1], c32)
         outs.append(lg)
     return float((torch.cat(outs, 1) - full).abs().max())
 
 
-def _models_serve(card, dev) -> dict[str, int]:
-    """(b) every MD_SERVE config behind RAGPipeline. Returns the launches
-    of the pipelines' `answer` calls (counts set to 0 before each)."""
+def _models_serve(card, dev, configs=MD_SERVE,
+                  label="models") -> dict[str, int]:
+    """(b) every config of `configs` ((arch, layers kept or None)) behind
+    RAGPipeline. Returns the launches of the pipelines' `answer` calls
+    (counts set to 0 before each)."""
     ecfg = get_config("minilm-embedder")
     rng = np.random.default_rng(SEED + 17)
     docs = rng.integers(0, ecfg.vocab_size,
@@ -4771,7 +4791,7 @@ def _models_serve(card, dev) -> dict[str, int]:
         eparams = embedder.init_params(
             ecfg, torch.Generator(device=dev).manual_seed(SEED + 17),
             device=dev)
-        for arch, layers in MD_SERVE:
+        for arch, layers in configs:
             full = get_config(arch)
             cfg = full if layers is None else full.with_(num_layers=layers)
             api = get_model(cfg)
@@ -4805,6 +4825,10 @@ def _models_serve(card, dev) -> dict[str, int]:
             del lg
             p_s = _median_step_s(lambda: api.prefill(params, batch,
                                                      max_len=total), 3)
+            p_kernels = device_profile(
+                lambda: api.prefill(params, batch, max_len=total), reps=1)
+            p_busy = sum(t for _, t, _ in p_kernels) * 1e-3
+            p_top = [(k[:40], round(t * 1e-3, 3)) for k, t, _ in p_kernels[:3]]
             tok = prompt[:, -1:]
             box = [cache]
 
@@ -4818,16 +4842,19 @@ def _models_serve(card, dev) -> dict[str, int]:
             del box, cache
             peak = torch.cuda.max_memory_allocated()
             tf = (_models_tf(cfg, params, dev)
-                  if cfg.family in ("dense", "vlm") else None)
+                  if cfg.family in TF_MODULES else None)
             cut = ("full depth" if layers is None
                    else f"{layers} of {full.num_layers} layers")
-            log(f"models serve {arch} ({card}): full width ({cut}, "
+            log(f"{label} serve {arch} ({card}): full width ({cut}, "
                 f"{param_count(params)} parameters, {cfg.param_dtype} "
                 f"weights, {cfg.compute_dtype} compute), drawn in "
                 f"{init_s:.1f} s; RAGPipeline.answer B = {MD_B}, prompt "
                 f"{prompt.shape[1]} tokens, {MD_MAX_NEW} new: "
                 f"{answer_s * 1e3:.1f} ms, top-1 hit {hits}/{MD_B}; prefill "
-                f"p50 {p_s * 1e3:.3f} ms; decode step p50 {d_s * 1e3:.3f} ms"
+                f"p50 {p_s * 1e3:.3f} ms (one profiled: device_busy_ms "
+                f"{p_busy:.3f} kernel_launches "
+                f"{sum(n for _, _, n in p_kernels):.0f}; busiest ms "
+                f"{p_top}); decode step p50 {d_s * 1e3:.3f} ms"
                 f" ({MD_B / d_s:.1f} tokens/s); one profiled step: "
                 f"device_busy_ms {busy:.3f} idle_share "
                 f"{1 - busy / (d_s * 1e3):.3f} kernel_launches "
@@ -4841,7 +4868,7 @@ def _models_serve(card, dev) -> dict[str, int]:
                     or tuple(out.shape) != (MD_B, MD_MAX_NEW)
                     or (tf is not None and not tf <= MD_TF_ATOL)
                     or any(counts.get(k, 0) <= 0 for k in MD_KERNELS)):
-                raise AssertionError(f"models serve {arch}: a check failed "
+                raise AssertionError(f"{label} serve {arch}: a check failed "
                                      "(above)")
             del pipe, params, out, ids, prompt, batch
         del base, eparams
@@ -4871,12 +4898,17 @@ class _TimedSave(CheckpointManager):
             self.t0 = None
 
 
-def _models_train(card, dev, root) -> None:
-    """(c) llama4-scout at full width, 1 layer, through ElasticTrainer."""
+def _models_train(card, dev, root, cfg=None, opt_name="adafactor",
+                  label="models") -> None:
+    """(c) `cfg` (llama4-scout at full width, 1 layer, by default) trained
+    MD_TRAIN_STEPS steps through ElasticTrainer with `opt_name`, its last
+    state saved and restored bit for bit."""
     t0 = time.perf_counter()
-    cfg = get_config("llama4-scout-17b-a16e").with_(num_layers=1)
+    if cfg is None:
+        cfg = get_config("llama4-scout-17b-a16e").with_(num_layers=1)
+    full_layers = get_config(cfg.name).num_layers
     api = get_model(cfg)
-    opt = adafactor(lr=TRAIN_LR)
+    opt = {"adamw": adamw, "adafactor": adafactor}[opt_name](lr=TRAIN_LR)
     raw = make_train_step(api.loss_fn, opt)
     batch = shard_batch(next(lm_batches(LMTaskConfig(
         cfg.vocab_size, MD_TRAIN_S, MD_TRAIN_B, seed=SEED))), dev)
@@ -4896,7 +4928,8 @@ def _models_train(card, dev, root) -> None:
                           device=slot)
         return params, opt.init(params), step_fn, None
 
-    ckpt = _TimedSave(os.path.join(root, "models"), 1)
+    where = os.path.join(root, label)
+    ckpt = _TimedSave(where, 1)
     torch.cuda.reset_peak_memory_stats()
     out = ElasticTrainer(make_state=make_state, ckpt=ckpt,
                          save_every=MD_TRAIN_STEPS).run(
@@ -4907,14 +4940,13 @@ def _models_train(card, dev, root) -> None:
     nbytes = _state_bytes(state)
     like = _tree.tree_map(lambda t: torch.empty_like(t, device="meta"), state)
     t1 = time.perf_counter()
-    got, step = restore_checkpoint(os.path.join(root, "models"), like,
-                                   device=dev)
+    got, step = restore_checkpoint(where, like, device=dev)
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t1
     same = step == MD_TRAIN_STEPS and _bitwise(got, state)
     n_params = param_count(state[0])
     del got, like, state
-    shutil.rmtree(os.path.join(root, "models"))
+    shutil.rmtree(where)
 
     def one():
         box[0], box[1], _ = raw(box[0], box[1], batch)
@@ -4926,9 +4958,10 @@ def _models_train(card, dev, root) -> None:
     opt_busy = sum(t for _, t, _ in opt_kernels) * 1e-3
     del grads, box[:]
     p50 = statistics.median(times)
-    log(f"models train ({card}): {cfg.name} at full width, 1 of 48 layers "
-        f"({n_params} parameters, f32 weights, "
-        f"{cfg.compute_dtype} compute, remat {cfg.remat}), Adafactor lr "
+    log(f"{label} train ({card}): {cfg.name} at full width, "
+        f"{cfg.num_layers} of {full_layers} layers "
+        f"({n_params} parameters, {cfg.param_dtype} weights, "
+        f"{cfg.compute_dtype} compute, remat {cfg.remat}), {opt_name} lr "
         f"{TRAIN_LR}, B = {MD_TRAIN_B} x {MD_TRAIN_S} repeated, "
         f"ElasticTrainer {MD_TRAIN_STEPS} steps: losses "
         f"{[round(x, 4) for x in losses]}, restarts {out['restarts']}; step "
@@ -4936,7 +4969,7 @@ def _models_train(card, dev, root) -> None:
         f"{len(times)} steps) {MD_TRAIN_B * MD_TRAIN_S / p50:.1f} tokens/s; "
         f"one profiled step after a warm-up: device_busy_ms {busy:.3f} "
         f"idle_share {1 - busy / (p50 * 1e3):.3f} kernel_launches "
-        f"{sum(n for _, _, n in kernels):.0f}; the Adafactor update alone "
+        f"{sum(n for _, _, n in kernels):.0f}; the {opt_name} update alone "
         f"busy {opt_busy:.3f} ms ({opt_busy / busy:.3f} of the step); peak "
         f"device memory {peak / 2 ** 30:.2f} GiB; the step-"
         f"{MD_TRAIN_STEPS} save ({nbytes} bytes) {ckpt.save_s[0]:.2f} s "
@@ -4946,7 +4979,7 @@ def _models_train(card, dev, root) -> None:
         f"{time.perf_counter() - t0:.1f} s")
     if not (len(losses) == MD_TRAIN_STEPS and all(map(math.isfinite, losses))
             and losses[-1] < losses[0] and same and out["restarts"] == 0):
-        raise AssertionError("models train: a check failed (above)")
+        raise AssertionError(f"{label} train: a check failed (above)")
 
 
 MD_LAUNCHERS = (
@@ -4961,10 +4994,10 @@ MD_LAUNCHERS = (
      r"[0-9.]+; restarts 0$"))
 
 
-def _models_launchers_start(root):
+def _models_launchers_start(root, launchers=MD_LAUNCHERS):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     procs = []
-    for i, (argv, _) in enumerate(MD_LAUNCHERS):
+    for i, (argv, _) in enumerate(launchers):
         extra = ([] if argv[0].endswith("serve")
                  else ["--ckpt-dir", os.path.join(root, f"launch_{i}")])
         procs.append(subprocess.Popen(
@@ -4973,7 +5006,8 @@ def _models_launchers_start(root):
     return time.perf_counter(), procs
 
 
-def _models_launchers_check(card, started) -> None:
+def _models_launchers_check(card, started, launchers=MD_LAUNCHERS,
+                            label="models") -> None:
     """(d) collect the launchers started with the phase."""
     t0, procs = started
     try:
@@ -4981,12 +5015,12 @@ def _models_launchers_check(card, started) -> None:
     finally:
         for p in procs:
             p.kill()
-    for p, (argv, want), (out, err) in zip(procs, MD_LAUNCHERS, outs):
+    for p, (argv, want), (out, err) in zip(procs, launchers, outs):
         if p.returncode != 0 or not re.search(want, out, re.M):
-            raise AssertionError(f"models launcher {argv}: rc {p.returncode}"
-                                 f"\n{out}\n{err[-4000:]}")
-        log(f"models launcher ({card}): python -m {' '.join(argv)}: rc 0 "
-            f"(all three in {time.perf_counter() - t0:.1f} s); "
+            raise AssertionError(f"{label} launcher {argv}: rc "
+                                 f"{p.returncode}\n{out}\n{err[-4000:]}")
+        log(f"{label} launcher ({card}): python -m {' '.join(argv)}: rc 0 "
+            f"(all {len(procs)} in {time.perf_counter() - t0:.1f} s); "
             + " | ".join(out.strip().splitlines()))
 
 
@@ -5011,6 +5045,188 @@ def phase_models(dev, card: str) -> dict[str, int]:
     log(f"models path launches ({card}): "
         f"{ {k: n for k, n in launches.items() if n} }")
     log(f"models ({card}): the phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# -- the ssm phase ---------------------------------------------------------
+# The SSM and hybrid families (ROADMAP A3c-A3d) at their published widths,
+# random weights from a seeded generator on the card:
+#   (a) mamba2-2.7b at full width (d 2560, 80 heads x 64, N 128, conv 4,
+#       vocab 50280), 2 layers, and zamba2-2.7b at full width, one
+#       superblock (6 mamba2 layers and the shared block: 32 heads x 80,
+#       d_ff 10240), f32 compute, B = 2: prefills of SSM_CHECK_LENS tokens
+#       (512 is two chunks of 256, so the inter-chunk recurrence runs; 384
+#       takes the one-chunk fallback), each followed by SSM_CHECK_STEPS
+#       decode steps, on the card and on the port's plain path on the CPU
+#       from the same weights: the logits within SSM_LOGITS_ATOL, the SSM
+#       state, conv tail (and the hybrid's K/V) within SSM_STATE_RTOL of
+#       their largest |value|. Then `ssd_chunked` on the card at the full
+#       head shape (B 2, L 512, H 80, P 64, N 128, chunk 256; dt-scaled
+#       inputs from the configs' A_log) against the token-by-token
+#       recurrence in f64: y and the final state within SSM_SCAN_RTOL of
+#       their largest |value|.
+#   (b) both at full width and FULL DEPTH (mamba2 64 layers, 10.8 GB of f32
+#       weights; zamba2 54 layers, 9 applications of the shared block, 9.7
+#       GB) behind RAGPipeline.answer one at a time (the models phase's
+#       serving code: B = 8 requests, 384-token prompts, 16 new tokens;
+#       top-1 8/8, #1 and #3 by id counted, prefill and decode p50, one
+#       profiled step, peak memory), and decode against `forward` at f32
+#       (MD_TF_PROMPT tokens then MD_TF_STEPS steps, within MD_TF_ATOL).
+#   (c) mamba2-2.7b at full width, 16 of 64 layers, and zamba2-2.7b, 12 of
+#       54 layers (2 applications), each trained MD_TRAIN_STEPS steps with
+#       AdamW (the configs' own optimizer, lr 3e-4) through
+#       ElasticTrainer at B = 8 x 64 of the LM stream, the step-6 state
+#       saved and restored bit for bit; the losses must fall. Depth is cut
+#       because AdamW's state at full depth (43.2 GB for mamba2) leaves no
+#       room for a 6.93 GB leaf's optimizer temporaries.
+#   (d) the launchers: `launch.serve --arch mamba2-2.7b --smoke`, `launch.
+#       serve --arch zamba2-2.7b --smoke`, `launch.train --arch
+#       mamba2-2.7b --smoke --steps 4` and `launch.train --arch
+#       zamba2-2.7b --smoke --data 2 --model 2 --steps 4`, started with
+#       the phase: rc 0 and their closing lines.
+SSM_CHECK = (("mamba2-2.7b", 2, (512, 384)), ("zamba2-2.7b", 6, (512,)))
+SSM_CHECK_B, SSM_CHECK_STEPS = 2, 4
+SSM_LOGITS_ATOL, SSM_STATE_RTOL, SSM_SCAN_RTOL = 1e-3, 1e-4, 1e-4
+SSM_SCAN_SHAPE = (2, 512, 80, 64, 128)        # B, L, H, P, N
+SSM_SERVE = (("mamba2-2.7b", None), ("zamba2-2.7b", None))
+SSM_TRAIN = (("mamba2-2.7b", 16), ("zamba2-2.7b", 12))
+SSM_LAUNCHERS = (
+    (["repro_torch.launch.serve", "--arch", "mamba2-2.7b", "--smoke"],
+     r"top-1 hit 8/8"),
+    (["repro_torch.launch.serve", "--arch", "zamba2-2.7b", "--smoke"],
+     r"top-1 hit 8/8"),
+    (["repro_torch.launch.train", "--arch", "mamba2-2.7b", "--smoke",
+      "--steps", "4"], r"^mamba2-2.7b: 4 steps in [0-9.]+s; loss "
+                       r"[0-9.]+ -> [0-9.]+; restarts 0$"),
+    (["repro_torch.launch.train", "--arch", "zamba2-2.7b", "--smoke",
+      "--data", "2", "--model", "2", "--steps", "4"],
+     r"^zamba2-2.7b: 4 steps in [0-9.]+s; loss [0-9.]+ -> [0-9.]+; "
+     r"restarts 0$"))
+
+
+def _ssm_run(mod, params, cfg, toks, s, dev):
+    """Prefill `s` tokens, then SSM_CHECK_STEPS decode steps of the given
+    tokens: (logits (B, s + steps, V), the cache's tensors), on the CPU."""
+    t = toks.to(dev)
+    lg, cache = mod.prefill(params, t[:, :s], cfg,
+                            max_len=s + SSM_CHECK_STEPS)
+    outs = [lg.cpu()]
+    for i in range(s, s + SSM_CHECK_STEPS):
+        lg, cache = mod.decode_step(params, cache, t[:, i:i + 1], cfg)
+        outs.append(lg.cpu())
+    tensors = {k: v.cpu() for k, v in vars(cache).items() if k != "length"}
+    return torch.cat(outs, 1), tensors
+
+
+def _ssm_scan(dev) -> tuple[float, float, float]:
+    """`ssd_chunked` at SSM_SCAN_SHAPE against the f64 recurrence: (y's and
+    the final state's largest error over their largest |value|, the
+    chunked scan's device ms)."""
+    b, l, h, p, n = SSM_SCAN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, l, h), generator=gen, device=dev))
+    x = torch.randn((b, l, h, p), generator=gen, device=dev) * dt[..., None]
+    a = -dt * torch.exp(a_log)
+    bb = torch.randn((b, l, n), generator=gen, device=dev)
+    cc = torch.randn((b, l, n), generator=gen, device=dev)
+    y, final = mamba2.ssd_chunked(x, a, bb, cc, 256)
+    ms = time_ms(lambda: mamba2.ssd_chunked(x, a, bb, cc, 256), iters=5)
+    st = torch.zeros((b, h, p, n), dtype=torch.float64, device=dev)
+    ys = []
+    x64, a64, b64, c64 = (t.double() for t in (x, a, bb, cc))
+    for t in range(l):
+        st = (st * torch.exp(a64[:, t])[..., None, None]
+              + x64[:, t, :, :, None] * b64[:, t, None, None, :])
+        ys.append((st @ c64[:, t, None, :, None])[..., 0])
+    want = torch.stack(ys, 1)
+    y_err = float((y.double() - want).abs().max() / want.abs().max())
+    f_err = float((final.double() - st).abs().max() / st.abs().max())
+    return y_err, f_err, ms
+
+
+def _ssm_card_vs_cpu(card, dev) -> None:
+    """(a) each SSM_CHECK config on the card against the CPU, then the
+    chunked scan against the recurrence at the full head shape."""
+    t0 = time.perf_counter()
+    ok = True
+    for arch, layers, lens in SSM_CHECK:
+        cfg = get_config(arch).with_(num_layers=layers,
+                                     compute_dtype="float32")
+        mod = TF_MODULES[cfg.family]
+        with torch.inference_mode():
+            params = get_model(cfg).init(
+                torch.Generator(device=dev).manual_seed(SEED + 20),
+                device=dev)
+            cparams = _tree.tree_map(lambda t: t.cpu(), params)
+            toks = torch.from_numpy(np.random.default_rng(SEED + 20).integers(
+                0, cfg.vocab_size, (SSM_CHECK_B, max(lens) + SSM_CHECK_STEPS)
+            ).astype(np.int32))
+            for s in lens:
+                t1 = time.perf_counter()
+                got, gcache = _ssm_run(mod, params, cfg, toks, s, dev)
+                card_s = time.perf_counter() - t1
+                t1 = time.perf_counter()
+                want, wcache = _ssm_run(mod, cparams, cfg, toks, s, "cpu")
+                cpu_s = time.perf_counter() - t1
+                err = float((got - want).abs().max())
+                cerr = {k: float((gcache[k].float() - w.float()).abs().max()
+                                 / w.float().abs().max())
+                        for k, w in wcache.items()}
+                chunk = min(cfg.ssm_chunk, s)
+                chunks = s // chunk if s % chunk == 0 else 1
+                ok &= err <= SSM_LOGITS_ATOL and all(
+                    e <= SSM_STATE_RTOL for e in cerr.values())
+                log(f"ssm card vs cpu ({card}): {arch} at full width, "
+                    f"{layers} of {get_config(arch).num_layers} layers, f32 "
+                    f"compute: prefill B = {SSM_CHECK_B} x {s} ({chunks} "
+                    f"chunk(s) of {s // chunks}) + {SSM_CHECK_STEPS} decode "
+                    f"steps on the card ({card_s:.2f} s) and on the CPU "
+                    f"({cpu_s:.2f} s): logits max abs err {err:.3g} (limit "
+                    f"{SSM_LOGITS_ATOL}; logits up to "
+                    f"{float(want.abs().max()):.3g}); cache max err over "
+                    f"its largest |value| "
+                    f"{ {k: float(f'{e:.3g}') for k, e in cerr.items()} } "
+                    f"(limit {SSM_STATE_RTOL})")
+            del params, cparams
+    y_err, f_err, ms = _ssm_scan(dev)
+    ok &= y_err <= SSM_SCAN_RTOL and f_err <= SSM_SCAN_RTOL
+    log(f"ssm scan ({card}): ssd_chunked at B, L, H, P, N = "
+        f"{SSM_SCAN_SHAPE}, chunk 256 (2 chunks), on the card against the "
+        f"token-by-token recurrence in f64: y max err over max |y| "
+        f"{y_err:.3g}, final state {f_err:.3g} (limit {SSM_SCAN_RTOL}); the "
+        f"chunked scan {ms:.3f} ms (CUDA events, median of 5); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not ok:
+        raise AssertionError("ssm card vs cpu: a check failed (above)")
+
+
+def phase_ssm(dev, card: str) -> dict[str, int]:
+    """The SSM and hybrid configs at full width (see SSM_* above): (a) the
+    card against the CPU and the chunked scan against the recurrence, (b)
+    both served at full depth, (c) both trained, (d) the launchers.
+    Returns the launches of (b)'s serving path."""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="ssm_", dir=os.path.join(ROOT, "build"))
+    try:
+        started = _models_launchers_start(root, SSM_LAUNCHERS)
+        _ssm_card_vs_cpu(card, dev)
+        torch.cuda.empty_cache()
+        _models_launchers_check(card, started, SSM_LAUNCHERS, "ssm")
+        launches = _models_serve(card, dev, SSM_SERVE, "ssm")
+        for arch, layers in SSM_TRAIN:
+            _models_train(card, dev, root,
+                          get_config(arch).with_(num_layers=layers),
+                          "adamw", "ssm")
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"ssm path launches ({card}): "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    log(f"ssm ({card}): the phase took {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -5492,13 +5708,14 @@ def main() -> int:
     _add_counts(sharded_launches, rag_sharded)
     train_launches = phase_train(dev, card)
     models_launches = phase_models(dev, card)
+    ssm_launches = phase_ssm(dev, card)
     phase_train_sharded(card)
     log(f"sharded path launches ({card}): {sharded_launches}")
     for k in kernels:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in (
             launches, sharded_launches, tune_launches, cluster_launches,
             tenancy_launches, serving.launches, decode_launches,
-            rag_launches, train_launches, models_launches))
+            rag_launches, train_launches, models_launches, ssm_launches))
     kernels += decode_rows
     phase_host_us(dev)
     log(json.dumps({"kernels": kernels}))

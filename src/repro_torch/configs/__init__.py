@@ -11,16 +11,18 @@ ARCH_IDS = (
     "minitron-4b",
     "deepseek-coder-33b",
     "deepseek-67b",
+    "mamba2-2.7b",
     "llama4-maverick-400b-a17b",
     "llama4-scout-17b-a16e",
+    "zamba2-2.7b",
     "internvl2-26b",
 )
 
 # the paper's own model, selectable too
 EXTRA_IDS = ("minilm-embedder",)
 
-# The reference's other architectures, whose families are not ported yet.
-NOT_PORTED = ("mamba2-2.7b", "zamba2-2.7b", "seamless-m4t-medium")
+# The reference's other architecture, whose family is not ported yet.
+NOT_PORTED = ("seamless-m4t-medium",)
 
 _MOD = {aid: "repro_torch.configs." + aid.replace("-", "_").replace(".", "_")
         for aid in ARCH_IDS + EXTRA_IDS}

@@ -7,7 +7,8 @@ and hands them here to get the port's objects on a chosen device, so a
 history begun on the reference continues on the port. Model parameters
 cross the same way (`dense_params`, `embedder_params`), and a sharded
 index as its padded arrays (`sharded_index`); the MoE model's through
-`moe_params`. A bfloat16 parameter (numpy's `ml_dtypes.bfloat16`) stays
+`moe_params`, the SSM and hybrid models' through `ssm_params` and
+`hybrid_params`. A bfloat16 parameter (numpy's `ml_dtypes.bfloat16`) stays
 bfloat16 bit for bit. This module imports no JAX.
 """
 from __future__ import annotations
@@ -181,6 +182,8 @@ _BLOCK = dict.fromkeys(("ln1", "wq", "wk", "wv", "wo", "ln2", "w_gate",
 _ATTN = dict.fromkeys(("ln1", "wq", "wk", "wv", "wo", "ln2"))
 _FFN = dict.fromkeys(("w_gate", "w_up", "w_down"))
 _MOE = dict.fromkeys(("router", "w_gate", "w_up", "w_down"))
+_SSM = dict.fromkeys(("ln", "in_proj", "conv_w", "conv_b", "A_log",
+                      "dt_bias", "D", "norm", "out_proj"))
 # qwen2's QKV bias, an untied head, the MoE's shared expert
 _OPTIONAL = frozenset(("bq", "bk", "bv", "lm_head", "sh_gate", "sh_up",
                        "sh_down"))
@@ -214,6 +217,26 @@ def moe_params(params, *, device=None) -> dict:
     if no_dense:
         out["dense_ffn"] = {}
     return out
+
+
+def ssm_params(params, *, device=None) -> dict:
+    """The reference mamba2 model's parameters (`repro.models.mamba2`:
+    `embed`, `blocks` of stacked mamba2 blocks, `final_norm`, `lm_head`
+    where untied) as the port's, on `device`. Each leaf keeps its dtype:
+    `A_log`, `dt_bias` and `D` are float32 in a bfloat16 tree, as the
+    reference keeps them."""
+    return _param_tree(params, {"embed": None, "blocks": _SSM,
+                                "final_norm": None},
+                       resolve_device(device), "")
+
+
+def hybrid_params(params, *, device=None) -> dict:
+    """The reference zamba2 model's parameters (`repro.models.zamba2`: the
+    mamba2 tree of `ssm_params` plus `shared`, one dense block with no
+    layer axis) as the port's, on `device`."""
+    return _param_tree(params, {"embed": None, "blocks": _SSM,
+                                "shared": _BLOCK, "final_norm": None},
+                       resolve_device(device), "")
 
 
 def embedder_params(params, *, device=None) -> dict:

@@ -11,8 +11,8 @@ the slots are dealt round-robin over the visible devices), then serves
 batched requests through the paper's two-stage hierarchical retrieval
 and the generator's prefill + decode, logging the
 Table-II-calibrated energy ledger per query. `--arch` takes every ported
-decoder LM (dense, vlm and MoE): the pipeline drives the generator
-through `generate`, which is family-agnostic. Runs on the CUDA device
+decoder LM (dense, vlm, MoE, SSM and hybrid): the pipeline drives the
+generator through `generate`, which is family-agnostic. Runs on the CUDA device
 unless `--device` names another. `--smoke` is on always, as in the
 reference (ROADMAP C17); the full widths are driven through the library
 (`chip_smoke.py`).

@@ -16,10 +16,11 @@ With `--data D --model M` and D * M > 1 the launcher spawns D * M ranks
 one-card machine, talking over gloo), and the training state is sharded
 over their (data, model) mesh by `distributed.sharding`'s rules (the
 sharded step: `train.make_sharded_train_step`); a rank's failure ends the
-run with a non-zero status. The dense, vlm and MoE families train; a vlm
-batch carries zero patch embeddings (`prefix_embeds` of (batch,
-num_prefix_embeds, d_model)), as in the reference. The SSM, hybrid and
-enc-dec families wait for ROADMAP A3.
+run with a non-zero status. The dense, vlm, MoE, SSM and hybrid
+families train; a vlm batch carries zero patch embeddings
+(`prefix_embeds` of (batch, num_prefix_embeds, d_model)), as in the
+reference; the SSM and hybrid families read `tokens` and `labels` only.
+The enc-dec family waits for ROADMAP A3.
 """
 from __future__ import annotations
 

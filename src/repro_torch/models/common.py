@@ -18,17 +18,20 @@ compute over the model axis. Under the sharded train step each rank runs
 its own batch block, so the "dp" part of every pin holds by
 construction; the "mp" part is not realized (ROADMAP C24).
 
-`ModelConfig` holds the fields that the dense, vlm and MoE models, the
-embedder, the registry and training read, with the reference's
-defaults: the MoE fields (`num_experts`, `moe_top_k`, `moe_layer_period`,
-`shared_expert`, `capacity_factor`) and the vlm frontend's
+`ModelConfig` holds the fields that the dense, vlm, MoE, SSM and hybrid
+models, the embedder, the registry and training read, with the
+reference's defaults: the MoE fields (`num_experts`, `moe_top_k`,
+`moe_layer_period`, `shared_expert`, `capacity_factor`), the SSM fields
+(`ssm_state`, `ssm_expand`, `ssm_head_dim`, `ssm_conv_width`,
+`ssm_chunk`, with the properties `d_inner` and `ssm_heads`), the
+hybrid's `hybrid_attn_period` and the vlm frontend's
 (`num_prefix_embeds`, `frontend_dim`). Of the training knobs, `remat`
-checkpoints each dense block (each MoE superblock) while autograd
-records and `optimizer` names the launcher's optimizer; `scan_layers`
-and `seq_shard` are kept for parity: the layers always run one after
-another (ROADMAP C22), and `seq_shard` only changes the spec
-`residual_pattern` names. The SSM, hybrid and enc-dec fields come with
-those families (ROADMAP A3).
+checkpoints each dense block (each MoE, SSM or hybrid superblock, each
+mamba2 layer) while autograd records and `optimizer` names the
+launcher's optimizer; `scan_layers` and `seq_shard` are kept for parity:
+the layers always run one after another (ROADMAP C22), and `seq_shard`
+only changes the spec `residual_pattern` names. The enc-dec fields come
+with that family (ROADMAP A3).
 
 `batch_block` tells the layers which rows of the global microbatch a
 rank runs (the sharded train step sets it): the MoE dispatch enforces
@@ -42,6 +45,8 @@ import dataclasses
 from typing import Any, Literal
 
 import torch
+
+from repro_torch import _tree
 
 Params = Any  # nested dict of tensors
 
@@ -64,6 +69,14 @@ class ModelConfig:
     moe_layer_period: int = 1      # 1 = every layer MoE; 2 = interleaved
     shared_expert: bool = False
     capacity_factor: float = 1.25
+    # --- SSM (Mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 128
+    # --- hybrid (Zamba2) ---
+    hybrid_attn_period: int = 0    # shared attn block after every k SSM layers
     # --- frontends (VLM): stubbed embeddings prepended ---
     num_prefix_embeds: int = 0     # VLM: image patch embeddings per sample
     frontend_dim: int = 0          # embedding dim delivered by the stub
@@ -84,6 +97,14 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
 
     @property
     def cdtype(self) -> torch.dtype:
@@ -109,6 +130,19 @@ def dense_init(gen: torch.Generator, shape, dtype: torch.dtype, *,
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (x * std).to(dtype)
+
+
+def stacked_init(gen: torch.Generator, lead: tuple[int, ...], shape,
+                 dtype: torch.dtype, scale: float | None = None
+                 ) -> torch.Tensor:
+    """A (*lead, *shape) tensor of `dense_init` draws, one trailing
+    (*shape) slice at a time, so a stack of layers or experts never needs
+    an f32 copy of itself."""
+    out = torch.empty((*lead, *shape), dtype=dtype, device=gen.device)
+    flat = out.view(-1, *shape)
+    for i in range(flat.shape[0]):
+        flat[i] = dense_init(gen, shape, dtype, scale=scale)
+    return out
 
 
 def embed_init(gen: torch.Generator, shape, dtype: torch.dtype
@@ -200,6 +234,13 @@ def param_count(params: Params) -> int:
 def layer(blocks: dict, i: int) -> dict:
     """Layer i's parameters: a view of every stacked block tensor."""
     return {name: t[i] for name, t in blocks.items()}
+
+
+def remat_applies(cfg, x: torch.Tensor, params: Params) -> bool:
+    """Whether `cfg.remat` checkpoints the blocks of this call: autograd
+    records it (x or a parameter requires grad)."""
+    return cfg.remat and torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in _tree.leaves(params)))
 
 
 def residual_pattern(cfg) -> tuple:

@@ -30,8 +30,8 @@ from repro_torch.models.common import (ModelConfig, Params, apply_rope,
                                        check_generator, constrain,
                                        constrain_kv, cross_entropy_loss,
                                        dense_init, embed_init, layer,
-                                       residual_pattern, rmsnorm,
-                                       rope_tables, swiglu)
+                                       remat_applies, residual_pattern,
+                                       rmsnorm, rope_tables, swiglu)
 from repro_torch.serve import sparse_kv
 
 
@@ -47,9 +47,23 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     """Random parameters drawn from `gen` on `device` (the CUDA device
     unless the caller asks for another; `gen` must be on it)."""
     check_generator(gen, resolve_device(device))
-    l, d, h, kh, hd, f, v = (cfg.num_layers, cfg.d_model, cfg.num_heads,
-                             cfg.num_kv_heads, cfg.hd, cfg.d_ff,
-                             cfg.vocab_size)
+    d, v, dt = cfg.d_model, cfg.vocab_size, cfg.pdtype
+    blocks = init_blocks(cfg, gen)        # drawn before the embedding
+    params = {
+        "embed": embed_init(gen, (v, d), dt),
+        "blocks": blocks,
+        "final_norm": torch.ones((d,), dtype=dt, device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (d, v), dt)
+    return params
+
+
+def init_blocks(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    """cfg.num_layers blocks' parameters, stacked on axis 0, drawn from
+    `gen` on its device."""
+    l, d, h, kh, hd, f = (cfg.num_layers, cfg.d_model, cfg.num_heads,
+                          cfg.num_kv_heads, cfg.hd, cfg.d_ff)
     dt = cfg.pdtype
 
     def const(shape, fill):
@@ -69,14 +83,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
         blocks["bq"] = const((l, h * hd), 0.0)
         blocks["bk"] = const((l, kh * hd), 0.0)
         blocks["bv"] = const((l, kh * hd), 0.0)
-    params = {
-        "embed": embed_init(gen, (v, d), dt),
-        "blocks": blocks,
-        "final_norm": const((d,), 1.0),
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, (d, v), dt)
-    return params
+    return blocks
 
 
 def _qkv(p, x, cfg: ModelConfig):
@@ -178,9 +185,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     x = embed_tokens(params, tokens, cfg, prefix_embeds)
     cos, sin = rope_tables(_positions(x.shape[1], x.device), cfg.hd,
                            cfg.rope_theta)
-    remat = cfg.remat and torch.is_grad_enabled() and (
-        x.requires_grad
-        or any(t.requires_grad for t in params["blocks"].values()))
+    remat = remat_applies(cfg, x, params)
     for i in range(cfg.num_layers):
         p = layer(params["blocks"], i)
         if remat:
@@ -229,11 +234,17 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         x, (k, v) = block_fwd(layer(params["blocks"], i), x, cos, sin, cfg)
         cache.k[i, :, :s] = k
         cache.v[i, :, :s] = v
-    if lengths is None:
-        cache.length.fill_(s)
-    else:
-        cache.length.copy_(torch.as_tensor(lengths, device=x.device))
+    set_lengths(cache.length, lengths, s)
     return _logits(params, x, cfg), cache
+
+
+def set_lengths(length: torch.Tensor, lengths, s: int) -> None:
+    """A primed cache's lengths: `lengths` where given, else s for every
+    row."""
+    if lengths is None:
+        length.fill_(s)
+    else:
+        length.copy_(torch.as_tensor(lengths, device=length.device))
 
 
 def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,

@@ -43,16 +43,16 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import _tree
 from repro_torch._device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import dense
 from repro_torch.models.common import (ModelConfig, Params, active_batch_block,
                                        active_mesh, apply_rope,
                                        check_generator, constrain,
-                                       cross_entropy_loss, dense_init,
-                                       embed_init, layer, residual_pattern,
-                                       rmsnorm, rope_tables, swiglu)
+                                       cross_entropy_loss, embed_init, layer,
+                                       remat_applies, residual_pattern,
+                                       rmsnorm, rope_tables, stacked_init,
+                                       swiglu)
 
 _FFN_KEYS = ("w_gate", "w_up", "w_down")
 
@@ -61,29 +61,21 @@ def _capacity(num_tokens: int, cfg: ModelConfig) -> int:
     return max(1, math.ceil(num_tokens / cfg.num_experts * cfg.capacity_factor))
 
 
-def _draw(gen, lead: tuple[int, ...], shape, dtype, scale=None):
-    """A (*lead, *shape) tensor drawn one trailing (*shape) slice at a
-    time, so a bank of experts never needs an f32 copy of itself."""
-    out = torch.empty((*lead, *shape), dtype=dtype, device=gen.device)
-    flat = out.view(-1, *shape)
-    for i in range(flat.shape[0]):
-        flat[i] = dense_init(gen, shape, dtype, scale=scale)
-    return out
-
-
 def _init_moe(cfg: ModelConfig, gen, lead: tuple[int, ...]) -> Params:
     e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
     dt = cfg.pdtype
     p = {
-        "router": _draw(gen, lead, (d, e), dt, scale=d ** -0.5),
-        "w_gate": _draw(gen, (*lead, e), (d, f), dt),
-        "w_up": _draw(gen, (*lead, e), (d, f), dt),
-        "w_down": _draw(gen, (*lead, e), (f, d), dt, scale=f ** -0.5),
+        "router": stacked_init(gen, lead, (d, e), dt, scale=d ** -0.5),
+        "w_gate": stacked_init(gen, (*lead, e), (d, f), dt),
+        "w_up": stacked_init(gen, (*lead, e), (d, f), dt),
+        "w_down": stacked_init(gen, (*lead, e), (f, d), dt,
+                               scale=f ** -0.5),
     }
     if cfg.shared_expert:
-        p["sh_gate"] = _draw(gen, lead, (d, f), dt)
-        p["sh_up"] = _draw(gen, lead, (d, f), dt)
-        p["sh_down"] = _draw(gen, lead, (f, d), dt, scale=f ** -0.5)
+        p["sh_gate"] = stacked_init(gen, lead, (d, f), dt)
+        p["sh_up"] = stacked_init(gen, lead, (d, f), dt)
+        p["sh_down"] = stacked_init(gen, lead, (f, d), dt,
+                                    scale=f ** -0.5)
     return p
 
 
@@ -215,10 +207,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
         return torch.full(shape, fill, dtype=dt, device=gen.device)
     blocks = {
         "ln1": const((l, d), 1.0),
-        "wq": _draw(gen, (l,), (d, h * hd), dt),
-        "wk": _draw(gen, (l,), (d, kh * hd), dt),
-        "wv": _draw(gen, (l,), (d, kh * hd), dt),
-        "wo": _draw(gen, (l,), (h * hd, d), dt, scale=(h * hd) ** -0.5),
+        "wq": stacked_init(gen, (l,), (d, h * hd), dt),
+        "wk": stacked_init(gen, (l,), (d, kh * hd), dt),
+        "wv": stacked_init(gen, (l,), (d, kh * hd), dt),
+        "wo": stacked_init(gen, (l,), (h * hd, d), dt,
+                           scale=(h * hd) ** -0.5),
         "ln2": const((l, d), 1.0),
     }
     if cfg.qkv_bias:
@@ -228,15 +221,15 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     dense_ffn = {}
     if period > 1:
         lead = (sb, period - 1)
-        dense_ffn = {"w_gate": _draw(gen, lead, (d, f), dt),
-                     "w_up": _draw(gen, lead, (d, f), dt),
-                     "w_down": _draw(gen, lead, (f, d), dt,
+        dense_ffn = {"w_gate": stacked_init(gen, lead, (d, f), dt),
+                     "w_up": stacked_init(gen, lead, (d, f), dt),
+                     "w_down": stacked_init(gen, lead, (f, d), dt,
                                      scale=f ** -0.5)}
     params = {"embed": embed_init(gen, (v, d), dt), "blocks": blocks,
               "dense_ffn": dense_ffn, "moe": _init_moe(cfg, gen, (sb,)),
               "final_norm": const((d,), 1.0)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = _draw(gen, (), (d, v), dt)
+        params["lm_head"] = stacked_init(gen, (), (d, v), dt)
     return params
 
 
@@ -293,9 +286,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     cos, sin = rope_tables(dense._positions(x.shape[1], x.device), cfg.hd,
                            cfg.rope_theta)
     blocks, dense_ffn, moe_p, sb, _ = _group_params(params, cfg)
-    remat = cfg.remat and torch.is_grad_enabled() and (
-        x.requires_grad
-        or any(t.requires_grad for t in _tree.leaves(params)))
+    remat = remat_applies(cfg, x, params)
     for i in range(sb):
         args = (layer(blocks, i), layer(dense_ffn, i), layer(moe_p, i))
         if remat:
@@ -341,10 +332,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         for j, (k, v) in enumerate(kvs):
             cache.k[i * period + j, :, :s] = k
             cache.v[i * period + j, :, :s] = v
-    if lengths is None:
-        cache.length.fill_(s)
-    else:
-        cache.length.copy_(torch.as_tensor(lengths, device=x.device))
+    dense.set_lengths(cache.length, lengths, s)
     return dense._logits(params, x, cfg), cache
 
 

@@ -4,8 +4,9 @@
 `get_model(cfg)` returns a ModelApi whose members close over cfg, so the
 launchers, the trainer and the RAG pipelines treat every ported
 architecture the same way. The `vlm` family is the dense model fed stub
-patch embeddings (prefix_embeds); `moe` is `models/moe.py`. The SSM,
-hybrid and enc-dec families wait for ROADMAP A3.
+patch embeddings (prefix_embeds); `moe` is `models/moe.py`, `ssm`
+`models/mamba2.py` and `hybrid` `models/zamba2.py`. The enc-dec family
+waits for ROADMAP A3.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.models import dense, moe
+from repro_torch.models import dense, mamba2, moe, zamba2
 from repro_torch.models.common import ModelConfig
 
 
@@ -28,15 +29,18 @@ class ModelApi:
     init_cache: Callable[..., Any]       # (batch_size, max_len, device=None) -> cache
 
 
+_FAMILIES = {"moe": moe, "ssm": mamba2, "hybrid": zamba2}
+
+
 def get_model(cfg: ModelConfig) -> ModelApi:
     if cfg.family in ("dense", "vlm"):
         mod = dense
-    elif cfg.family == "moe":
-        mod = moe
+    elif cfg.family in _FAMILIES:
+        mod = _FAMILIES[cfg.family]
     else:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP A3); the "
-            "port serves the dense, vlm and moe families")
+            "port serves the dense, vlm, moe, ssm and hybrid families")
 
     def init(gen: torch.Generator, device=None):
         return mod.init_params(cfg, gen, device=device)

@@ -1,9 +1,9 @@
 """tests/test_archs_smoke.py over the port's architectures
-(`repro_torch.configs.ARCH_IDS`: the dense, vlm and MoE families), on the
-CPU.
+(`repro_torch.configs.ARCH_IDS`: the dense, vlm, MoE, SSM and hybrid
+families), on the CPU.
 
 Each SMOKE config's reference parameters (`repro.models.get_model(cfg)
-.init`) cross by `convert.dense_params` / `convert.moe_params`, and the
+.init`) cross by the family's converter (`TO_PORT`), and the
 same numpy batch goes through both packages (a vlm's with patch
 embeddings). Held at f32 compute: the loss within a relative 1e-6, every
 grad within GRAD_RTOL 1e-5 of its leaf's largest |grad|; prefill's and
@@ -36,6 +36,9 @@ B, S = 2, 16
 LOGITS_ATOL = 1e-4
 GRAD_RTOL = 1e-5
 NEW_IDS = [a for a in ARCH_IDS if a != "qwen2-0.5b"]
+TO_PORT = {"dense": convert.dense_params, "vlm": convert.dense_params,
+           "moe": convert.moe_params, "ssm": convert.ssm_params,
+           "hybrid": convert.hybrid_params}
 
 
 def _t(a):
@@ -59,10 +62,8 @@ def both(arch, **kw):
     tcfg = get_config(arch, smoke=True).with_(**kw)
     japi, tapi = jget_model(jcfg), get_model(tcfg)
     host = jax.tree.map(np.asarray, japi.init(jax.random.PRNGKey(0)))
-    to_port = convert.moe_params if tcfg.family == "moe" else \
-        convert.dense_params
-    return japi, tapi, jax.tree.map(jnp.asarray, host), to_port(
-        host, device="cpu")
+    return japi, tapi, jax.tree.map(jnp.asarray, host), TO_PORT[
+        tcfg.family](host, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -134,6 +135,11 @@ def test_full_configs_match_assignment():
     c = get_config("deepseek-67b")
     assert (c.num_layers, c.d_model, c.num_heads, c.num_kv_heads, c.d_ff,
             c.vocab_size) == (95, 8192, 64, 8, 22016, 102400)
+    c = get_config("mamba2-2.7b")
+    assert (c.num_layers, c.d_model, c.vocab_size, c.ssm_state) == \
+        (64, 2560, 50280, 128)
+    assert (c.d_inner, c.ssm_heads, c.ssm_chunk, c.tie_embeddings) == (
+        5120, 80, 256, True)
     c = get_config("llama4-maverick-400b-a17b")
     assert (c.num_layers, c.d_model, c.num_heads, c.num_kv_heads, c.d_ff,
             c.vocab_size, c.num_experts) == (48, 5120, 40, 8, 8192, 202048,
@@ -143,12 +149,16 @@ def test_full_configs_match_assignment():
     assert c.pdtype == torch.bfloat16
     c = get_config("llama4-scout-17b-a16e")
     assert (c.num_experts, c.moe_top_k, c.moe_layer_period) == (16, 1, 1)
+    c = get_config("zamba2-2.7b")
+    assert (c.num_layers, c.d_model, c.num_heads, c.num_kv_heads, c.d_ff,
+            c.vocab_size, c.ssm_state) == (54, 2560, 32, 32, 10240, 32000,
+                                           64)
+    assert (c.hd, c.hybrid_attn_period, c.ssm_heads) == (80, 6, 80)
     c = get_config("internvl2-26b")
     assert (c.num_layers, c.d_model, c.num_heads, c.num_kv_heads, c.d_ff,
             c.vocab_size) == (48, 6144, 48, 8, 16384, 92553)
     assert (c.num_prefix_embeds, c.frontend_dim) == (1024, 6144)
-    assert set(NOT_PORTED) == {"mamba2-2.7b", "zamba2-2.7b",
-                               "seamless-m4t-medium"}
+    assert set(NOT_PORTED) == {"seamless-m4t-medium"}
     for arch in NOT_PORTED:
         with pytest.raises(KeyError, match="ROADMAP A3"):
             get_config(arch)

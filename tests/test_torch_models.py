@@ -602,12 +602,13 @@ def test_configs_equal_the_reference_and_refuse_unported_ids():
         24, 896, 64, 151936)
     assert full.cdtype == torch.bfloat16 and full.pdtype == torch.float32
     with pytest.raises(KeyError, match="ROADMAP A3"):
-        get_config("mamba2-2.7b")
+        get_config("seamless-m4t-medium")
     with pytest.raises(KeyError, match="unknown"):
         get_config("gpt-5")
-    for family in ("ssm", "hybrid", "encdec"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-            get_model(full.with_(family=family))
+    for family in ("ssm", "hybrid"):
+        assert get_model(full.with_(family=family)).cfg.family == family
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        get_model(full.with_(family="encdec"))
 
 
 def test_model_api_serves_the_dense_model():

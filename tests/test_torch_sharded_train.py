@@ -21,6 +21,11 @@ tests/torch_rank_cases.py, which imports no JAX):
     within 1e-5 of each leaf's largest against the reference's step with
     its shard-aligned dispatch on 2 batch shards (its `_dp_shards`
     patched to 2, a test-side patch; ROADMAP C25);
+  * the SSM and hybrid SMOKE models (mamba2's and zamba2's, f32
+    compute) one AdamW step on the same mesh, grad_accum 1: the loss
+    within 1e-6 relative and the grads within 1e-5 of each leaf's
+    largest against the one-process port step, the loss within 1e-5
+    relative of the reference's;
   * sharded checkpoints: written by 4 ranks, restored by the reference's
     `restore_checkpoint` bit for bit; written by the reference, restored
     on 4 ranks, each keeping its block bit for bit.
@@ -51,6 +56,7 @@ from repro.train import make_train_step as jmake_train_step
 from repro_torch import _tree, convert
 from repro_torch.distributed import collectives
 from repro_torch.train import make_train_step
+from repro_torch.train.step import value_and_grad
 
 LOSS_RTOL, PARAM_TOL = 1e-6, 1e-5           # phase (a) of chip_smoke.py
 REF_LOSS_RTOL = 1e-5                        # port against the reference
@@ -85,7 +91,20 @@ def moe_ref():
 
 
 @pytest.fixture(scope="module")
-def steps(ref, moe_ref, tmp_path_factory):
+def family_ref():
+    """The reference's SSM and hybrid SMOKE params on the host, and its
+    models, at f32 compute."""
+    out = {}
+    for family, arch in cases.FAMILY_CASES.items():
+        api = jget_model(jget_config(arch, smoke=True).with_(
+            compute_dtype="float32"))
+        out[family] = (jax.tree.map(np.asarray,
+                                    api.init(jax.random.PRNGKey(0))), api)
+    return out
+
+
+@pytest.fixture(scope="module")
+def steps(ref, moe_ref, family_ref, tmp_path_factory):
     """Rank results of tests/torch_rank_cases.py::step_cases, plus the
     checkpoint paths: the reference writes one the ranks restore, the
     ranks write one the reference restores."""
@@ -98,7 +117,9 @@ def steps(ref, moe_ref, tmp_path_factory):
     jsave_checkpoint(str(root / "ref"), 7, (params, state))
     outs = collectives.spawn(cases.step_cases, 4, host, batch,
                              str(root / "ref"), str(root / "ranks"),
-                             moe_ref[0], timeout_s=RUN_S)
+                             moe_ref[0],
+                             {f: h for f, (h, _) in family_ref.items()},
+                             timeout_s=RUN_S)
     return outs, root, (params, state)
 
 
@@ -225,6 +246,28 @@ def test_sharded_moe_step_matches_reference_shard_aligned(moe_ref, steps,
     assert abs(got["loss"] - float(loss)) <= REF_LOSS_RTOL * abs(float(loss))
     assert _rel(got["grads"], convert.moe_params(
         jax.tree.map(np.asarray, grads), device="cpu")) <= PARAM_TOL
+
+
+@pytest.mark.parametrize("family", list(cases.FAMILY_CASES))
+def test_sharded_family_step_matches_one_process(family_ref, steps, family):
+    host, api = family_ref[family]
+    outs = steps[0]
+    for other in outs[1:]:
+        assert other[family]["loss"] == outs[0][family]["loss"]
+    _, tapi = cases.family_smoke(family)
+    params = cases.FAMILY_TO_PORT[family](host, device="cpu")
+    loss, grads = value_and_grad(
+        tapi.loss_fn, params,
+        {k: torch.from_numpy(v) for k, v in cases.batch().items()})
+    got = outs[0][family]
+    assert abs(got["loss"] - float(loss)) <= LOSS_RTOL * abs(float(loss))
+    assert _rel(got["grads"], _tree.tree_map(lambda t: t.numpy(),
+                                             grads)) <= PARAM_TOL
+    jloss = jax.jit(api.loss_fn)(
+        jax.tree.map(jnp.asarray, host),
+        {k: jnp.asarray(v) for k, v in cases.batch().items()})
+    assert abs(got["loss"] - float(jloss)) <= REF_LOSS_RTOL * abs(
+        float(jloss))
 
 
 @pytest.mark.parametrize("name", list(cases.STEP_CASES))

@@ -57,7 +57,7 @@ def test_launcher_resumes_from_the_newest_checkpoint(tmp_path, capsys):
 @pytest.mark.parametrize("args,err,match", [
     (["--data", "0"], ValueError, "mesh axes must be >= 1"),
     (["--model", "0"], ValueError, "mesh axes must be >= 1"),
-    (["--arch", "mamba2-2.7b"], KeyError, "ROADMAP A3")])
+    (["--arch", "seamless-m4t-medium"], KeyError, "ROADMAP A3")])
 def test_launcher_refuses_what_is_not_ported(tmp_path, args, err, match):
     with pytest.raises(err, match=match):
         launch_train.main(["--device", "cpu", "--smoke", "--steps", "1",

@@ -49,6 +49,14 @@ STEP_CASES = {
 MOE_CASES = {"moe": 1, "moe_accum2": 2}
 
 
+# The SSM and hybrid SMOKE models (f32 compute) one AdamW step on the
+# (2, 2) mesh with grad_accum 1: each data rank's rows are half of the
+# microbatch, and the two halves' grads are summed across ranks.
+FAMILY_CASES = {"ssm": "mamba2-2.7b", "hybrid": "zamba2-2.7b"}
+FAMILY_TO_PORT = {"ssm": convert.ssm_params,
+                  "hybrid": convert.hybrid_params}
+
+
 def aligned(name) -> bool:
     return STEP_CASES[name][2] == 2
 
@@ -77,6 +85,12 @@ def smoke():
 def moe_smoke():
     cfg = get_config("llama4-scout-17b-a16e", smoke=True).with_(
         compute_dtype="float32", capacity_factor=1.0)
+    return cfg, get_model(cfg)
+
+
+def family_smoke(family):
+    cfg = get_config(FAMILY_CASES[family], smoke=True).with_(
+        compute_dtype="float32")
     return cfg, get_model(cfg)
 
 
@@ -132,14 +146,36 @@ def moe_steps(mesh, host, batch) -> dict:
     return out
 
 
-def step_cases(world, host, batch, ref_ckpt, out_ckpt, moe_host=None):
+def family_steps(mesh, hosts, batch) -> dict:
+    """Each FAMILY_CASES entry in `hosts` (family -> its SMOKE params):
+    (loss, grads) of one sharded AdamW step."""
+    out = {}
+    for family, host in hosts.items():
+        cfg, api = family_smoke(family)
+        opt = adamw(lr=1e-3)
+        params, state, pshard, _ = sharded_state(mesh, cfg, opt, host,
+                                                 FAMILY_TO_PORT[family])
+        grads = []
+        step = make_sharded_train_step(
+            api.loss_fn, opt, mesh, pshard, clip_norm=None,
+            grad_transform=transform_with(grads, False, params, pshard))
+        m = step(params, state, batch)[2]
+        out[family] = {"loss": float(m["loss"]), "grads": grads[0]}
+    return out
+
+
+def step_cases(world, host, batch, ref_ckpt, out_ckpt, moe_host=None,
+               family_hosts=None):
     """Every STEP_CASES entry on a (2, 2) mesh from the same host params
     and batch; then a sharded save of the AdamW state into `out_ckpt` and
     a sharded restore of the reference-written `ref_ckpt`; with
-    `moe_host` (the MoE SMOKE params) the MOE_CASES too."""
+    `moe_host` (the MoE SMOKE params) the MOE_CASES too, and with
+    `family_hosts` the FAMILY_CASES."""
     mesh = make_test_mesh(2, 2, world=world)
     cfg, api = smoke()
     out = {} if moe_host is None else moe_steps(mesh, moe_host, batch)
+    if family_hosts:
+        out.update(family_steps(mesh, family_hosts, batch))
     for name, (make_opt, steps, accum, clip, compress) in STEP_CASES.items():
         opt = make_opt()
         params, state, pshard, oshard = sharded_state(mesh, cfg, opt, host)
