@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's retrieval cascades, models (dense, vlm,
-MoE, SSM, hybrid), RAG pipeline and training on one GPU.
+MoE, SSM, hybrid, enc-dec), RAG pipeline and training on one GPU.
 
     python3 chip_smoke.py
 
@@ -238,7 +238,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
                layers) trained with AdamW through `ElasticTrainer`, the
                state restored bit for bit; four launchers with the new
                `--arch` ids.
- 12c. train_sharded — a training state sharded over 4 torch.distributed
+ 12c. encdec  — seamless-m4t-medium at full width with random weights
+               (see ED_* below): 2 + 2 layers at f32 on the card against
+               the port's CPU path at 4096 frames (the encoder's
+               non-causal chunked path) and 1024 (naive); full depth
+               behind `serve.sampler.generate` (B = 8, 1024 frames, 32
+               new tokens; decode against `forward` at f32; no kernel
+               launched) and trained with AdamW through
+               `ElasticTrainer`, the state restored bit for bit; the
+               training launcher with the new `--arch` id and the
+               serving launcher's refusal of it.
+ 12d. train_sharded — a training state sharded over 4 torch.distributed
                ranks that share this one card over gloo (the code path of a
                (data 2, model 2) mesh, not multi-card scaling; see SH_*
                below): a probe of the gloo collectives on CUDA tensors; (a)
@@ -253,7 +263,8 @@ Then the exact wrappers' and the block gather's host microseconds per
 call (`host_us_per_call`).
 The line before the last is a JSON object describing every kernel
 (launches: the sum over the main, sharded, autotune, cluster, tenancy,
-serving, decode, rag, train, models and ssm paths; `stage1_gather_resident` and `stage0_sign_gather_resident`
+serving, decode, rag, train, models, ssm and encdec paths (the last
+has no kernel); `stage1_gather_resident` and `stage0_sign_gather_resident`
 are counted by the resident wrappers where they launch, which only the
 serving phase's cached segments call; the `@decode_hd64` rows are #2 and
 #8 at the decode phase's shapes, with the decode path's launches); the last
@@ -319,14 +330,15 @@ from repro_torch.kernels.stage1_int4 import (  # noqa: E402
 from repro_torch.kernels.stage2_int8 import (  # noqa: E402
     stage2_int8_batched, stage2_int8_by_id, stage2_int8_single)
 from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
-from repro_torch.models import (dense, embedder, get_model,  # noqa: E402
-                                mamba2, moe, zamba2)
+from repro_torch.models import (attention, dense, embedder,  # noqa: E402
+                                encdec, get_model, mamba2, moe, zamba2)
 from repro_torch.models.common import param_count  # noqa: E402
 from repro_torch.serve import (HotClusterCache,  # noqa: E402
                                MultiTenantRAGPipeline, RAGAgent, RAGPipeline,
                                RuntimeConfig, ServingRuntime,
                                ShardedRuntimeConfig, ShardedServingRuntime,
                                sparse_kv)
+from repro_torch.serve.sampler import generate  # noqa: E402
 from repro_torch.runtime import ElasticTrainer, FailureInjector  # noqa: E402
 from repro_torch.tenancy import (CrossTenantBatchScheduler,  # noqa: E402
                                  MultiTenantIndex)
@@ -4902,7 +4914,8 @@ def _models_train(card, dev, root, cfg=None, opt_name="adafactor",
                   label="models") -> None:
     """(c) `cfg` (llama4-scout at full width, 1 layer, by default) trained
     MD_TRAIN_STEPS steps through ElasticTrainer with `opt_name`, its last
-    state saved and restored bit for bit."""
+    state saved and restored bit for bit. An enc-dec batch carries seeded
+    frames (B, S, d_model)."""
     t0 = time.perf_counter()
     if cfg is None:
         cfg = get_config("llama4-scout-17b-a16e").with_(num_layers=1)
@@ -4912,6 +4925,10 @@ def _models_train(card, dev, root, cfg=None, opt_name="adafactor",
     raw = make_train_step(api.loss_fn, opt)
     batch = shard_batch(next(lm_batches(LMTaskConfig(
         cfg.vocab_size, MD_TRAIN_S, MD_TRAIN_B, seed=SEED))), dev)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            (MD_TRAIN_B, MD_TRAIN_S, cfg.d_model), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED + 24))
     times, box = [], [None, None]
 
     def step_fn(p, o, b, mesh):
@@ -5227,6 +5244,267 @@ def phase_ssm(dev, card: str) -> dict[str, int]:
     log(f"ssm path launches ({card}): "
         f"{ {k: n for k, n in launches.items() if n} }")
     log(f"ssm ({card}): the phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# -- the encdec phase ------------------------------------------------------
+# The enc-dec family (ROADMAP A3e) at seamless-m4t-medium's published
+# widths (12 encoder + 12 decoder layers, d 1024, 16 heads x 64 (kv 16),
+# d_ff 4096, vocab 256206, untied head), random weights from a seeded
+# generator on the card. The path is plain PyTorch (the reference's model
+# is plain jnp: no Pallas kernel), so it launches none of the port's
+# kernels; the serving path's launch counts are read and must all be 0.
+#   (a) 2 encoder and 2 decoder layers at full width, f32 compute, B = 2:
+#       frames of ED_CHECK_SRC positions (4096: the encoder's non-causal
+#       chunked path at attn_chunk 2048, two query and two key chunks;
+#       1024: its naive path), a 64-token prompt and ED_CHECK_STEPS decode
+#       steps, on the card and on the port's CPU path from the same
+#       weights: the logits within ED_LOGITS_ATOL, the self and cross K/V
+#       within ED_CACHE_RTOL of their largest |value|, and the encoder's
+#       path the one the chunk rule names.
+#   (b) FULL DEPTH (977,758,208 parameters, 3.91 GB of f32 weights, bf16
+#       compute) behind `serve.sampler.generate`: B = 8, seeded frames (8,
+#       1024, 1024), a 64-token prompt, 32 new tokens; then at f32 compute
+#       the prompt and the generated tokens through prefill + decode
+#       against `forward`, within ED_TF_ATOL; prefill p50, decode step p50
+#       and tokens/s, one profiled prefill and decode step, peak memory.
+#   (c) FULL DEPTH trained MD_TRAIN_STEPS steps with AdamW (the config's
+#       optimizer, lr 3e-4) through ElasticTrainer at B = 8 x 64 of the LM
+#       stream with seeded frames (8, 64, 1024); the step-6 state (params,
+#       m and v: 11.7 GB) saved and restored bit for bit; the losses fall.
+#   (d) the launchers, started with the phase: `launch.train --arch
+#       seamless-m4t-medium --smoke --steps 2` (rc 0 and its closing line)
+#       and `launch.serve --arch seamless-m4t-medium` (refused: a non-zero
+#       rc and the reference's message).
+ED_ARCH = "seamless-m4t-medium"
+ED_CHECK_LAYERS, ED_CHECK_B, ED_CHECK_STEPS = 2, 2, 8
+ED_CHECK_SRC = (4096, 1024)
+ED_LOGITS_ATOL, ED_CACHE_RTOL = 1e-3, 1e-4
+ED_B, ED_SRC, ED_PROMPT, ED_MAX_NEW = 8, 1024, 64, 32
+ED_TF_ATOL = 1e-4
+ED_REFUSAL = "seamless decodes from frames, not augmented text"
+ED_LAUNCHERS = (
+    (["repro_torch.launch.train", "--arch", ED_ARCH, "--smoke", "--steps",
+      "2"], r"^seamless-m4t-medium: 2 steps in [0-9.]+s; loss [0-9.]+ -> "
+            r"[0-9.]+; restarts 0$"),
+    (["repro_torch.launch.serve", "--arch", ED_ARCH], re.escape(ED_REFUSAL)))
+
+
+def _encdec_run(params, cfg, frames, toks, dev):
+    """Prefill ED_PROMPT tokens over `frames`, then ED_CHECK_STEPS decode
+    steps of the given tokens: (logits (B, prompt + steps, V) and the
+    cache's K/V on the CPU, the (query, key) lengths of every naive
+    attention call)."""
+    seen, naive = [], attention.naive_attention
+
+    def spy(q, k, *args, **kw):
+        seen.append((q.shape[1], k.shape[1]))
+        return naive(q, k, *args, **kw)
+    f, t = frames.to(dev), toks.to(dev)
+    with mock.patch.object(attention, "naive_attention", spy):
+        lg, cache = encdec.prefill(params, f, t[:, :ED_PROMPT], cfg,
+                                   max_len=ED_PROMPT + ED_CHECK_STEPS)
+        outs = [lg.cpu()]
+        for i in range(ED_PROMPT, ED_PROMPT + ED_CHECK_STEPS):
+            lg, cache = encdec.decode_step(params, cache, t[:, i:i + 1], cfg)
+            outs.append(lg.cpu())
+    tensors = {k: v.cpu() for k, v in vars(cache).items() if k != "length"}
+    return torch.cat(outs, 1), tensors, seen
+
+
+def _encdec_card_vs_cpu(card, dev) -> None:
+    """(a) 2 + 2 layers at full width and f32 on the card against the
+    CPU, at each ED_CHECK_SRC."""
+    t0 = time.perf_counter()
+    cfg = get_config(ED_ARCH).with_(num_layers=ED_CHECK_LAYERS,
+                                    encoder_layers=ED_CHECK_LAYERS,
+                                    compute_dtype="float32")
+    ok = True
+    with torch.inference_mode():
+        params = get_model(cfg).init(
+            torch.Generator(device=dev).manual_seed(SEED + 22), device=dev)
+        cparams = _tree.tree_map(lambda t: t.cpu(), params)
+        rng = np.random.default_rng(SEED + 22)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (ED_CHECK_B, ED_PROMPT + ED_CHECK_STEPS)
+        ).astype(np.int32))
+        for s_src in ED_CHECK_SRC:
+            frames = torch.from_numpy(rng.standard_normal(
+                (ED_CHECK_B, s_src, cfg.d_model)).astype(np.float32))
+            t1 = time.perf_counter()
+            got, gcache, gseen = _encdec_run(params, cfg, frames, toks, dev)
+            card_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            want, wcache, wseen = _encdec_run(cparams, cfg, frames, toks,
+                                              "cpu")
+            cpu_s = time.perf_counter() - t1
+            err = float((got - want).abs().max())
+            cerr = {k: float((gcache[k] - w).abs().max() / w.abs().max())
+                    for k, w in wcache.items()}
+            chunked = s_src > cfg.attn_chunk and s_src % cfg.attn_chunk == 0
+            path_ok = ((s_src, s_src) in gseen) != chunked and gseen == wseen
+            ok &= (err <= ED_LOGITS_ATOL and path_ok
+                   and all(e <= ED_CACHE_RTOL for e in cerr.values()))
+            path = (f"non-causal chunked, {s_src // cfg.attn_chunk} x "
+                    f"{s_src // cfg.attn_chunk} chunks of {cfg.attn_chunk}"
+                    if chunked else "naive")
+            log(f"encdec card vs cpu ({card}): {ED_ARCH} at full width, "
+                f"{ED_CHECK_LAYERS} + {ED_CHECK_LAYERS} of 12 + 12 layers, "
+                f"f32 compute: frames B = {ED_CHECK_B} x {s_src} (encoder "
+                f"path {path}: as the rule names it {path_ok}), prefill "
+                f"{ED_PROMPT} tokens + {ED_CHECK_STEPS} decode steps on the "
+                f"card ({card_s:.2f} s) and on the CPU ({cpu_s:.2f} s): "
+                f"logits max abs err {err:.3g} (limit {ED_LOGITS_ATOL}; "
+                f"logits up to {float(want.abs().max()):.3g}); cache max err "
+                f"over its largest |value| "
+                f"{ {k: float(f'{e:.3g}') for k, e in cerr.items()} } "
+                f"(limit {ED_CACHE_RTOL})")
+        del params, cparams
+    log(f"encdec card vs cpu ({card}): {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        raise AssertionError("encdec card vs cpu: a check failed (above)")
+
+
+def _encdec_tf(cfg, params, frames, prompt, new) -> float:
+    """At f32 compute: prefill of `prompt`, then decode of the generated
+    tokens `new` (the last one is never fed), against `forward` over
+    them all: the largest abs difference of the logits."""
+    c32 = cfg.with_(compute_dtype="float32")
+    seq = torch.cat([prompt, new[:, :-1]], 1)
+    full = encdec.forward(params, frames, seq, c32)
+    lg, cache = encdec.prefill(params, frames, prompt, c32,
+                               max_len=seq.shape[1])
+    outs = [lg]
+    for i in range(prompt.shape[1], seq.shape[1]):
+        lg, cache = encdec.decode_step(params, cache, seq[:, i:i + 1], c32)
+        outs.append(lg)
+    return float((torch.cat(outs, 1) - full).abs().max())
+
+
+def _encdec_serve(card, dev) -> dict[str, int]:
+    """(b) full depth behind `generate`. Returns the launch counts of the
+    generate call (set to 0 before it)."""
+    cfg = get_config(ED_ARCH)
+    api = get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        params = api.init(torch.Generator(device=dev).manual_seed(SEED + 23),
+                          device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+        frames = torch.randn((ED_B, ED_SRC, cfg.d_model), generator=gen,
+                             device=dev)
+        prompt = torch.randint(0, cfg.vocab_size, (ED_B, ED_PROMPT),
+                               generator=gen, device=dev, dtype=torch.int32)
+        batch = {"frames": frames, "tokens": prompt}
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        new, cache = generate(api, params, batch, max_new=ED_MAX_NEW)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        ok = (tuple(new.shape) == (ED_B, ED_MAX_NEW)
+              and int(new.min()) >= 0 and int(new.max()) < cfg.vocab_size
+              and int(cache.length[0]) == ED_PROMPT + ED_MAX_NEW - 1)
+        del cache
+        total = ED_PROMPT + MD_STEPS + 8
+
+        def prefill():
+            return api.prefill(params, batch, max_len=total)
+        p_s = _median_step_s(prefill, 3)
+        p_kernels = device_profile(prefill, reps=1)
+        p_busy = sum(t for _, t, _ in p_kernels) * 1e-3
+        p_top = [(k[:40], round(t * 1e-3, 3)) for k, t, _ in p_kernels[:3]]
+        lg, cache = prefill()
+        ok &= bool(torch.isfinite(lg).all())
+        del lg
+        box, tok = [cache], prompt[:, -1:]
+
+        def step():
+            lg, box[0] = api.decode_step(params, box[0], tok)
+            return lg
+        d_s = _median_step_s(step, MD_STEPS)
+        kernels = device_profile(step, reps=1)
+        ok &= bool(torch.isfinite(step()).all())
+        busy = sum(t for _, t, _ in kernels) * 1e-3
+        top = [(k[:40], round(t * 1e-3, 3)) for k, t, _ in kernels[:4]]
+        del box, cache
+        peak = torch.cuda.max_memory_allocated()
+        tf = _encdec_tf(cfg, params, frames, prompt, new)
+        n_params = param_count(params)
+        del params, frames, prompt, batch, new
+    log(f"encdec serve {ED_ARCH} ({card}): full width, full depth "
+        f"({cfg.encoder_layers} + {cfg.num_layers} layers, {n_params} "
+        f"parameters, {cfg.param_dtype} weights, {cfg.compute_dtype} "
+        f"compute), drawn in {init_s:.1f} s; generate B = {ED_B}, frames "
+        f"{ED_SRC}, prompt {ED_PROMPT} tokens, {ED_MAX_NEW} new: "
+        f"{gen_s * 1e3:.1f} ms, launches "
+        f"{ {k: n for k, n in counts.items() if n} }; prefill p50 "
+        f"{p_s * 1e3:.3f} ms (one profiled: device_busy_ms {p_busy:.3f} "
+        f"idle_share {1 - p_busy / (p_s * 1e3):.3f} kernel_launches "
+        f"{sum(n for _, _, n in p_kernels):.0f}; busiest ms {p_top}); decode "
+        f"step p50 {d_s * 1e3:.3f} ms ({ED_B / d_s:.1f} tokens/s); one "
+        f"profiled step: device_busy_ms {busy:.3f} idle_share "
+        f"{1 - busy / (d_s * 1e3):.3f} kernel_launches "
+        f"{sum(n for _, _, n in kernels):.0f}; busiest ms {top}; peak device "
+        f"memory {peak / 2 ** 30:.2f} GiB; finite logits and tokens in "
+        f"range {ok}; decode continues prefill at f32 over the prompt and "
+        f"the generated tokens: max abs err {tf:.3g} (limit {ED_TF_ATOL})")
+    if not (ok and tf <= ED_TF_ATOL and not any(counts.values())):
+        raise AssertionError("encdec serve: a check failed (above)")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _encdec_launchers_check(card, started) -> None:
+    """(d) the training launcher trains; the serving launcher refuses."""
+    t0, procs = started
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    (train, serve), ((t_out, t_err), (s_out, s_err)) = procs, outs
+    want_train, want_refusal = (w for _, w in ED_LAUNCHERS)
+    if train.returncode != 0 or not re.search(want_train, t_out, re.M):
+        raise AssertionError(f"encdec launcher {ED_LAUNCHERS[0][0]}: rc "
+                             f"{train.returncode}\n{t_out}\n{t_err[-4000:]}")
+    if (serve.returncode == 0 or not re.search(want_refusal, s_err)
+            or "top-1" in s_out):
+        raise AssertionError(f"encdec launcher {ED_LAUNCHERS[1][0]}: rc "
+                             f"{serve.returncode}\n{s_out}\n{s_err[-4000:]}")
+    log(f"encdec launcher ({card}): python -m "
+        f"{' '.join(ED_LAUNCHERS[0][0])}: rc 0; {t_out.strip()} | python -m "
+        f"{' '.join(ED_LAUNCHERS[1][0])}: refused, rc {serve.returncode}: "
+        f"{s_err.strip().splitlines()[-1]} (both in "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+
+def phase_encdec(dev, card: str) -> dict[str, int]:
+    """seamless-m4t-medium at full width (see ED_* above): (a) the card
+    against the CPU, (b) served at full depth, (c) trained at full depth,
+    (d) the launchers. Returns the launches of (b)'s serving path."""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="encdec_", dir=os.path.join(ROOT, "build"))
+    try:
+        started = _models_launchers_start(root, ED_LAUNCHERS)
+        _encdec_card_vs_cpu(card, dev)
+        torch.cuda.empty_cache()
+        _encdec_launchers_check(card, started)
+        launches = _encdec_serve(card, dev)
+        _models_train(card, dev, root, get_config(ED_ARCH), "adamw",
+                      "encdec")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"encdec path launches ({card}): "
+        f"{ {k: n for k, n in launches.items() if n} } (the path has no "
+        f"kernel)")
+    log(f"encdec ({card}): the phase took {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -5709,13 +5987,15 @@ def main() -> int:
     train_launches = phase_train(dev, card)
     models_launches = phase_models(dev, card)
     ssm_launches = phase_ssm(dev, card)
+    encdec_launches = phase_encdec(dev, card)
     phase_train_sharded(card)
     log(f"sharded path launches ({card}): {sharded_launches}")
     for k in kernels:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in (
             launches, sharded_launches, tune_launches, cluster_launches,
             tenancy_launches, serving.launches, decode_launches,
-            rag_launches, train_launches, models_launches, ssm_launches))
+            rag_launches, train_launches, models_launches, ssm_launches,
+            encdec_launches))
     kernels += decode_rows
     phase_host_us(dev)
     log(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
 """Architecture config registry (port of `repro.configs`):
-`get_config("<arch-id>")` / `--arch <id>` for the ported architectures."""
+`get_config("<arch-id>")` / `--arch <id>` for the reference's ten
+architectures and the paper's embedder."""
 from __future__ import annotations
 
 import importlib
@@ -16,13 +17,11 @@ ARCH_IDS = (
     "llama4-scout-17b-a16e",
     "zamba2-2.7b",
     "internvl2-26b",
+    "seamless-m4t-medium",
 )
 
 # the paper's own model, selectable too
 EXTRA_IDS = ("minilm-embedder",)
-
-# The reference's other architecture, whose family is not ported yet.
-NOT_PORTED = ("seamless-m4t-medium",)
 
 _MOD = {aid: "repro_torch.configs." + aid.replace("-", "_").replace(".", "_")
         for aid in ARCH_IDS + EXTRA_IDS}
@@ -30,8 +29,6 @@ _MOD = {aid: "repro_torch.configs." + aid.replace("-", "_").replace(".", "_")
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch not in _MOD:
-        why = ("is not ported yet (ROADMAP A3)" if arch in NOT_PORTED
-               else "is unknown")
-        raise KeyError(f"arch {arch!r} {why}; ported: {sorted(_MOD)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MOD)}")
     mod = importlib.import_module(_MOD[arch])
     return mod.SMOKE if smoke else mod.FULL

@@ -8,7 +8,7 @@ history begun on the reference continues on the port. Model parameters
 cross the same way (`dense_params`, `embedder_params`), and a sharded
 index as its padded arrays (`sharded_index`); the MoE model's through
 `moe_params`, the SSM and hybrid models' through `ssm_params` and
-`hybrid_params`. A bfloat16 parameter (numpy's `ml_dtypes.bfloat16`) stays
+`hybrid_params`, the enc-dec model's through `encdec_params`. A bfloat16 parameter (numpy's `ml_dtypes.bfloat16`) stays
 bfloat16 bit for bit. This module imports no JAX.
 """
 from __future__ import annotations
@@ -181,6 +181,7 @@ _BLOCK = dict.fromkeys(("ln1", "wq", "wk", "wv", "wo", "ln2", "w_gate",
                         "w_up", "w_down"))
 _ATTN = dict.fromkeys(("ln1", "wq", "wk", "wv", "wo", "ln2"))
 _FFN = dict.fromkeys(("w_gate", "w_up", "w_down"))
+_DEC = dict.fromkeys((*_BLOCK, "lnx", "xwq", "xwk", "xwv", "xwo"))
 _MOE = dict.fromkeys(("router", "w_gate", "w_up", "w_down"))
 _SSM = dict.fromkeys(("ln", "in_proj", "conv_w", "conv_b", "A_log",
                       "dt_bias", "D", "norm", "out_proj"))
@@ -236,6 +237,19 @@ def hybrid_params(params, *, device=None) -> dict:
     layer axis) as the port's, on `device`."""
     return _param_tree(params, {"embed": None, "blocks": _SSM,
                                 "shared": _BLOCK, "final_norm": None},
+                       resolve_device(device), "")
+
+
+def encdec_params(params, *, device=None) -> dict:
+    """The reference enc-dec model's parameters (`repro.models.encdec`:
+    `enc_blocks` of stacked encoder blocks, `dec_blocks` of stacked
+    decoder blocks with their cross-attention (`lnx`, `xwq`, `xwk`,
+    `xwv`, `xwo`), `embed`, `enc_norm`, `final_norm`, `lm_head`) as the
+    port's, on `device`. A bfloat16 leaf stays torch.bfloat16, bit for
+    bit."""
+    return _param_tree(params, {"enc_blocks": _BLOCK, "dec_blocks": _DEC,
+                                "embed": None, "enc_norm": None,
+                                "final_norm": None, "lm_head": None},
                        resolve_device(device), "")
 
 

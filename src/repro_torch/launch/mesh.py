@@ -3,7 +3,7 @@ touches no device).
 
 Port of `repro.launch.mesh`'s `make_test_mesh`. The reference's
 production builders (`make_production_mesh`, `make_train_opt_mesh`) shape
-TPU pods of 256 and 512 chips; they have no counterpart here (ROADMAP A3).
+TPU pods of 256 and 512 chips; they have no counterpart here (ROADMAP A3f).
 """
 from __future__ import annotations
 

@@ -10,9 +10,11 @@ split over a (data, model) mesh of shard slots when --data x --model > 1;
 the slots are dealt round-robin over the visible devices), then serves
 batched requests through the paper's two-stage hierarchical retrieval
 and the generator's prefill + decode, logging the
-Table-II-calibrated energy ledger per query. `--arch` takes every ported
+Table-II-calibrated energy ledger per query. `--arch` takes every
 decoder LM (dense, vlm, MoE, SSM and hybrid): the pipeline drives the
-generator through `generate`, which is family-agnostic. Runs on the CUDA device
+generator through `generate`, which is family-agnostic. The enc-dec
+`seamless-m4t-medium` is refused with the reference's message: it
+decodes from frames, not augmented text. Runs on the CUDA device
 unless `--device` names another. `--smoke` is on always, as in the
 reference (ROADMAP C17); the full widths are driven through the library
 (`chip_smoke.py`).
@@ -49,9 +51,12 @@ def main(argv=None):
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     rng = np.random.default_rng(0)
     gcfg = get_config(args.arch, smoke=args.smoke)
+    if gcfg.family == "encdec":
+        raise SystemExit("RAG serving drives decoder-LM archs; "
+                         "seamless decodes from frames, not augmented text")
+    dev = resolve_device(args.device)
     gen_api = get_model(gcfg)
     gen_params = gen_api.init(torch.Generator(device=dev).manual_seed(0),
                               device=dev)

@@ -16,11 +16,11 @@ With `--data D --model M` and D * M > 1 the launcher spawns D * M ranks
 one-card machine, talking over gloo), and the training state is sharded
 over their (data, model) mesh by `distributed.sharding`'s rules (the
 sharded step: `train.make_sharded_train_step`); a rank's failure ends the
-run with a non-zero status. The dense, vlm, MoE, SSM and hybrid
-families train; a vlm batch carries zero patch embeddings
-(`prefix_embeds` of (batch, num_prefix_embeds, d_model)), as in the
-reference; the SSM and hybrid families read `tokens` and `labels` only.
-The enc-dec family waits for ROADMAP A3.
+run with a non-zero status. Every architecture of `configs.ARCH_IDS`
+trains: an enc-dec batch carries zero frames (`frames` of (batch, seq,
+d_model)) and a vlm batch zero patch embeddings (`prefix_embeds` of
+(batch, num_prefix_embeds, d_model)), as in the reference; the SSM and
+hybrid families read `tokens` and `labels` only.
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ import torch
 from repro_torch import _tree
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs import ARCH_IDS, NOT_PORTED, get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data import LMTaskConfig, lm_batches, shard_batch
 from repro_torch.distributed import collectives, compression
 from repro_torch.distributed import sharding as sh
@@ -48,8 +48,7 @@ from repro_torch.train import (get_optimizer, make_sharded_train_step,
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS + NOT_PORTED,
-                    default="qwen2-0.5b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2-0.5b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
@@ -74,10 +73,14 @@ def _model(args):
 
 
 def _batches(cfg, args):
-    """The LM stream's batches; a vlm's with zero patch embeddings."""
+    """The LM stream's batches; an enc-dec's with zero frames, a vlm's with
+    zero patch embeddings."""
     for batch in lm_batches(LMTaskConfig(vocab_size=cfg.vocab_size,
                                          seq_len=args.seq,
                                          batch_size=args.batch)):
+        if cfg.family == "encdec":
+            batch["frames"] = np.zeros((args.batch, args.seq, cfg.d_model),
+                                       np.float32)
         if cfg.family == "vlm":
             batch["prefix_embeds"] = np.zeros(
                 (args.batch, cfg.num_prefix_embeds, cfg.d_model), np.float32)
@@ -167,7 +170,7 @@ def main(argv=None):
     if args.data < 1 or args.model < 1:
         raise ValueError(f"mesh axes must be >= 1, got ({args.data}, "
                          f"{args.model})")
-    _model(args)                      # refuse what is not ported, up front
+    _model(args)                      # refuse a bad config, up front
     dev = resolve_device(args.device)
     t0 = time.time()
     ranks = args.data * args.model

@@ -18,20 +18,20 @@ compute over the model axis. Under the sharded train step each rank runs
 its own batch block, so the "dp" part of every pin holds by
 construction; the "mp" part is not realized (ROADMAP C24).
 
-`ModelConfig` holds the fields that the dense, vlm, MoE, SSM and hybrid
-models, the embedder, the registry and training read, with the
+`ModelConfig` holds the fields that the dense, vlm, MoE, SSM, hybrid and
+enc-dec models, the embedder, the registry and training read, with the
 reference's defaults: the MoE fields (`num_experts`, `moe_top_k`,
 `moe_layer_period`, `shared_expert`, `capacity_factor`), the SSM fields
 (`ssm_state`, `ssm_expand`, `ssm_head_dim`, `ssm_conv_width`,
 `ssm_chunk`, with the properties `d_inner` and `ssm_heads`), the
-hybrid's `hybrid_attn_period` and the vlm frontend's
-(`num_prefix_embeds`, `frontend_dim`). Of the training knobs, `remat`
-checkpoints each dense block (each MoE, SSM or hybrid superblock, each
-mamba2 layer) while autograd records and `optimizer` names the
+hybrid's `hybrid_attn_period`, the enc-dec's `encoder_layers` and the
+frontends' (`num_prefix_embeds`, `frontend_dim`). Of the training knobs,
+`remat` checkpoints each dense block (each MoE, SSM or hybrid
+superblock, each mamba2 layer, each encoder and decoder block of the
+enc-dec) while autograd records and `optimizer` names the
 launcher's optimizer; `scan_layers` and `seq_shard` are kept for parity:
 the layers always run one after another (ROADMAP C22), and `seq_shard`
-only changes the spec `residual_pattern` names. The enc-dec fields come
-with that family (ROADMAP A3).
+only changes the spec `residual_pattern` names.
 
 `batch_block` tells the layers which rows of the global microbatch a
 rank runs (the sharded train step sets it): the MoE dispatch enforces
@@ -77,7 +77,9 @@ class ModelConfig:
     ssm_chunk: int = 128
     # --- hybrid (Zamba2) ---
     hybrid_attn_period: int = 0    # shared attn block after every k SSM layers
-    # --- frontends (VLM): stubbed embeddings prepended ---
+    # --- enc-dec ---
+    encoder_layers: int = 0        # 0 -> num_layers (the decoder's depth)
+    # --- frontends (VLM / audio): stubbed embeddings prepended/encoded ---
     num_prefix_embeds: int = 0     # VLM: image patch embeddings per sample
     frontend_dim: int = 0          # embedding dim delivered by the stub
     # --- numerics / misc ---

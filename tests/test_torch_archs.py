@@ -1,32 +1,35 @@
 """tests/test_archs_smoke.py over the port's architectures
-(`repro_torch.configs.ARCH_IDS`: the dense, vlm, MoE, SSM and hybrid
-families), on the CPU.
+(`repro_torch.configs.ARCH_IDS`, the reference's ten: the dense, vlm,
+MoE, SSM, hybrid and enc-dec families), on the CPU.
 
 Each SMOKE config's reference parameters (`repro.models.get_model(cfg)
 .init`) cross by the family's converter (`TO_PORT`), and the
 same numpy batch goes through both packages (a vlm's with patch
-embeddings). Held at f32 compute: the loss within a relative 1e-6, every
+embeddings, an enc-dec's with frames). Held at f32 compute: the loss within a relative 1e-6, every
 grad within GRAD_RTOL 1e-5 of its leaf's largest |grad|; prefill's and
 one decode step's logits within LOGITS_ATOL 1e-4. At the configs' own
 compute dtype (bf16) the reference's smoke checks: finite loss, a
 nonzero finite grad norm, logits of the right shape with no NaN. Then
 the FULL configs' dimensions (`test_full_configs_match_assignment`) and
-both launchers with each new `--arch`.
+both launchers with each new `--arch` (the serving launcher refuses the
+enc-dec one with the reference's message).
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import dataclasses
 import re
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from repro.configs import ARCH_IDS as JARCH_IDS
 from repro.configs import get_config as jget_config
 from repro.models import get_model as jget_model
 from repro_torch import _tree, convert
-from repro_torch.configs import ARCH_IDS, NOT_PORTED, get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import get_model
@@ -36,9 +39,10 @@ B, S = 2, 16
 LOGITS_ATOL = 1e-4
 GRAD_RTOL = 1e-5
 NEW_IDS = [a for a in ARCH_IDS if a != "qwen2-0.5b"]
+DECODER_IDS = [a for a in NEW_IDS if get_config(a).family != "encdec"]
 TO_PORT = {"dense": convert.dense_params, "vlm": convert.dense_params,
            "moe": convert.moe_params, "ssm": convert.ssm_params,
-           "hybrid": convert.hybrid_params}
+           "hybrid": convert.hybrid_params, "encdec": convert.encdec_params}
 
 
 def _t(a):
@@ -49,6 +53,9 @@ def make_batch(cfg, seed=1):
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     batch = {"tokens": toks, "labels": toks}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(size=(B, S, cfg.d_model)).astype(
+            np.float32)
     if cfg.family == "vlm":
         batch["prefix_embeds"] = rng.normal(
             size=(B, cfg.num_prefix_embeds, cfg.d_model)).astype(np.float32)
@@ -121,7 +128,8 @@ def test_smoke_prefill_decode_match_reference(arch):
 
 
 def test_full_configs_match_assignment():
-    """The ported ids' rows of the reference's test; the rest refused."""
+    """The reference's test's rows, every id's."""
+    assert ARCH_IDS == JARCH_IDS
     c = get_config("qwen2-0.5b")
     assert (c.num_layers, c.d_model, c.num_heads, c.num_kv_heads, c.d_ff,
             c.vocab_size) == (24, 896, 14, 2, 4864, 151936)
@@ -158,10 +166,17 @@ def test_full_configs_match_assignment():
     assert (c.num_layers, c.d_model, c.num_heads, c.num_kv_heads, c.d_ff,
             c.vocab_size) == (48, 6144, 48, 8, 16384, 92553)
     assert (c.num_prefix_embeds, c.frontend_dim) == (1024, 6144)
-    assert set(NOT_PORTED) == {"seamless-m4t-medium"}
-    for arch in NOT_PORTED:
-        with pytest.raises(KeyError, match="ROADMAP A3"):
-            get_config(arch)
+    c = get_config("seamless-m4t-medium")
+    assert (c.num_layers, c.d_model, c.num_heads, c.num_kv_heads, c.d_ff,
+            c.vocab_size) == (12, 1024, 16, 16, 4096, 256206)
+    assert (c.family, c.encoder_layers, c.frontend_dim, c.rope_theta) == (
+        "encdec", 12, 1024, 1e4)
+    for smoke in (False, True):
+        assert dataclasses.asdict(get_config(
+            "seamless-m4t-medium", smoke)) == dataclasses.asdict(
+                jget_config("seamless-m4t-medium", smoke))
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-5")
 
 
 @pytest.mark.parametrize("arch", NEW_IDS)
@@ -175,9 +190,17 @@ def test_train_launcher_trains_each_new_arch(arch, tmp_path, capsys):
                      r"[0-9.]+ -> [0-9.]+; restarts 0$", out, re.M), out
 
 
-@pytest.mark.parametrize("arch", NEW_IDS)
+@pytest.mark.parametrize("arch", DECODER_IDS)
 def test_serve_launcher_serves_each_new_arch(arch, capsys):
     assert launch_serve.main(["--device", "cpu", "--arch", arch,
                               "--requests", "2", "--num-docs", "16",
                               "--max-new", "2"]) == 0
     assert "top-1 hit 2/2" in capsys.readouterr().out
+
+
+def test_serve_launcher_refuses_the_encdec_arch():
+    """As the reference's launcher: RAG serving drives decoder LMs."""
+    with pytest.raises(SystemExit, match="seamless decodes from frames, "
+                       "not augmented text"):
+        launch_serve.main(["--device", "cpu", "--arch",
+                           "seamless-m4t-medium"])

@@ -586,7 +586,8 @@ TRAINING_FIELDS = {"remat", "scan_layers", "seq_shard", "optimizer"}
 def test_configs_equal_the_reference_and_refuse_unported_ids():
     """Every field the port keeps equals the reference's; every field it
     leaves out is training-only or at the reference's default, so the
-    port drops no setting that these configs make."""
+    port drops no setting that these configs make. Unknown ids and
+    families raise, as in the reference."""
     defaults = {f.name: f.default for f in dataclasses.fields(JModelConfig)}
     for arch in ARCH_IDS + ("minilm-embedder",):
         for smoke in (False, True):
@@ -601,14 +602,16 @@ def test_configs_equal_the_reference_and_refuse_unported_ids():
     assert (full.num_layers, full.d_model, full.hd, full.vocab_size) == (
         24, 896, 64, 151936)
     assert full.cdtype == torch.bfloat16 and full.pdtype == torch.float32
-    with pytest.raises(KeyError, match="ROADMAP A3"):
-        get_config("seamless-m4t-medium")
+    assert get_config("seamless-m4t-medium").family == "encdec"
     with pytest.raises(KeyError, match="unknown"):
         get_config("gpt-5")
-    for family in ("ssm", "hybrid"):
+    for family in ("ssm", "hybrid", "encdec"):
         assert get_model(full.with_(family=family)).cfg.family == family
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        get_model(full.with_(family="encdec"))
+    # a decoder LM's cache takes and ignores the enc-dec's src_len
+    cache = get_model(full).init_cache(1, 4, src_len=9, device="cpu")
+    assert tuple(cache.k.shape) == (24, 1, 4, 2, 64)
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
+        get_model(full.with_(family="rnn"))
 
 
 def test_model_api_serves_the_dense_model():

@@ -21,8 +21,9 @@ tests/torch_rank_cases.py, which imports no JAX):
     within 1e-5 of each leaf's largest against the reference's step with
     its shard-aligned dispatch on 2 batch shards (its `_dp_shards`
     patched to 2, a test-side patch; ROADMAP C25);
-  * the SSM and hybrid SMOKE models (mamba2's and zamba2's, f32
-    compute) one AdamW step on the same mesh, grad_accum 1: the loss
+  * the SSM, hybrid and enc-dec SMOKE models (mamba2's, zamba2's and
+    seamless's, f32 compute; the enc-dec's batch with frames) one AdamW
+    step on the same mesh, grad_accum 1: the loss
     within 1e-6 relative and the grads within 1e-5 of each leaf's
     largest against the one-process port step, the loss within 1e-5
     relative of the reference's;
@@ -92,8 +93,8 @@ def moe_ref():
 
 @pytest.fixture(scope="module")
 def family_ref():
-    """The reference's SSM and hybrid SMOKE params on the host, and its
-    models, at f32 compute."""
+    """The reference's SSM, hybrid and enc-dec SMOKE params on the host,
+    and its models, at f32 compute."""
     out = {}
     for family, arch in cases.FAMILY_CASES.items():
         api = jget_model(jget_config(arch, smoke=True).with_(
@@ -258,14 +259,15 @@ def test_sharded_family_step_matches_one_process(family_ref, steps, family):
     params = cases.FAMILY_TO_PORT[family](host, device="cpu")
     loss, grads = value_and_grad(
         tapi.loss_fn, params,
-        {k: torch.from_numpy(v) for k, v in cases.batch().items()})
+        {k: torch.from_numpy(v)
+         for k, v in cases.family_batch(family).items()})
     got = outs[0][family]
     assert abs(got["loss"] - float(loss)) <= LOSS_RTOL * abs(float(loss))
     assert _rel(got["grads"], _tree.tree_map(lambda t: t.numpy(),
                                              grads)) <= PARAM_TOL
     jloss = jax.jit(api.loss_fn)(
         jax.tree.map(jnp.asarray, host),
-        {k: jnp.asarray(v) for k, v in cases.batch().items()})
+        {k: jnp.asarray(v) for k, v in cases.family_batch(family).items()})
     assert abs(got["loss"] - float(jloss)) <= REF_LOSS_RTOL * abs(
         float(jloss))
 

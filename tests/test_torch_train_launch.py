@@ -1,8 +1,8 @@
 """The port's training launcher (`repro_torch.launch.train`) on the CPU,
 as a user runs it (`python -m ...`, plain and with --grad-accum 2
---compress-grads), its refusals (a mesh axis below 1; the families not
-ported: A3), its resume from the newest checkpoint, and the training
-modules' imports (no JAX, no reference). Its sharded runs (--data/--model
+--compress-grads, and the enc-dec `seamless-m4t-medium`), its refusals
+(a mesh axis below 1), its resume from the newest checkpoint, and the
+training modules' imports (no JAX, no reference). Its sharded runs (--data/--model
 above 1) are in tests/test_torch_sharded_train.py.
 The reference's launcher (`repro.launch.train`) prints the same closing
 line."""
@@ -54,10 +54,20 @@ def test_launcher_resumes_from_the_newest_checkpoint(tmp_path, capsys):
     assert re.search(r"3 steps in [0-9.]+s; loss [0-9.]+ -> [0-9.]+", out)
 
 
+def test_launcher_trains_the_encdec_arch(tmp_path):
+    """seamless-m4t-medium at SMOKE: its batches carry zero frames."""
+    out = _run("--device", "cpu", "--smoke", "--arch", "seamless-m4t-medium",
+               "--steps", "2", "--batch", "2", "--seq", "8", "--ckpt-dir",
+               str(tmp_path))
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert re.search(r"^seamless-m4t-medium: 2 steps in [0-9.]+s; loss "
+                     r"[0-9.]+ -> [0-9.]+; restarts 0$", out.stdout,
+                     re.M), out.stdout
+
+
 @pytest.mark.parametrize("args,err,match", [
     (["--data", "0"], ValueError, "mesh axes must be >= 1"),
-    (["--model", "0"], ValueError, "mesh axes must be >= 1"),
-    (["--arch", "seamless-m4t-medium"], KeyError, "ROADMAP A3")])
+    (["--model", "0"], ValueError, "mesh axes must be >= 1")])
 def test_launcher_refuses_what_is_not_ported(tmp_path, args, err, match):
     with pytest.raises(err, match=match):
         launch_train.main(["--device", "cpu", "--smoke", "--steps", "1",

@@ -49,12 +49,15 @@ STEP_CASES = {
 MOE_CASES = {"moe": 1, "moe_accum2": 2}
 
 
-# The SSM and hybrid SMOKE models (f32 compute) one AdamW step on the
-# (2, 2) mesh with grad_accum 1: each data rank's rows are half of the
-# microbatch, and the two halves' grads are summed across ranks.
-FAMILY_CASES = {"ssm": "mamba2-2.7b", "hybrid": "zamba2-2.7b"}
+# The SSM, hybrid and enc-dec SMOKE models (f32 compute) one AdamW step
+# on the (2, 2) mesh with grad_accum 1: each data rank's rows are half of
+# the microbatch, and the two halves' grads are summed across ranks. The
+# enc-dec's batch carries frames (`family_batch`).
+FAMILY_CASES = {"ssm": "mamba2-2.7b", "hybrid": "zamba2-2.7b",
+                "encdec": "seamless-m4t-medium"}
 FAMILY_TO_PORT = {"ssm": convert.ssm_params,
-                  "hybrid": convert.hybrid_params}
+                  "hybrid": convert.hybrid_params,
+                  "encdec": convert.encdec_params}
 
 
 def aligned(name) -> bool:
@@ -94,14 +97,28 @@ def family_smoke(family):
     return cfg, get_model(cfg)
 
 
-def batch():
+def batch(frames_dim: int = 0):
     """The (8, 16) batch every case trains on; two rows carry padding
-    labels, so the global count of labelled positions matters."""
-    toks = np.random.default_rng(0).integers(0, 64, (8, 16)).astype(np.int32)
+    labels, so the global count of labelled positions matters. With
+    `frames_dim`, (8, 16, frames_dim) source frames drawn from the same
+    seed after the tokens."""
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 64, (8, 16)).astype(np.int32)
     labels = toks.copy()
     labels[1, :5] = -1
     labels[6, 3:] = -1
-    return {"tokens": toks, "labels": labels}
+    out = {"tokens": toks, "labels": labels}
+    if frames_dim:
+        out["frames"] = rng.standard_normal((8, 16, frames_dim)).astype(
+            np.float32)
+    return out
+
+
+def family_batch(family):
+    """`batch()` as a FAMILY_CASES model takes it: the enc-dec's with
+    frames of its d_model."""
+    cfg, _ = family_smoke(family)
+    return batch(cfg.d_model if cfg.family == "encdec" else 0)
 
 
 def abstract(tree):
@@ -146,9 +163,9 @@ def moe_steps(mesh, host, batch) -> dict:
     return out
 
 
-def family_steps(mesh, hosts, batch) -> dict:
+def family_steps(mesh, hosts) -> dict:
     """Each FAMILY_CASES entry in `hosts` (family -> its SMOKE params):
-    (loss, grads) of one sharded AdamW step."""
+    (loss, grads) of one sharded AdamW step on its `family_batch`."""
     out = {}
     for family, host in hosts.items():
         cfg, api = family_smoke(family)
@@ -159,7 +176,7 @@ def family_steps(mesh, hosts, batch) -> dict:
         step = make_sharded_train_step(
             api.loss_fn, opt, mesh, pshard, clip_norm=None,
             grad_transform=transform_with(grads, False, params, pshard))
-        m = step(params, state, batch)[2]
+        m = step(params, state, family_batch(family))[2]
         out[family] = {"loss": float(m["loss"]), "grads": grads[0]}
     return out
 
@@ -175,7 +192,7 @@ def step_cases(world, host, batch, ref_ckpt, out_ckpt, moe_host=None,
     cfg, api = smoke()
     out = {} if moe_host is None else moe_steps(mesh, moe_host, batch)
     if family_hosts:
-        out.update(family_steps(mesh, family_hosts, batch))
+        out.update(family_steps(mesh, family_hosts))
     for name, (make_opt, steps, accum, clip, compress) in STEP_CASES.items():
         opt = make_opt()
         params, state, pshard, oshard = sharded_state(mesh, cfg, opt, host)
