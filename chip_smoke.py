@@ -248,7 +248,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
                `ElasticTrainer`, the state restored bit for bit; the
                training launcher with the new `--arch` id and the
                serving launcher's refusal of it.
- 12d. train_sharded — a training state sharded over 4 torch.distributed
+ 12d. dryrun  — the dry run (`launch/dryrun.py`): every (arch x shape)
+               cell of the single production mesh (16, 16) run once on
+               meta tensors, host only, over 8 worker processes, with the
+               roofline of each (`launch/roofline.py`): 32 ok, 8 skipped,
+               no error. Then three steps at full width on the card, each
+               held to its dry run at the same shape: the qwen2-0.5b
+               AdamW train step (B = 8 x 64), the seamless-m4t-medium
+               decode step (B = 8, 96 positions, 1024 frames) and
+               qwen2-0.5b's `decode_step_quant` (B = 8, T = 32768, paged
+               + prescreen): dot FLOPs equal to the same dispatch count
+               around the real step, #2's and #8's launches equal to the
+               counters (24 each per step), the peak within DRY_BAND of
+               the prediction, the step no faster than 0.95 x its bound.
+ 12e. train_sharded — a training state sharded over 4 torch.distributed
                ranks that share this one card over gloo (the code path of a
                (data 2, model 2) mesh, not multi-card scaling; see SH_*
                below): a probe of the gloo collectives on CUDA tensors; (a)
@@ -263,8 +276,9 @@ Then the exact wrappers' and the block gather's host microseconds per
 call (`host_us_per_call`).
 The line before the last is a JSON object describing every kernel
 (launches: the sum over the main, sharded, autotune, cluster, tenancy,
-serving, decode, rag, train, models, ssm and encdec paths (the last
-has no kernel); `stage1_gather_resident` and `stage0_sign_gather_resident`
+serving, decode, rag, train, models, ssm, encdec and dryrun paths (the
+encdec path has no kernel; the dryrun path's are #2 and #8 of its kvq
+decode step); `stage1_gather_resident` and `stage0_sign_gather_resident`
 are counted by the resident wrappers where they launch, which only the
 serving phase's cached segments call; the `@decode_hd64` rows are #2 and
 #8 at the decode phase's shapes, with the decode path's launches); the last
@@ -329,6 +343,9 @@ from repro_torch.kernels.stage1_int4 import (  # noqa: E402
     DEFAULT_ROWS, stage1_int4_batched, stage1_int4_rows, stage1_int4_single)
 from repro_torch.kernels.stage2_int8 import (  # noqa: E402
     stage2_int8_batched, stage2_int8_by_id, stage2_int8_single)
+from repro_torch.configs import ARCH_IDS  # noqa: E402
+from repro_torch.launch import (dryrun, hlo_analysis, roofline,  # noqa: E402
+                                shapes)
 from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.models import (attention, dense, embedder,  # noqa: E402
                                 encdec, get_model, mamba2, moe, zamba2)
@@ -5508,6 +5525,195 @@ def phase_encdec(dev, card: str) -> dict[str, int]:
     return launches
 
 
+# -- the dryrun phase -----------------------------------------------------
+# The dry run (`launch/dryrun.py`): every (arch x shape) cell of the single
+# production mesh, (data 16, model 16), one step of the port on meta
+# tensors (host only, in DRY_JOBS worker processes), with its roofline
+# (`launch/roofline.py`). Then three steps run on the card at full width
+# and the shapes the other phases run them, each held to the dry run of
+# the same step at the same shape on meta: dot FLOPs equal to the same
+# dispatch count around the real step, the kvq step's kernel launches
+# equal to the launch counters, the step's peak (the allocator's, and the
+# same dispatch mode's count of live storages on the card) within DRY_BAND
+# of the prediction, and its time at least DRY_BOUND_SHARE of the roofline
+# bound.
+DRY_JOBS = 8
+DRY_OK_CELLS = 32                        # 10 archs x 4 shapes - 8 skipped
+DRY_BAND = (0.9, 1.1)                    # card peak / predicted peak
+DRY_BOUND_SHARE = 0.95
+DRY_STEPS = 5
+
+
+def _dry_sweep(card: str) -> None:
+    cells = [(a, s, "single") for a in ARCH_IDS for s in shapes.SHAPES]
+    jobs = min(DRY_JOBS, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    recs = list(dryrun.sweep(cells, "baseline", jobs))
+    host_s = time.perf_counter() - t0
+    recs.sort(key=lambda r: (ARCH_IDS.index(r["arch"]),
+                             list(shapes.SHAPES).index(r["shape"])))
+    for rec in recs:
+        head = f"dryrun cell ({card}): {rec['arch']} x {rec['shape']}"
+        if rec["status"] != "ok":
+            log(f"{head}: {rec['status']} {rec.get('reason') or rec.get('error')}")
+            continue
+        row = roofline.analyze_cell(rec)
+        log(f"{head}: ok, peak {rec['memory']['peak_memory_in_bytes'] / 1e9:.2f}"
+            f" GB per rank, fits {rec['fits']} ({rec['card_bytes']} B), dot "
+            f"FLOPs {rec['dot_flops']:.4e} {rec['dot_flops_by_dtype']}, "
+            f"collective bytes {rec['collectives']['total']}, bound "
+            f"{row['bound_s']:.4f} s ({row['dominant']}), trace "
+            f"{rec['trace_s']:.2f} s")
+    states = [r["status"] for r in recs]
+    log(f"dryrun sweep ({card}): {states.count('ok')} ok, "
+        f"{states.count('skipped')} skipped, {states.count('error')} errors "
+        f"of {len(recs)} cells (single mesh, baseline) in {host_s:.1f} s of "
+        f"host time over {jobs} processes; "
+        f"{sum(1 for r in recs if r.get('fits'))} fit the card")
+    if states.count("error") or states.count("ok") != DRY_OK_CELLS:
+        raise AssertionError("dryrun sweep: " + "; ".join(
+            f"{r['arch']} x {r['shape']}: {r.get('error')}" for r in recs
+            if r["status"] == "error") or f"{states.count('ok')} ok cells")
+
+
+def _dry_check(card, dev, label, cfg, case, variant, make_args,
+               src_len=None) -> dict[str, int]:
+    """The real step on the card against its dry run on meta. Returns the
+    launch counts of its runs on the card."""
+    rec = dryrun.record(cfg, case, None, variant, src_len=src_len)
+    row = roofline.analyze_cell(dict(rec, arch=cfg.name, shape=label,
+                                     mesh="one"), cfg=cfg)
+    scfg = dryrun.serving_config(cfg, case.kind, variant)
+    fn, _ = dryrun.step_fn(scfg, case.kind, seq=case.seq, variant=variant,
+                           lr=TRAIN_LR)
+    args = make_args(scfg)
+    fn(*args)                                          # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    _, got = hlo_analysis.analyze(fn, *args)
+    torch.cuda.synchronize()
+    step_launches = {k: n for k, n in ops.launch_counts().items() if n}
+    base = torch.cuda.memory_allocated() - hlo_analysis.storage_bytes(args)
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    step_s = _median_step_s(lambda: fn(*args), DRY_STEPS)
+    launches = ops.launch_counts()
+    want_peak = rec["memory"]["peak_memory_in_bytes"]
+    ratio = peak / want_peak
+    counted = got["peak_bytes"] / want_peak
+    log(f"dryrun check ({card}): {label} ({cfg.name}, {case.kind}, B = "
+        f"{case.batch}, seq {case.seq}{f', src {src_len}' if src_len else ''}"
+        f", {scfg.param_dtype} weights, variant {variant}): dot FLOPs card "
+        f"{got['dot_flops']:.6e} {got['dot_flops_by_dtype']} vs meta "
+        f"{rec['dot_flops']:.6e}; launches card {step_launches} vs meta "
+        f"{rec['kernel_launches']}; peak card {peak} B vs predicted "
+        f"{want_peak} B (ratio {ratio:.4f}, band {DRY_BAND}); dispatch-count "
+        f"peak on the card {got['peak_bytes']} B (ratio {counted:.4f}); step p50 "
+        f"{step_s * 1e3:.3f} ms vs bound {row['bound_s'] * 1e3:.4f} ms "
+        f"({row['dominant']}; compute {row['compute_s'] * 1e3:.4f}, memory "
+        f"{row['memory_s'] * 1e3:.4f}), share "
+        f"{row['bound_s'] / step_s:.4f}; trace {rec['trace_s']:.2f} s")
+    problems = []
+    if (got["dot_flops"], got["dot_flops_by_dtype"]) != (
+            rec["dot_flops"], rec["dot_flops_by_dtype"]):
+        problems.append("dot FLOPs differ")
+    if step_launches != rec["kernel_launches"]:
+        problems.append("kernel launches differ")
+    if not DRY_BAND[0] <= ratio <= DRY_BAND[1]:
+        problems.append(f"peak ratio {ratio:.4f} outside {DRY_BAND}")
+    if not DRY_BAND[0] <= counted <= DRY_BAND[1]:
+        problems.append(f"dispatch-count peak ratio {counted:.4f} outside "
+                        f"{DRY_BAND}")
+    if step_s < DRY_BOUND_SHARE * row["bound_s"]:
+        problems.append("the step beat its bound: the count is short")
+    if problems:
+        raise AssertionError(f"dryrun check {label}: " + "; ".join(problems))
+    return launches
+
+
+def _dry_toy(card: str) -> None:
+    """The peak counter on this machine's torch, on a toy whose live bytes
+    are known (`tests/test_torch_hlo_analysis.py` holds the same toy on
+    the CPU's torch): x, a, b and c live at once; a stays (autograd saves
+    it) after b dies."""
+    mb = 1000 * 1000 * 4
+    x = torch.empty((1000, 1000), device="meta", requires_grad=True)
+
+    def step(x):
+        a = x * 2.0
+        b = torch.sin(a)
+        del a
+        c = b.sum()
+        del b
+        return c
+    _, rec = hlo_analysis.analyze(step, x)
+    got = (rec["peak_bytes"], rec["end_bytes"])
+    log(f"dryrun toy ({card}): torch {torch.__version__}, peak and end "
+        f"bytes {got}, want {(3 * mb + 4, 2 * mb + 4)}")
+    if got != (3 * mb + 4, 2 * mb + 4):
+        raise AssertionError(f"dryrun toy: the peak counter gave {got}")
+
+
+def phase_dryrun(dev, card: str) -> dict[str, int]:
+    """The toy, the sweep, then the three card checks (see DRY_* above).
+    Returns the launches of the kvq decode step's runs on the card."""
+    t0 = time.perf_counter()
+    _dry_toy(card)
+    _dry_sweep(card)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+
+    def params(cfg):
+        return get_model(cfg).init(gen, device=dev)
+
+    def train_args(cfg):
+        p = params(cfg)
+        opt = adamw(lr=TRAIN_LR)
+        return p, opt.init(p), shard_batch(next(lm_batches(LMTaskConfig(
+            cfg.vocab_size, TRAIN_S, TRAIN_B, seed=SEED))), dev)
+
+    def tokens(cfg, b):
+        return torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    def encdec_args(cfg):
+        cache = get_model(cfg).init_cache(ED_B, ED_PROMPT + ED_MAX_NEW,
+                                          src_len=ED_SRC, device=dev)
+        cache.length.fill_(ED_PROMPT)
+        return params(cfg), cache, tokens(cfg, ED_B)
+
+    def kvq_args(cfg):
+        cache = dense.init_quant_cache(cfg, DEC_B, DEC_T,
+                                       page_rows=dryrun.KVQ["page_rows"],
+                                       device=dev)
+        cache.length.fill_(DEC_T - 1024)
+        return params(cfg), cache, tokens(cfg, DEC_B)
+
+    qwen = get_config("qwen2-0.5b")
+    _dry_check(card, dev, "train", qwen,
+               shapes.ShapeCase("card_train", "train", TRAIN_S, TRAIN_B),
+               "baseline", train_args)
+    torch.cuda.empty_cache()
+    _dry_check(card, dev, "encdec_decode", get_config(ED_ARCH),
+               shapes.ShapeCase("card_decode", "decode",
+                                ED_PROMPT + ED_MAX_NEW, ED_B),
+               "baseline", encdec_args, src_len=ED_SRC)
+    torch.cuda.empty_cache()
+    launches = _dry_check(card, dev, "kvq_decode", qwen,
+                          shapes.ShapeCase("card_kvq", "decode", DEC_T,
+                                           DEC_B), "kvq", kvq_args)
+    torch.cuda.empty_cache()
+    per_step = {k: launches.get(k, 0) for k in DEC_KERNELS}
+    if min(per_step.values()) <= 0:
+        raise AssertionError(f"dryrun: the kvq path launched {per_step}")
+    log(f"dryrun path launches ({card}): "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    log(f"dryrun ({card}): the phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # -- the train_sharded phase ----------------------------------------------
 # A training state sharded over SH_RANKS torch.distributed ranks (ROADMAP
 # A2's training half). The machine has one card, so the ranks share cuda:0
@@ -5988,6 +6194,7 @@ def main() -> int:
     models_launches = phase_models(dev, card)
     ssm_launches = phase_ssm(dev, card)
     encdec_launches = phase_encdec(dev, card)
+    dryrun_launches = phase_dryrun(dev, card)
     phase_train_sharded(card)
     log(f"sharded path launches ({card}): {sharded_launches}")
     for k in kernels:
@@ -5995,7 +6202,7 @@ def main() -> int:
             launches, sharded_launches, tune_launches, cluster_launches,
             tenancy_launches, serving.launches, decode_launches,
             rag_launches, train_launches, models_launches, ssm_launches,
-            encdec_launches))
+            encdec_launches, dryrun_launches))
     kernels += decode_rows
     phase_host_us(dev)
     log(json.dumps({"kernels": kernels}))

@@ -16,6 +16,7 @@ import dataclasses
 from typing import Iterator
 
 import numpy as np
+import torch
 
 from repro_torch._device import resolve_device, upload
 from repro_torch.distributed.sharding import Mesh, NamedSharding, block_slices
@@ -59,6 +60,9 @@ def shard_batch(batch: dict, target) -> dict:
     if isinstance(target, (dict, NamedSharding)):
         def put(k, v):
             s = target[k] if isinstance(target, dict) else target
+            if isinstance(v, torch.Tensor):   # a tensor batch (meta: dry run)
+                return v[block_slices(tuple(v.shape), s)].to(
+                    s.mesh.device, copy=True)
             v = np.asarray(v)
             return upload(v[block_slices(v.shape, s)], s.mesh.device)
         return {k: put(k, v) for k, v in batch.items()}

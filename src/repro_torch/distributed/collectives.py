@@ -36,12 +36,13 @@ import queue
 import tempfile
 import time
 import traceback
-import warnings
 from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch.compat import _quiet
 
 TIMEOUT_S = 60.0
 
@@ -139,7 +140,9 @@ class RankMesh:
     def reset_comm(self) -> None:
         self.comm = {"calls": 0, "bytes_sent": 0, "seconds": 0.0}
 
-    def _run(self, fn, sent: int):
+    def _run(self, fn, sent: int, kind: str = "", result: int = 0):
+        """fn() timed and counted; `kind` and `result` (the collective's
+        name and result bytes) are for `DryMesh`, which runs nothing."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
@@ -150,14 +153,6 @@ class RankMesh:
         self.comm["bytes_sent"] += sent
         self.comm["seconds"] += time.perf_counter() - t0
         return out
-
-
-def _quiet(fn, *args, **kw):
-    """fn(...) without its FutureWarning: torch 2.13 renames the tensor
-    collectives (`*_single`), which the card's torch 2.11 lacks."""
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", FutureWarning)
-        return fn(*args, **kw)
 
 
 def _nbytes(x: torch.Tensor) -> int:
@@ -173,7 +168,7 @@ def all_reduce(x: torch.Tensor, mesh: RankMesh, axes, op: str = "sum"
     if g is None:
         return out
     mesh._run(lambda: dist.all_reduce(out, op=red, group=g),
-              2 * (k - 1) * _nbytes(out) // k)
+              2 * (k - 1) * _nbytes(out) // k, "all-reduce", _nbytes(out))
     return out
 
 
@@ -191,7 +186,7 @@ def reduce_scatter(x: torch.Tensor, mesh: RankMesh, axes, dim: int = 0
     out = torch.empty((src.shape[0] // k, *src.shape[1:]), dtype=x.dtype,
                       device=x.device)
     mesh._run(lambda: _quiet(dist.reduce_scatter_tensor, out, src, group=g),
-              (k - 1) * _nbytes(out))
+              (k - 1) * _nbytes(out), "reduce-scatter", _nbytes(out))
     return out.movedim(0, dim).contiguous()
 
 
@@ -206,8 +201,54 @@ def all_gather(x: torch.Tensor, mesh: RankMesh, axes, dim: int = 0
     out = torch.empty((src.shape[0] * k, *src.shape[1:]), dtype=x.dtype,
                       device=x.device)
     mesh._run(lambda: _quiet(dist.all_gather_into_tensor, out, src, group=g),
-              (k - 1) * _nbytes(src))
+              (k - 1) * _nbytes(src), "all-gather", _nbytes(out))
     return out.movedim(0, dim).contiguous()
+
+
+class DryMesh(RankMesh):
+    """One chosen rank of a mesh of `shape`, with no process group: the dry
+    run's stand-in for a RankMesh. `group` answers a token wherever the
+    axes hold more than one slot, and `_run` counts a collective (calls,
+    ring-model bytes sent, and per kind its count and result bytes in
+    `kinds`, and per (kind, result bytes) its count in `calls`) without
+    running it, so a collective's
+    output keeps the empty tensor it was given (meta in the dry run). A
+    step made for a RankMesh runs on it unchanged and makes every
+    collective it would make, at its real size."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 rank: int = 0, device="meta"):
+        self.axis_names = tuple(axis_names)
+        dims = tuple(int(n) for n in shape)
+        if len(dims) != len(self.axis_names) or min(dims, default=0) < 1:
+            raise ValueError(f"mesh shape {dims} for axes {self.axis_names}")
+        self.shape = dict(zip(self.axis_names, dims))
+        self.size = math.prod(dims)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} of a {dims} mesh")
+        self.rank = rank
+        self.coords = dict(zip(self.axis_names,
+                               (int(c) for c in np.unravel_index(rank, dims))))
+        self.device = torch.device(device)
+        self.reset_comm()
+
+    def group(self, axes):
+        axes = self.ordered(axes)
+        return ("dry", axes) if self.axes_size(axes) > 1 else None
+
+    def reset_comm(self) -> None:
+        self.comm = {"calls": 0, "bytes_sent": 0, "seconds": 0.0}
+        self.kinds: dict[str, dict[str, int]] = {}
+        self.calls: dict[tuple[str, int], int] = {}
+
+    def _run(self, fn, sent: int, kind: str = "", result: int = 0):
+        self.comm["calls"] += 1
+        self.comm["bytes_sent"] += sent
+        k = self.kinds.setdefault(kind, {"count": 0, "bytes": 0})
+        k["count"] += 1
+        k["bytes"] += result
+        self.calls[(kind, result)] = self.calls.get((kind, result), 0) + 1
+        return None
 
 
 def barrier(mesh: RankMesh) -> None:

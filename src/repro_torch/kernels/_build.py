@@ -10,6 +10,10 @@ ctypes (pointers and the stream as ``c_void_p``). `build` starts one
 
 A failed build or launch raises; nothing falls back to another path.
 `LAUNCHES` counts, per kernel, the launches that went through `launch`.
+A wrapper given meta tensors (the dry run's shapes-only step) builds and
+launches nothing: it returns its empty output through `abstract`, which
+tells the observers in `ABSTRACT` and leaves `LAUNCHES` as it is, or
+raises where nothing observes.
 """
 from __future__ import annotations
 
@@ -42,6 +46,9 @@ LAUNCHES: dict[str, int] = {"stage1_plane": 0, "stage1_rows": 0,
                             "stage0_sign_plane_mma": 0,
                             "stage1_gather_resident": 0,
                             "stage0_sign_gather_resident": 0}
+
+# Callables told the counter name of every launch asked for on meta.
+ABSTRACT: list[Callable[[str], None]] = []
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, Callable[..., int]] = {}
@@ -144,3 +151,15 @@ def launch(counter: str, fn: Callable[..., int], *args,
         raise RuntimeError(f"kernel {counter} failed to launch: CUDA error "
                            f"{err}")
     LAUNCHES[counter] += 1
+
+
+def abstract(counter: str, shape: tuple[int, ...]) -> torch.Tensor:
+    """A launch asked for on meta tensors: nothing is built or run; each
+    observer in `ABSTRACT` hears `counter`. Returns an empty int32 meta
+    tensor of `shape`. Raises where nothing observes (no kernel on meta
+    outside the dry run)."""
+    if not ABSTRACT:
+        raise ValueError("no kernel for tensors on meta")
+    for observe in ABSTRACT:
+        observe(counter)
+    return torch.empty(shape, dtype=torch.int32, device="meta")

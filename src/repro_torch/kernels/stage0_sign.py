@@ -181,6 +181,9 @@ def stage0_sign_gather(q_sign: torch.Tensor, sign_plane: torch.Tensor,
     if route not in _GATHER_ROUTES:
         raise ValueError(f"route must be one of {_GATHER_ROUTES}, got "
                          f"{route!r}")
+    if sign_plane.device.type == "meta":
+        return _build.abstract(counter, (q_sign.shape[0],
+                                         block_ids.shape[1] * block_rows))
     if _on_cpu(sign_plane):
         return ref.stage0_sign_gather_ref(q_sign, sign_plane, block_ids,
                                           block_rows, group=group)

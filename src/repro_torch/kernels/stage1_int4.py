@@ -168,6 +168,8 @@ def stage1_int4_rows(q_eo: torch.Tensor, msb_rows: torch.Tensor, *,
     """q_eo (B, 2, D//2) int8 per-lane [even; odd] nibble panels,
     msb_rows (B, W, D//2) uint8 -> (B, W) int32."""
     check_rows(rows)
+    if msb_rows.device.type == "meta":
+        return _build.abstract("stage1_rows", tuple(msb_rows.shape[:2]))
     if _on_cpu(msb_rows):
         return ref.stage1_rows_batched_ref(q_eo, msb_rows)
     dev = msb_rows.device

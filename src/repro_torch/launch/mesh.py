@@ -1,15 +1,18 @@
-"""Mesh builders for tests and examples (functions: importing this module
-touches no device).
+"""Mesh builders (functions: importing this module touches no device).
 
-Port of `repro.launch.mesh`'s `make_test_mesh`. The reference's
-production builders (`make_production_mesh`, `make_train_opt_mesh`) shape
-TPU pods of 256 and 512 chips; they have no counterpart here (ROADMAP A3f).
+Port of `repro.launch.mesh`. `make_test_mesh` deals shard slots over the
+visible devices (or ranks) for tests, examples and the launchers.
+`make_production_mesh` and `make_train_opt_mesh` keep the reference's
+production shapes, (16, 16) and (2, 16, 16), (64, 4) and (2, 64, 4), as
+abstract meshes of slots on `meta`: nothing runs on them. They exist for
+the dry run (`launch/dryrun.py`), which runs one chosen rank of such a
+mesh through `collectives.DryMesh` and reads the sharding rules off them.
 """
 from __future__ import annotations
 
-from repro_torch._device import visible_devices
+from repro_torch.compat import make_mesh
 from repro_torch.distributed.collectives import RankMesh, World
-from repro_torch.distributed.sharding import Mesh, device_array
+from repro_torch.distributed.sharding import Mesh
 
 
 def make_test_mesh(data: int = 1, model: int = 1, device=None,
@@ -25,6 +28,23 @@ def make_test_mesh(data: int = 1, model: int = 1, device=None,
     if world is not None:
         return world.join(range(world.size), (data, model),
                           ("data", "model"), "test_mesh")
-    devs = visible_devices(device)
-    slots = [devs[i % len(devs)] for i in range(data * model)]
-    return Mesh(device_array(slots, (data, model)), ("data", "model"))
+    return make_mesh((data, model), ("data", "model"), devices=device)
+
+
+def _production(shape: tuple[int, ...], multi_pod: bool) -> Mesh:
+    axes = ("data", "model")
+    if multi_pod:
+        shape, axes = (2, *shape), ("pod", *axes)
+    return make_mesh(shape, axes, devices="meta")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """Single pod: (data=16, model=16) = 256 slots. Multi-pod adds a
+    leading pod axis: (pod=2, data=16, model=16) = 512 slots."""
+    return _production((16, 16), multi_pod)
+
+
+def make_train_opt_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's rebalanced training mesh over the same slots: TP=4
+    instead of TP=16, (data=64, model=4) or (pod=2, data=64, model=4)."""
+    return _production((64, 4), multi_pod)

@@ -124,11 +124,25 @@ class ModelConfig:
 # Initializers (on the generator's device; the draws are torch's, not JAX's)
 # ---------------------------------------------------------------------------
 
+class MetaGenerator:
+    """Stands in for a `torch.Generator` when parameters are asked for on
+    the meta device (torch has no generator there): the initializers draw
+    nothing and return meta tensors of the leaves' shapes and dtypes, so an
+    abstract tree of any size costs no memory and one op per leaf."""
+    device = torch.device("meta")
+
+
+def _meta(gen) -> bool:
+    return gen.device.type == "meta"
+
+
 def dense_init(gen: torch.Generator, shape, dtype: torch.dtype, *,
                scale: float | None = None) -> torch.Tensor:
     """Truncated-normal (+-2 sigma) fan-in init."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
+    if _meta(gen):
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (x * std).to(dtype)
@@ -142,13 +156,15 @@ def stacked_init(gen: torch.Generator, lead: tuple[int, ...], shape,
     an f32 copy of itself."""
     out = torch.empty((*lead, *shape), dtype=dtype, device=gen.device)
     flat = out.view(-1, *shape)
-    for i in range(flat.shape[0]):
+    for i in range(0 if _meta(gen) else flat.shape[0]):
         flat[i] = dense_init(gen, shape, dtype, scale=scale)
     return out
 
 
 def embed_init(gen: torch.Generator, shape, dtype: torch.dtype
                ) -> torch.Tensor:
+    if _meta(gen):
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     return (torch.randn(shape, generator=gen, device=gen.device) * 0.02
             ).to(dtype)
 

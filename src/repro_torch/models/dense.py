@@ -124,8 +124,9 @@ def _step_slots(length: torch.Tensor, t: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The (rows, positions) a decode step writes: position length - 1 of
     each sequence, where `length` counts the new token. Raises when a
-    sequence's cache is full (the reference drops such a write)."""
-    if int(length.max()) > t:
+    sequence's cache is full (the reference drops such a write); a meta
+    `length` (the dry run's) has no values to check."""
+    if not length.is_meta and int(length.max()) > t:
         raise IndexError(f"decode past the cache: a sequence would reach "
                          f"length {int(length.max())} of {t} positions")
     return (torch.arange(length.shape[0], device=length.device),

@@ -8,6 +8,10 @@ embeddings (prefix_embeds); `moe` is `models/moe.py`, `ssm`
 `models/mamba2.py` and `hybrid` `models/zamba2.py`; `encdec`
 (`models/encdec.py`) carries its own batch layout (frames + tokens) and
 its cache's source length.
+
+`abstract_params(cfg)` is the counterpart of `jax.eval_shape(api.init,
+key)`: the parameter tree as meta tensors (names, shapes and dtypes of
+`api.init`'s, nothing allocated or drawn).
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.models import dense, encdec, mamba2, moe, zamba2
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import MetaGenerator, ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,3 +88,8 @@ def _encdec_api(cfg: ModelConfig) -> ModelApi:
 
     return ModelApi(cfg=cfg, init=init, loss_fn=loss, prefill=prefill,
                     decode_step=decode, init_cache=init_cache)
+
+
+def abstract_params(cfg: ModelConfig):
+    """`get_model(cfg).init`'s tree as meta tensors (`MetaGenerator`)."""
+    return get_model(cfg).init(MetaGenerator(), device="meta")
