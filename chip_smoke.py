@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's retrieval cascades, models (dense, vlm,
-MoE, SSM, hybrid, enc-dec), RAG pipeline and training on one GPU.
+MoE, SSM, hybrid, enc-dec), RAG pipeline, training and the examples on
+one GPU.
 
     python3 chip_smoke.py
 
@@ -271,14 +272,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
                dropped at step 3, the step-2 checkpoint restored onto (data
                1, model 2), each rank holding only its blocks; (d) the
                launcher at --smoke --data 2 --model 2. No kernel runs here.
+ 12f. examples — the five examples (`repro_torch.examples`, see EX_* below)
+               on cuda:0 and with device "cpu", the same weights in both:
+               quickstart, pod_retrieval, multi_user_agent and
+               serve_rag_agent must print the CPU's lines (wall times
+               masked; the agents' bf16 tokens equal but for near-tie
+               rows, counted), the train_100m smoke run's losses within
+               EX_LOSS_RTOL; #1 on the tensor cores, #3 by id and #6 on
+               TMA counted. Then train_100m --full (~126M parameters, B =
+               8 x 128): p50 step, tokens/s, first and last loss, the
+               saves; it fails unless the loss is finite and falls.
 
 Then the exact wrappers' and the block gather's host microseconds per
 call (`host_us_per_call`).
 The line before the last is a JSON object describing every kernel
 (launches: the sum over the main, sharded, autotune, cluster, tenancy,
-serving, decode, rag, train, models, ssm, encdec and dryrun paths (the
-encdec path has no kernel; the dryrun path's are #2 and #8 of its kvq
-decode step); `stage1_gather_resident` and `stage0_sign_gather_resident`
+serving, decode, rag, train, models, ssm, encdec, dryrun and examples
+paths (the encdec path has no kernel; the dryrun path's are #2 and #8 of
+its kvq decode step); `stage1_gather_resident` and `stage0_sign_gather_resident`
 are counted by the resident wrappers where they launch, which only the
 serving phase's cached segments call; the `@decode_hd64` rows are #2 and
 #8 at the decode phase's shapes, with the decode path's launches); the last
@@ -287,8 +298,10 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import cProfile
 import dataclasses
+import io
 import itertools
 import json
 import math
@@ -314,6 +327,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch import _tree, obs  # noqa: E402
 from repro_torch.checkpoint import (CheckpointManager,  # noqa: E402
                                     restore_checkpoint, save_checkpoint)
+from repro_torch.checkpoint import checkpoint as ckpt_mod  # noqa: E402
 from repro_torch.core import (bitplanar, clustering, energy,  # noqa: E402
                               engine, quantization)
 from repro_torch.core.engine import (ClusterPolicy,  # noqa: E402
@@ -330,6 +344,10 @@ from repro_torch.data import (LMTaskConfig, lm_batches,  # noqa: E402
 from repro_torch.distributed import collectives as coll  # noqa: E402
 from repro_torch.distributed import compression  # noqa: E402
 from repro_torch.distributed import sharding as sh  # noqa: E402
+from repro_torch.examples import (agent_models,  # noqa: E402
+                                  multi_user_agent, pod_retrieval,
+                                  quickstart, seeded_params, serve_rag_agent,
+                                  train_100m)
 from repro_torch.kernels import (  # noqa: E402
     _build, autotune, fused_topk, ops, ref, stage0_sign, stage1_gather,
     stage1_int4)
@@ -6115,6 +6133,270 @@ def phase_train_sharded(card: str) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
+# -- the examples phase ---------------------------------------------------
+# The five examples (`repro_torch.examples`) as a user runs them, each on
+# cuda:0 and again with device "cpu", each through the work function its
+# `main` calls (its result holds the retrievals, tokens and losses). The
+# weights come from CPU generators in both runs, so the card and the CPU
+# run the same model. Held: the logs line for line (wall times masked);
+# the retrievals of quickstart (the batched launch and the cascade) and
+# of pod (the single-host engine and the tournament) exactly, every
+# query's ids, exact INT8 scores and stage-1 shortlist; the greedy tokens of
+# the agents (bf16 compute) equal but for rows whose first differing token
+# sits where the CPU's top two logits lie within EX_TIE_REL of the larger,
+# exempted and counted; the smoke run's losses within EX_LOSS_RTOL (the
+# CPU tests' LOSS_RTOL) and the state it saved at its last step (params,
+# AdamW's moments and step) within EX_STATE_RTOL leaf by leaf (the CPU
+# tests' STATE_RTOL). Then `train_100m` at full width (the ~100M
+# model) on the card, EX_FULL_STEPS steps of B = 8 x 128, its checkpoints
+# in a directory under build/ that the phase removes.
+EX_TIE_REL = 2.0 ** -6
+EX_LOSS_RTOL = 2.0 ** -8
+EX_STATE_RTOL = 2.0 ** -2
+EX_SMOKE = dict(steps=7, batch=2, seq=32)
+EX_FULL_STEPS = 12
+EX_KERNELS = ("stage1_plane_mma", "stage2_by_id", "stage1_gather")
+
+
+def _ex_lines(fn, *args, **kw):
+    """(the log `fn` prints with wall times masked, its result)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return [re.sub(r"\d+\.\d+s\b", "<t>s", line)
+            for line in buf.getvalue().strip().splitlines()], out
+
+
+def _ex_counts(before: dict[str, int]) -> dict[str, int]:
+    now = ops.launch_counts()
+    return {k: n - before.get(k, 0) for k, n in now.items()
+            if n - before.get(k, 0)}
+
+
+def _ex_same(label, card_lines, cpu_lines) -> None:
+    if card_lines != cpu_lines:
+        raise AssertionError(f"examples {label}: the card's lines differ "
+                             f"from the CPU's:\n" + "\n".join(card_lines)
+                             + "\n--- cpu ---\n" + "\n".join(cpu_lines))
+
+
+def _ex_tie_rows(gen_api, params, prompts, got, want) -> int:
+    """Rows whose card tokens (got) differ from the CPU's (want): each
+    first difference must sit at a near tie of the CPU's logits (the
+    port's `forward` on the CPU); returns how many rows."""
+    rows = np.flatnonzero((got != want).any(axis=1))
+    for row in rows:
+        pos = int(np.argmax(got[row] != want[row]))
+        seq = torch.from_numpy(np.concatenate([prompts[row],
+                                               want[row, :pos]])[None])
+        logits = dense.forward(params, seq, gen_api.cfg)[0, -1].float()
+        top2 = torch.sort(logits).values[-2:].tolist()
+        if top2[1] - top2[0] > EX_TIE_REL * abs(top2[1]):
+            raise AssertionError(
+                f"examples: row {row} token {pos}: card {got[row, pos]}, "
+                f"cpu {want[row, pos]}, top-2 {top2}")
+    return len(rows)
+
+
+def _ex_agents(card, dev, cpu) -> None:
+    for name, mod, kw in (
+            ("multi_user_agent", multi_user_agent, {}),
+            ("serve_rag_agent", serve_rag_agent,
+             dict(requests=8, num_docs=256, max_new=16))):
+        before = ops.launch_counts()
+        card_lines, got = _ex_lines(mod.run, *agent_models(dev),
+                                    device=dev, **kw)
+        counts = _ex_counts(before)
+        models = agent_models(cpu)
+        cpu_lines, want = _ex_lines(mod.run, *models, device=cpu, **kw)
+        _ex_same(name, [x.split(" -> tokens")[0] for x in card_lines],
+                 [x.split(" -> tokens")[0] for x in cpu_lines])
+        if not np.array_equal(got["ids"], want["ids"]):
+            raise AssertionError(f"examples {name}: ids {got['ids']} "
+                                 f"against the CPU's {want['ids']}")
+        docs = np.asarray(want["pipe"].doc_tokens)
+        queries = docs[want["ids"][:, 0]] if name == "multi_user_agent" \
+            else docs[want["gold"]]
+        prompts = np.concatenate([docs[want["ids"]].reshape(
+            len(queries), -1), queries], axis=1)
+        ties = _ex_tie_rows(models[2], models[3], prompts, got["tokens"],
+                            want["tokens"])
+        log(f"examples {name} ({card}): {len(card_lines)} lines equal the "
+            f"CPU's, token rows at a near tie {ties} of "
+            f"{len(got['tokens'])}; launches {counts}")
+        for line in card_lines:
+            log(f"  {line}")
+
+
+def _ex_same_results(name, got, want) -> str:
+    """Each RetrievalResult of `got` (the card's) equal to `want`'s (the
+    CPU's) in ids, scores and shortlist, tolerance 0: integer kernels."""
+    shapes = []
+    for key, res in want.items():
+        for field in ("indices", "scores", "candidate_indices"):
+            a = getattr(got[key], field).cpu()
+            b = getattr(res, field)
+            if a.shape != b.shape or not torch.equal(a, b):
+                bad = (a != b).nonzero()[:4].tolist() \
+                    if a.shape == b.shape else "shape"
+                raise AssertionError(
+                    f"examples {name}: {key}.{field} {tuple(a.shape)} on "
+                    f"the card differs from the CPU's {tuple(b.shape)} "
+                    f"(first at {bad})")
+        shapes.append(f"{key} {tuple(res.indices.shape)} k, "
+                      f"{tuple(res.candidate_indices.shape)} shortlist")
+    return "; ".join(shapes)
+
+
+def _ex_retrieval(card, dev) -> None:
+    cpu = torch.device("cpu")
+    for name, run, args in (
+            ("quickstart", quickstart.run, (dev, cpu)),
+            ("pod_retrieval", pod_retrieval.run,
+             [make_test_mesh(data=4, model=2, device=str(d))
+              for d in (dev, cpu)])):
+        before = ops.launch_counts()
+        card_lines, got = _ex_lines(run, args[0])
+        counts = _ex_counts(before)
+        cpu_lines, want = _ex_lines(run, args[1])
+        _ex_same(name, card_lines, cpu_lines)
+        held = _ex_same_results(name, got, want)
+        log(f"examples {name} ({card}): {len(card_lines)} lines equal the "
+            f"CPU's; ids, scores and shortlists equal ({held}); launches "
+            f"{counts}")
+        for line in card_lines:
+            log(f"  {line}")
+
+
+def _ex_state_errors(got_dir, want_dir, like, step) -> dict[str, float]:
+    """{leaf name: error} of the training state saved at `step` under
+    got_dir (the card's run) against want_dir's (the CPU's), restored into
+    `like`, the state at step 0: an int leaf's error is 0 if equal else
+    inf, a float leaf's |got - want| / |want - start| (the bound is on the
+    training's updates, as in the CPU tests' STATE_RTOL)."""
+    got, _ = restore_checkpoint(got_dir, like, step=step)
+    want, _ = restore_checkpoint(want_dir, like, step=step)
+    errs = {}
+    for (name, a), b, b0 in zip(_tree.named_leaves(got), _tree.leaves(want),
+                                _tree.leaves(like), strict=True):
+        if not a.dtype.is_floating_point:
+            errs[name] = 0.0 if torch.equal(a, b) else float("inf")
+            continue
+        a, b, b0 = a.double(), b.double(), b0.double()
+        errs[name] = float(torch.linalg.norm(a - b)
+                           / torch.linalg.norm(b - b0))
+    return errs
+
+
+def _ex_train_smoke(card, dev, root) -> None:
+    cfg = train_100m.CFG_SMOKE
+    cpu = torch.device("cpu")
+    runs = []
+    for i, d in enumerate((dev, cpu)):
+        params = seeded_params(get_model(cfg).init, 0, d)
+        lines, out = _ex_lines(train_100m.run, cfg, params, device=d,
+                               ckpt_dir=os.path.join(root, f"smoke_{i}"),
+                               **EX_SMOKE)
+        runs.append((lines, out["losses"]))
+    (card_lines, got), (cpu_lines, want) = runs
+    err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    start = seeded_params(get_model(cfg).init, 0, cpu)
+    errs = _ex_state_errors(os.path.join(root, "smoke_0"),
+                            os.path.join(root, "smoke_1"),
+                            (start, adamw().init(start)), EX_SMOKE["steps"])
+    worst = max(errs, key=errs.get)
+    log(f"examples train_100m smoke ({card}): {EX_SMOKE}, losses on the "
+        f"card {[round(x, 4) for x in got]}, on the CPU "
+        f"{[round(x, 4) for x in want]}: max rel err {err:.3g} (limit "
+        f"{EX_LOSS_RTOL}); the step-{EX_SMOKE['steps']} state's "
+        f"{len(errs)} leaves within {errs[worst]:.3g} of the CPU's, "
+        f"relative to its move, at worst {worst} (median "
+        f"{statistics.median(errs.values()):.3g}; limit {EX_STATE_RTOL})")
+    if not len(got) == len(want) == EX_SMOKE["steps"] \
+            or err > EX_LOSS_RTOL or card_lines[0] != cpu_lines[0]:
+        raise AssertionError(f"examples train_100m smoke: {card_lines} "
+                             f"against {cpu_lines}")
+    if errs[worst] > EX_STATE_RTOL:
+        raise AssertionError(f"examples train_100m smoke: the state "
+                             f"differs from the CPU's: {errs}")
+
+
+def _ex_train_full(card, dev, root) -> None:
+    """train_100m --full on the card: the ~100M model, B = 8 x 128. A step
+    is the interval between two batch fetches (each step ends reading its
+    loss); the save is the blocking snapshot and the write behind it."""
+    cfg = train_100m.CFG_100M
+    fetched, snaps, writes = [], [], []
+
+    def timed(fn, store):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            store.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def fetch(batch, device):
+        fetched.append(time.perf_counter())
+        return shard_batch(batch, device)
+    params = seeded_params(get_model(cfg).init, 0, dev)
+    n = param_count(params)
+    with mock.patch.object(train_100m, "shard_batch", fetch), \
+            mock.patch.object(ckpt_mod, "_snapshot",
+                              timed(ckpt_mod._snapshot, snaps)), \
+            mock.patch.object(ckpt_mod, "_write",
+                              timed(ckpt_mod._write, writes)):
+        lines, out = _ex_lines(train_100m.run, cfg, params,
+                               steps=EX_FULL_STEPS, batch=8, seq=128,
+                               ckpt_dir=os.path.join(root, "full"),
+                               device=dev)
+    losses = out["losses"]
+    steps = np.diff(fetched)
+    p50 = float(np.median(steps))
+    state_gb = 3 * n * 4 / 1e9                 # params, mu, nu: float32
+    log(f"examples train_100m --full ({card}): {n / 1e6:.1f}M params "
+        f"({n}), {EX_FULL_STEPS} steps of B = 8 x 128: p50 step "
+        f"{p50 * 1e3:.1f} ms (min {steps.min() * 1e3:.1f}, max "
+        f"{steps.max() * 1e3:.1f}), {8 * 128 / p50:.0f} tokens/s; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; {len(writes)} saves of "
+        f"{state_gb:.2f} GB: snapshot {[round(s, 3) for s in snaps]} s, "
+        f"write {[round(s, 3) for s in writes]} s "
+        f"({state_gb / statistics.median(writes):.2f} GB/s at the median)")
+    for line in lines:
+        log(f"  {line}")
+    if len(losses) != EX_FULL_STEPS or not all(map(math.isfinite, losses)) \
+            or losses[-1] >= losses[0]:
+        raise AssertionError(f"examples train_100m --full: losses {losses}")
+
+
+def phase_examples(dev, card: str) -> dict[str, int]:
+    """The five examples on the card against the CPU, then train_100m
+    --full. Returns the launches of the examples' runs on the card."""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="examples_",
+                            dir=os.path.join(ROOT, "build"))
+    ops.reset_launch_counts()
+    try:
+        _ex_retrieval(card, dev)
+        _ex_agents(card, dev, torch.device("cpu"))
+        _ex_train_smoke(card, dev, root)
+        _ex_train_full(card, dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = ops.launch_counts()
+    missing = [k for k in EX_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"examples: no launch of {missing} "
+                             f"({launches})")
+    torch.cuda.empty_cache()
+    log(f"examples path launches ({card}): "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    log(f"examples ({card}): the phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # Host cost of the exact wrappers and of the block gather on each of its
 # kernels: HOST_CALLS back-to-back calls at the main path's shapes (B = 32,
 # C = 50, D = 512; one query for the single form; one lane and one block
@@ -6196,13 +6478,14 @@ def main() -> int:
     encdec_launches = phase_encdec(dev, card)
     dryrun_launches = phase_dryrun(dev, card)
     phase_train_sharded(card)
+    examples_launches = phase_examples(dev, card)
     log(f"sharded path launches ({card}): {sharded_launches}")
     for k in kernels:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in (
             launches, sharded_launches, tune_launches, cluster_launches,
             tenancy_launches, serving.launches, decode_launches,
             rag_launches, train_launches, models_launches, ssm_launches,
-            encdec_launches, dryrun_launches))
+            encdec_launches, dryrun_launches, examples_launches))
     kernels += decode_rows
     phase_host_us(dev)
     log(json.dumps({"kernels": kernels}))
