@@ -414,6 +414,7 @@ CLUSTER_KERNELS = ("stage1_plane_mma", "stage1_rows", "stage2_by_id",
 # int8 tensor-core rate. Used only for the least-time bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+L2_BYTES = 50 << 20         # a launch that moves less may beat the HBM rate
 
 
 def log(msg: str) -> None:
@@ -653,18 +654,38 @@ def _check_kernel(name, kernel, plain, args, shapes_note) -> int:
     return err
 
 
-def _library_ms(name: str, fn, want: torch.Tensor) -> float:
-    """Time one PyTorch library call that computes a kernel's function on
-    pre-unpacked operands, after checking that it gives the kernel's
-    answer (float32 products are exact here: every partial sum is an
-    integer below 2^24, and TF32 is off by default)."""
+def _check_library(name: str, fn, want: torch.Tensor) -> None:
+    """Raises unless one PyTorch library call that computes a kernel's
+    function on pre-unpacked operands gives the kernel's answer (float32
+    products are exact here: every partial sum is an integer below 2^24,
+    and TF32 is off by default)."""
     got = fn()
     got = (got if got.dtype == torch.int32 else got.to(torch.int32)).reshape(
         want.shape)
     if not torch.equal(got, want):
         raise AssertionError(f"{name}: the library yardstick disagrees with "
                              "the kernel")
+
+
+def _library_ms(name: str, fn, want: torch.Tensor) -> float:
+    """Time one PyTorch library call (`_check_library` first)."""
+    _check_library(name, fn, want)
     return time_ms(fn)
+
+
+def _turns_note(fn, lib, rounds: int = 3) -> str:
+    """`time_ms` of a kernel's call and of its library yardstick taken in
+    turns (kernel, library, kernel, ...), `rounds` each, as a note for a
+    log line: the median of each. A second view beside the single
+    `time_ms` of each, which the kernels line keeps: the host's noise,
+    which both event times carry, falls on both alike."""
+    mine, theirs = [], []
+    for _ in range(rounds):
+        mine.append(time_ms(fn))
+        theirs.append(time_ms(lib))
+    return (f"; in turns (median of {rounds} each): kernel_ms "
+            f"{statistics.median(mine):.4f} library_ms "
+            f"{statistics.median(theirs):.4f}")
 
 
 def phase_kernels(db, q_codes, dev) -> list[dict]:
@@ -715,7 +736,7 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
             ("stage1_plane_mma", plane_mma,
              "src/repro_torch/csrc/stage1_mma.cu"),
             ("stage1_plane", plane_dp4a,
-             "src/repro_torch/csrc/stage1_int4.cu")):
+             "src/repro_torch/csrc/stage1_plane.cuh")):
         rows.append(dict(
             name=name, route="cuda", source=source,
             replaces="src/repro/kernels/stage1_int4.py:79",
@@ -760,7 +781,7 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
                            2 * B * w * D)
     rows.append(dict(
         name="stage1_rows", route="cuda",
-        source="src/repro_torch/csrc/stage1_int4.cu",
+        source="src/repro_torch/csrc/stage1_rows.cu",
         replaces="src/repro/kernels/stage1_int4.py:120",
         max_abs_err=err,
         ms=time_ms(lambda: stage1_int4_rows(q_eo, win)),
@@ -865,18 +886,22 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
         raise AssertionError(f"the block gather at D={D} BR={BLOCK_ROWS} "
                              "does not take the TMA kernel")
 
+    # Each route on the (B, D) nibble query, as `ops.stage1_scores_gather`
+    # hands it over: the TMA kernel reads it in place, the dp4a route packs
+    # it into [even; odd] panels first.
     def gather_on(route):
-        def run(qe, plane, block_ids, br=BLOCK_ROWS):
-            return stage1_gather._gather(qe, plane, block_ids, br,
+        def run(qm, plane, block_ids, br=BLOCK_ROWS):
+            return stage1_gather._gather(qm, plane, block_ids, br,
                                          route=route)
         return run
 
     gather_tma, gather_dp4a = gather_on("tma"), gather_on("dp4a")
 
-    def gather_plain(qe, plane, block_ids, br=BLOCK_ROWS):
-        return ref.stage1_gather_batched_ref(qe, plane, block_ids, br)
+    def gather_plain(qm, plane, block_ids, br=BLOCK_ROWS):
+        return ref.stage1_gather_batched_ref(ops.pack_queries_even_odd(qm),
+                                             plane, block_ids, br)
 
-    gather_args = (q_eo, db.msb_plane, ids)
+    gather_args = (q_msb, db.msb_plane, ids)
     errs = {name: _check_kernel(name, fn, gather_plain, gather_args,
                                 f"B={B} J={j} BR={BLOCK_ROWS} D={D}")
             for name, fn in (("stage1_gather", gather_tma),
@@ -890,9 +915,9 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
                            (3, 1000, 800, 64)):
         p = torch.randint(0, 256, (nn, dd // 2), generator=gen, device=dev,
                           dtype=torch.uint8)
-        qe = torch.randint(-8, 8, (bb, 2, dd // 2), generator=gen,
-                           device=dev, dtype=torch.int8)
-        args = (qe, p, _ragged_ids(gen, dev, bb, nn, br))
+        qm = torch.randint(-8, 8, (bb, dd), generator=gen, device=dev,
+                           dtype=torch.int8)
+        args = (qm, p, _ragged_ids(gen, dev, bb, nn, br))
         takes = stage1_gather._tma_takes(nn, dd // 2, br)
         routes = (("stage1_gather", gather_tma),) if takes else ()
         for name, fn in routes + (("stage1_gather_dp4a", gather_dp4a),):
@@ -915,7 +940,7 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
             ("stage1_gather", gather_tma,
              "src/repro_torch/csrc/stage1_gather.cu"),
             ("stage1_gather_dp4a", gather_dp4a,
-             "src/repro_torch/csrc/stage1_int4.cu")):
+             "src/repro_torch/csrc/stage1_rows.cu")):
         rows.append(dict(
             name=name, route="cuda", source=source,
             replaces="src/repro/kernels/stage1_gather.py:65",
@@ -1223,7 +1248,7 @@ def phase_new_kernels(db, q_codes, gold, dev) -> list[dict]:
     t_bound, by = bound_ms(2 * d2 + N * d2 + N * 4, 2 * N * D)
     rows.append(dict(
         name="stage1_single", route="cuda",
-        source="src/repro_torch/csrc/stage1_int4.cu",
+        source="src/repro_torch/csrc/stage1_plane.cuh",
         replaces="src/repro/kernels/stage1_int4.py:144", max_abs_err=err,
         ms=time_ms(lambda: stage1_int4_single(q1, db.msb_plane)),
         plain_ms=time_ms(lambda: ref.stage1_scores_ref(q1, db.msb_plane)),
@@ -2761,10 +2786,7 @@ def _resident_kernels(dev, cache, arena) -> list[dict]:
     br = T_BLOCK_ROWS
     nb, s = N // br, cache.num_slab_blocks
     j = T_NPROBE * 4
-    ids = torch.cat([
-        torch.randint(0, nb, (B, j // 2), generator=gen, device=dev),
-        torch.randint(nb, nb + s, (B, j - j // 2), generator=gen,
-                      device=dev)], dim=1).to(torch.int32)
+    ids = _resident_ids(gen, dev, nb, s)
     plane_ids = torch.randint(0, nb, (B, j), generator=gen, device=dev,
                               dtype=torch.int32)
     q = torch.randint(-128, 128, (B, D), generator=gen, device=dev,
@@ -2820,6 +2842,10 @@ def _resident_kernels(dev, cache, arena) -> list[dict]:
         operand = operand.float()
         lib_ms = _library_ms(name, lambda: torch.bmm(operand, col),
                              fn(*args))
+        turns = ""
+        if name == "stage1_gather_resident":
+            turns = _turns_note(lambda: fn(*args),
+                                lambda: torch.bmm(operand, col))
         del gathered, operand
         ms = time_ms(lambda: fn(*args))
         dev_us = kernel_device_us(lambda: fn(*args), symbol)
@@ -2837,7 +2863,12 @@ def _resident_kernels(dev, cache, arena) -> list[dict]:
             f"plane alone: kernel_ms {arena_ms:.4f} device_only_us "
             f"{arena_us}; plain_ms {rows[-1]['plain_ms']:.4f} bound_us "
             f"{t_bound * 1e3:.2f} ({by}) library_ms {lib_ms:.4f} (one "
-            "torch.bmm on the pre-gathered, pre-unpacked operand); bit-exact")
+            f"torch.bmm on the pre-gathered, pre-unpacked operand){turns}; "
+            "bit-exact")
+        if name == "stage1_gather_resident":
+            split = _resident_split(q_msb, comb, ids, br)
+            log(f"kernel {name} host split (us per call, {HOST_CALLS} "
+                f"calls, median of 3 rounds): {split}")
         if name == "stage0_sign_gather_resident":
             # The bulk-copy kernel at the same shape (the route keeps the
             # popcount one here: its launcher answers 1), held to it.
@@ -3226,7 +3257,7 @@ def _decode_kernel_rows(caches, qs, length, counts) -> list[dict]:
              (bitplanar.unpack_nibble_plane_signed(cent_rows).float(),
               q_nib.float()[:, :, None]),
              2 * lanes * d2 + lanes * p * d2 + lanes * p * 4, lanes * p * d,
-             "src/repro_torch/csrc/stage1_int4.cu",
+             "src/repro_torch/csrc/stage1_rows.cu",
              "src/repro/kernels/stage1_int4.py:120", "rows_kernel"),
             ("stage0_sign_gather@decode_hd64", sign,
              lambda a, b_, c: ref.stage0_sign_gather_ref(a, b_, c, DEC_PR,
@@ -3497,13 +3528,22 @@ def _add_counts(total: dict[str, int], counts: dict[str, int]) -> None:
         total[key] = total.get(key, 0) + n
 
 
-def _plane_at_shard(card, q_msb, plane) -> None:
-    """#1 at one shard's shape: CUDA-event time, device-only time, bound and
-    `torch._int_mm` (its column count padded to a multiple of 8, as
-    `_int_mm` requires) on the same operands."""
+def _plane_at_shard(card, q_msb, plane) -> dict:
+    """#1 at one shard's shape: CUDA-event time, device-only time (per
+    call from one trace, and per launch over three), bound and
+    `torch._int_mm` (its column count padded to a
+    multiple of 8, as `_int_mm` requires) on the same operands, the
+    kernel's result equal to the plain version's. Returns the kernels-line
+    row (launches left to the caller)."""
     n, d2 = plane.shape
     panel = ops.pack_query_panel(q_msb)
-    want = stage1_int4_batched(panel, plane)
+
+    def fn():
+        return stage1_int4_batched(panel, plane)
+    want = fn()
+    err = _check_kernel("stage1_plane_mma@shard", lambda: want,
+                        lambda: ref.stage1_scores_batched_ref(panel, plane),
+                        (), f"n_local={n}")
     n8 = -(-n // 8) * 8
     unpacked = torch.zeros((n8, D), dtype=torch.int8, device=plane.device)
     unpacked[:n] = bitplanar.unpack_nibble_plane_signed(plane)
@@ -3513,15 +3553,26 @@ def _plane_at_shard(card, q_msb, plane) -> None:
         raise AssertionError("sharded: torch._int_mm disagrees with #1 at "
                              f"n_local={n}")
     lib_ms = time_ms(lambda: torch._int_mm(q8, unpacked_t))
+    turns = _turns_note(fn, lambda: torch._int_mm(q8, unpacked_t))
     del unpacked, unpacked_t
-    t_bound, by = bound_ms(2 * B * d2 + n * d2 + B * n * 4, 2 * B * n * D)
-    dev_us = kernel_device_us(lambda: stage1_int4_batched(panel, plane),
-                              "::plane_mma_kernel<")
+    moved = 2 * B * d2 + n * d2 + B * n * 4
+    t_bound, by = bound_ms(moved, 2 * B * n * D)
+    dev_us = kernel_device_us(fn, "::plane_mma_kernel<")
+    floor = t_bound * 1e3 if moved > L2_BYTES else 0.0
+    per_launch = f"{_device_us(fn, '::plane_mma_kernel<', floor):.3f}"
+    ms = time_ms(fn)
     log(f"kernel stage1_plane_mma@shard n_local={n} ({card}): kernel_ms "
-        f"{time_ms(lambda: stage1_int4_batched(panel, plane)):.4f} "
-        f"device_only_us {dev_us} bound_us {t_bound * 1e3:.2f} ({by})"
-        f"{_share(t_bound, dev_us)} library_ms {lib_ms:.4f} (torch._int_mm "
-        f"on the pre-unpacked int8 rows, {n8} columns)")
+        f"{ms:.4f} device_only_us {dev_us}, per launch {per_launch} "
+        f"bound_us {t_bound * 1e3:.2f} ({by}){_share(t_bound, per_launch)} "
+        f"library_ms {lib_ms:.4f} (torch._int_mm on the pre-unpacked int8 "
+        f"rows, {n8} columns){turns}")
+    return dict(name="stage1_plane_mma@shard", route="cuda",
+                source="src/repro_torch/csrc/stage1_mma.cu",
+                replaces="src/repro/kernels/stage1_int4.py:79",
+                max_abs_err=err, ms=ms,
+                plain_ms=time_ms(lambda: ref.stage1_scores_batched_ref(
+                    panel, plane)),
+                bound_ms=t_bound, bound_by=by, library_ms=lib_ms)
 
 
 def _pad_rows_on_card(dev) -> None:
@@ -3542,11 +3593,13 @@ def _pad_rows_on_card(dev) -> None:
                              f"scores {res.scores.tolist()}")
 
 
-def phase_sharded_index(db, q_codes, gold, dev, card) -> dict[str, int]:
+def phase_sharded_index(db, q_codes, gold, dev,
+                        card) -> tuple[dict[str, int], dict]:
     """(a): B = 32 batches through `ShardedIndex.retrieve_fn` at 1, 3 and 8
     shard slots on this card, cosine and MIPS, with the launch counts set
     to 0 just before each metric's batches and read just after. Returns
-    the path's launches."""
+    the path's launches and the kernels-line row of #1 at the 8-slot
+    shard's rows (its launches those of the 8-slot batches)."""
     total: dict[str, int] = {}
     q_all = q_codes[:B * BATCHES]
     for shape in SHARD_SHAPES:
@@ -3571,6 +3624,9 @@ def phase_sharded_index(db, q_codes, gold, dev, card) -> dict[str, int]:
                 lat.append(time.perf_counter() - t0)
             counts = ops.launch_counts()
             _add_counts(total, counts)
+            shard_launches = (counts["stage1_plane_mma"] if metric == "cosine"
+                              else shard_launches
+                              + counts["stage1_plane_mma"])
             label = f"sharded index S={s} {metric}"
             for key in SHARD_KERNELS:
                 if counts[key] != s * BATCHES:
@@ -3617,14 +3673,21 @@ def phase_sharded_index(db, q_codes, gold, dev, card) -> dict[str, int]:
                 f"launches per batch, #1 and #3-by-id {s} each; equal to "
                 f"the plain backend and to the unsharded engine bit for bit")
         if s > 1:
-            _plane_at_shard(card, quantization.msb_nibble(q_all[:B]),
-                            index.db[0].msb_plane)
+            q_msb = quantization.msb_nibble(q_all[:B])
+            row = _plane_at_shard(card, q_msb, index.db[0].msb_plane)
+            row["launches"] = shard_launches
+        if s == max(a * b for a, b in SHARD_SHAPES):
+            split = _plane_split(ops.pack_query_panel(q_msb),
+                                 index.db[0].msb_plane[:1024])
+            log(f"kernel stage1_plane_mma host split ({card}, 1024 rows, us "
+                f"per call): {split}")
+            _plane_sweep(card, q_msb)
         del index
         torch.cuda.empty_cache()
     _pad_rows_on_card(dev)
     log(f"sharded index: the all-negative six-document MIPS corpus padded "
         f"to 4 slots returns no pad id and only negative scores")
-    return total
+    return total, row
 
 
 def _srv_cfg(metric, spread, shards, capacity, backend="cuda"):
@@ -6397,12 +6460,208 @@ def phase_examples(dev, card: str) -> dict[str, int]:
     return launches
 
 
-# Host cost of the exact wrappers and of the block gather on each of its
-# kernels: HOST_CALLS back-to-back calls at the main path's shapes (B = 32,
-# C = 50, D = 512; one query for the single form; one lane and one block
-# for the gathers), one synchronize at the end, microseconds per call;
-# beside them torch.bmm and torch.mv, the yardsticks' calls. The median of
-# three rounds.
+# The two routes redesigned together: #6's resident gather (every cached
+# serving turn) and #1 at one shard's rows. Their host time per call split
+# into its parts, and #1's device-only time over a sweep of plane sizes at
+# each tile. `tools/route_turns.py` measures both routes' whole calls with
+# these helpers in a parent's tree and in this one, in turns.
+SWEEP_ROWS = (1 << 15, 1 << 16, 131072, 1 << 18, 349526, 1 << 20)
+
+
+def _host_us(fn, calls: int = HOST_CALLS, rounds: int = 3) -> float:
+    """Host microseconds per call of `fn`: `calls` back-to-back calls and
+    one synchronize, the median of `rounds` rounds."""
+    times = []
+    for _ in range(rounds):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    return round(statistics.median(times), 2)
+
+
+def _device_us(fn, symbol: str, bound_us: float = 0.0, reps: int = 20,
+               rounds: int = 3, spare: int = 3) -> float:
+    """Device-only microseconds per launch of the kernels whose name holds
+    `symbol`: their time over their count in a torch.profiler trace of
+    `reps` calls (a record the trace drops then costs a sample, not a
+    zero), the median of `rounds` traces. A trace that holds no such
+    kernel, or reads below `bound_us`, the least time the card could take
+    for the launch (its bytes at the HBM rate, where they outgrow the L2),
+    lost or misplaced records: it is logged, set aside and taken again,
+    up to `spare` times; then this raises."""
+    fn()
+    torch.cuda.synchronize()
+    per_launch, misread = [], []
+    while len(per_launch) < rounds:
+        total = count = 0
+        for e in _traced(fn, reps).key_averages():
+            if symbol in e.key and e.self_device_time_total > 0:
+                total += e.self_device_time_total
+                count += e.count
+        if count and total / count >= bound_us:
+            per_launch.append(total / count)
+            continue
+        misread.append(f"{total / count:.2f} us per launch" if count
+                       else "no launch")
+        log(f"device time of {symbol}: a trace of {reps} calls read "
+            f"{misread[-1]} against a bound of {bound_us:.2f} us; taken "
+            "again")
+        if len(misread) > spare:
+            raise AssertionError(f"{symbol}: {len(misread)} traces misread "
+                                 f"({', '.join(misread)})")
+    return round(statistics.median(per_launch), 3)
+
+
+def _resident_ids(gen, dev, nb: int, s: int) -> torch.Tensor:
+    """(B, T_NPROBE * 4) int32 block ids of a resident launch: the first
+    half in the arena region [0, nb), the rest in the slab's [nb, nb + s)."""
+    j = T_NPROBE * 4
+    return torch.cat([
+        torch.randint(0, nb, (B, j // 2), generator=gen, device=dev),
+        torch.randint(nb, nb + s, (B, j - j // 2), generator=gen,
+                      device=dev)], dim=1).to(torch.int32)
+
+
+def _resident_split(q_msb, plane, ids, br) -> dict[str, float]:
+    """Host microseconds per call of each part of the resident gather's
+    call, and of the whole call: the query pack the call no longer runs
+    (`pack_queries_even_odd`), the Python checks, the route query as the
+    wrapper asks it and as one ctypes call, the output's allocation
+    (torch.empty, and new_empty, as the wrapper makes it), and the ctypes
+    launch alone (a known route, an output made once)."""
+    dev = plane.device
+    b, (n, d2), j = q_msb.shape[0], plane.shape, ids.shape[1]
+    out = torch.empty((b, j * br), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    takes = _build.function("stage1_gather", "stage1_gather_tma_takes",
+                            stage1_gather._TAKES_ARGS)
+    launch = _build.function("stage1_gather", "stage1_gather_tma_launch",
+                             stage1_gather._GATHER_ARGS)
+
+    def checks():
+        ops._check_resident(plane, br, "plane")
+        stage1_gather._checked(q_msb, plane, ids, br)
+    pieces = {
+        "pack": lambda: ops.pack_queries_even_odd(q_msb),
+        "checks": checks,
+        "route query": lambda: stage1_gather._tma_takes(n, d2, br),
+        "route query, one ctypes call": lambda: takes(n, d2, br),
+        "torch.empty": lambda: torch.empty((b, j * br), dtype=torch.int32,
+                                           device=dev),
+        "new_empty": lambda: plane.new_empty((b, j * br), dtype=torch.int32),
+        "launch alone": lambda: launch(
+            q_msb.data_ptr(), plane.data_ptr(), ids.data_ptr(),
+            out.data_ptr(), b, n, j, br, d2, stream),
+        "whole call": lambda: ops.stage1_scores_gather_resident(
+            q_msb, plane, ids, block_rows=br)}
+    return {name: _host_us(fn) for name, fn in pieces.items()}
+
+
+def _plane_split(panel, plane, rows: int = DEFAULT_ROWS) -> dict[str, float]:
+    """Host microseconds per call of each part of a #1 call on the
+    tensor-core kernel, on a plane small enough (1024 rows) that the card
+    never holds the host back: the Python checks, the lane-tile query as
+    the wrapper asks it and as one ctypes call, the output's allocation
+    (torch.empty and new_empty, as in `_resident_split`), the ctypes
+    launch alone, the whole call."""
+    dev = plane.device
+    b, (n, d2) = panel.shape[1], plane.shape
+    out = torch.empty((b, n), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lanes = _build.function("stage1_mma", "stage1_mma_lanes",
+                            stage1_int4._LANES_ARGS)
+    fn = _build.function("stage1_mma", "stage1_mma_launch",
+                         stage1_int4._PLANE_ARGS)
+
+    def checks():
+        stage1_int4.check_rows(rows)
+        stage1_int4._on_cpu(plane)
+        stage1_int4._check("q_panel", panel, torch.int8, 3, dev)
+        stage1_int4._check("msb_plane", plane, torch.uint8, 2, dev)
+        if panel.shape != (2, b, d2) or b > stage1_int4.MAX_GRID_Y:
+            raise ValueError("q_panel does not match the plane")
+    pieces = {
+        "checks": checks,
+        "lanes query": lambda: stage1_int4._mma_lanes(b, d2, rows),
+        "lanes query, one ctypes call": lambda: lanes(b, d2, rows),
+        "torch.empty": lambda: torch.empty((b, n), dtype=torch.int32,
+                                           device=dev),
+        "new_empty": lambda: plane.new_empty((b, n), dtype=torch.int32),
+        "launch alone": lambda: fn(panel.data_ptr(), plane.data_ptr(),
+                                   out.data_ptr(), b, n, d2, rows, stream),
+        "whole call": lambda: stage1_int4_batched(panel, plane, rows=rows)}
+    return {name: _host_us(f) for name, f in pieces.items()}
+
+
+def _fit(points) -> tuple[float, float]:
+    """Least-squares fixed cost (us) and slope (us per row) of (rows, us)
+    points."""
+    slope, fixed = np.polyfit([p[0] for p in points],
+                              [p[1] for p in points], 1)
+    return float(fixed), float(slope)
+
+
+def _plane_sweep(card, q_msb, rounds: int = 1) -> None:
+    """#1's device-only time on the tensor-core kernel at B = 32 over
+    SWEEP_ROWS plane rows, at every tile the kernel takes (the autotuner
+    picks among them), each result equal to the plain version; per tile
+    the fit of a fixed cost plus a slope, the slope against the byte rate
+    (the plane row read and B int32 scores written). Each time is the
+    median of `rounds` traces, none below the launch's bound."""
+    dev = q_msb.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    d2 = D // 2
+    panel = ops.pack_query_panel(q_msb)
+    plane = torch.randint(0, 256, (max(SWEEP_ROWS), d2), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    want = {n: ref.stage1_scores_batched_ref(panel, plane[:n])
+            for n in SWEEP_ROWS}
+    byte_ns = (d2 + B * 4) / HBM_BYTES_PER_S * 1e9
+    best = {}
+    for rows in stage1_int4.ROWS_CHOICES:
+        if not stage1_int4._mma_lanes(B, d2, rows):
+            continue
+        points = []
+        for n in SWEEP_ROWS:
+            p = plane[:n]
+
+            def fn(p=p, rows=rows):
+                return stage1_int4._plane(panel, p, rows, route="mma")
+            if not torch.equal(fn(), want[n]):
+                raise AssertionError(f"#1 at {n} rows, tile {rows}: differs "
+                                     "from its plain version")
+            moved = 2 * B * d2 + n * d2 + B * n * 4
+            bound_us = (bound_ms(moved, 2 * B * n * D)[0] * 1e3
+                        if moved > L2_BYTES else 0.0)
+            us = _device_us(fn, "::plane_mma_kernel<", bound_us,
+                            rounds=rounds)
+            points.append((n, us))
+            if us < best.get(n, (None, math.inf))[1]:
+                best[n] = (rows, us)
+        fixed, slope = _fit(points)
+        log(f"kernel stage1_plane_mma sweep tile={rows} ({card}): "
+            f"device_only_us " + ", ".join(f"{n}: {us:.2f}"
+                                          for n, us in points)
+            + f"; fit {fixed:.2f} us + {slope * 1e3:.5f} ns/row (the byte "
+            f"rate's {byte_ns:.5f} ns/row: {byte_ns / slope / 10:.0f} %; "
+            "bit-exact)")
+    log(f"kernel stage1_plane_mma sweep ({card}): fastest tile per rows "
+        + ", ".join(f"{n}: {r} ({us:.2f} us)" for n, (r, us) in best.items()))
+    del plane, want
+    torch.cuda.empty_cache()
+
+
+# Host cost of the exact wrappers, of the block gather on each of its
+# kernels and in the form the engine calls it (the raw nibble query), and
+# of #1 on a 1024-row plane: HOST_CALLS back-to-back calls at the main
+# path's shapes (B = 32, C = 50, D = 512; one query for the single form;
+# one lane and one block for the gathers), one synchronize at the end,
+# microseconds per call; beside them torch.bmm and torch.mv, the
+# yardsticks' calls. The median of three rounds.
 def phase_host_us(dev) -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
 
@@ -6421,6 +6680,8 @@ def phase_host_us(dev) -> None:
     # The gathers at one lane and one block: the wrapper's host cost, not
     # the kernel's device time, sets the time per call.
     q_g, ids_g = q8[:1].contiguous(), ids[:1, :1] // BLOCK_ROWS
+    qm_g = rand((1, D), -8, 8, torch.int8)
+    panel = rand((2, B, d2), -8, 8, torch.int8)
     fns = {"stage2_int8_batched": lambda: stage2_int8_batched(q8, mr, lr),
            "stage2_int8_single": lambda: stage2_int8_single(q1, mr1, lr1),
            "stage2_int8_by_id": lambda: stage2_int8_by_id(q8, msb, lsb, ids),
@@ -6428,20 +6689,13 @@ def phase_host_us(dev) -> None:
                q_g, msb, ids_g, block_rows=BLOCK_ROWS),
            "stage1_gather_dp4a": lambda: stage1_gather._gather(
                q_g, msb, ids_g, BLOCK_ROWS, route="dp4a"),
+           "ops.stage1_scores_gather": lambda: ops.stage1_scores_gather(
+               qm_g, msb, ids_g, block_rows=BLOCK_ROWS),
+           "stage1_int4_batched (1024 rows)": lambda: stage1_int4_batched(
+               panel, msb[:1024]),
            "torch.bmm": lambda: torch.bmm(docs, col),
            "torch.mv": lambda: torch.mv(docs1, col1)}
-    us = {}
-    for name, fn in fns.items():
-        rounds = []
-        for _ in range(3):
-            fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(HOST_CALLS):
-                fn()
-            torch.cuda.synchronize()
-            rounds.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
-        us[name] = round(statistics.median(rounds), 2)
+    us = {name: _host_us(fn) for name, fn in fns.items()}
     log(f"host_us_per_call ({HOST_CALLS} calls, median of 3 rounds): {us}")
     del msb, lsb, mr, lr, docs
     torch.cuda.empty_cache()
@@ -6457,7 +6711,8 @@ def main() -> int:
     qdb, db, q_codes, gold = phase_corpus(dev)
     kernels = phase_kernels(db, q_codes, dev)
     launches = phase_main(qdb, db, q_codes, gold, dev)
-    sharded_launches = phase_sharded_index(db, q_codes, gold, dev, card)
+    sharded_launches, shard_row = phase_sharded_index(db, q_codes, gold, dev,
+                                                      card)
     _add_counts(sharded_launches, phase_sharded_serving(qdb, dev, card))
     new_kernels = phase_new_kernels(db, q_codes, gold, dev)
     tune_launches = phase_autotune(qdb, db, q_codes, gold, dev)
@@ -6486,7 +6741,7 @@ def main() -> int:
             tenancy_launches, serving.launches, decode_launches,
             rag_launches, train_launches, models_launches, ssm_launches,
             encdec_launches, dryrun_launches, examples_launches))
-    kernels += decode_rows
+    kernels += decode_rows + [shard_row]
     phase_host_us(dev)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

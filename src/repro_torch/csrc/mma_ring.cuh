@@ -26,15 +26,25 @@
 //   warps of a chunk consume its boxes (`consume_tile`), which cycle
 //   through the chunk's own share of the ring (so no warp skips a phase
 //   of a barrier it waits on). The query panels of the block's lane tile
-//   sit in shared memory (`fill_panels`), each lane's row padded by 32
+//   sit in shared memory (`fill_panels`; the plane scan stages them its
+//   own way, stage1_mma.cu), each lane's row padded by 32
 //   bytes and its words ordered so that one 8-byte load gives a thread
 //   both B-fragment registers of a k-step, without bank conflicts.
 // - A persistent grid: blocks walk row tiles (grid.x) for one lane tile
 //   (grid.y), so the producer loads the next tile's boxes while the
 //   consumers finish the current tile's epilogue (`grid_blocks`).
+// - The launch path asks the CUDA runtime as little as it can:
+//   `grid_blocks` opts a kernel into its shared memory and reads its
+//   occupancy once per (kernel, device, threads, bytes), and
+//   `cached_plane_map` keeps the plane maps of recent (plane, N, D2, box
+//   rows) launches, so a launch over a plane it has seen encodes nothing.
+//   Both tables sit behind one mutex: launchers may run on several host
+//   threads.
 #pragma once
 
 #include <cuda.h>
+
+#include <mutex>
 
 #include "nibble.cuh"
 
@@ -353,6 +363,50 @@ cudaError_t encode_plane_map(CUtensorMap* map, const void* plane,
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The lock of the launch path's two tables (plane maps, occupancy).
+std::mutex& launch_tables_lock() {
+  static std::mutex lock;
+  return lock;
+}
+
+constexpr int kPlaneMaps = 64;   // plane maps kept, the oldest replaced
+
+// encode_plane_map's map for (plane, N, D2, rows), from a table of the
+// last kPlaneMaps distinct (plane address, N, D2, box rows): a map is a
+// pure function of those four, so an address reused for another shape
+// misses, and one reused for the same shape gets a map equal to a new one.
+cudaError_t cached_plane_map(CUtensorMap* map, const void* plane,
+                             long long N, int D2, int rows) {
+  struct Entry {
+    CUtensorMap map;
+    const void* plane;
+    long long N;
+    int D2, box;
+  };
+  static Entry table[kPlaneMaps];
+  static int used = 0, next = 0;
+  const int box = rows < kBoxRows ? rows : kBoxRows;
+  std::lock_guard<std::mutex> hold(launch_tables_lock());
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = table[i];
+    if (e.plane == plane && e.N == N && e.D2 == D2 && e.box == box) {
+      *map = e.map;
+      return cudaSuccess;
+    }
+  }
+  const cudaError_t err = encode_plane_map(map, plane, N, D2, rows);
+  if (err != cudaSuccess) return err;
+  Entry& e = table[next];
+  e.map = *map;
+  e.plane = plane;
+  e.N = N;
+  e.D2 = D2;
+  e.box = box;
+  next = (next + 1) % kPlaneMaps;
+  if (used < kPlaneMaps) ++used;
+  return cudaSuccess;
+}
+
 int sm_count() {
   static int count[64] = {0};
   int dev = 0;
@@ -363,19 +417,62 @@ int sm_count() {
   return count[dev];
 }
 
+constexpr int kOccupancies = 256;   // (kernel, device, threads, bytes) kept
+
+// Blocks of `kernel` (`threads` threads, `smem` bytes of dynamic shared
+// memory) that fit on one SM of the current device, asked of the runtime
+// once per (kernel, device, threads, bytes). The kernel is opted into the
+// largest `smem` it was ever asked at on that device, so an answer kept
+// for a larger launch stays true after a smaller one. 0 with an error
+// when the runtime refuses.
+template <typename Kernel>
+cudaError_t blocks_per_sm(Kernel kernel, int threads, size_t smem,
+                          int* per_sm) {
+  struct Entry {
+    const void* kernel;
+    int dev, threads;
+    size_t smem;
+    int per_sm;
+  };
+  static Entry table[kOccupancies];
+  static int used = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> hold(launch_tables_lock());
+  size_t opted = 0;
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = table[i];
+    if (e.kernel != key || e.dev != dev) continue;
+    if (e.threads == threads && e.smem == smem) {
+      *per_sm = e.per_sm;
+      return cudaSuccess;
+    }
+    if (e.smem > opted) opted = e.smem;
+  }
+  if (smem > opted) {
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  if (used < kOccupancies) table[used++] = Entry{key, dev, threads, smem,
+                                                 *per_sm};
+  return cudaSuccess;
+}
+
 // The persistent grid.x of `kernel` (one block of `threads` threads and
 // `smem` bytes) over `tiles` row tiles for `lane_tiles` lane tiles: as
 // many blocks as fit on the card, shared among the lane tiles, at most one
-// per tile. Opts the kernel into its shared memory first.
+// per tile.
 template <typename Kernel>
 cudaError_t grid_blocks(Kernel kernel, int threads, size_t smem,
                         long long tiles, unsigned lane_tiles,
                         unsigned* blocks_out) {
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, smem);
+  const cudaError_t err = blocks_per_sm(kernel, threads, smem, &per_sm);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   long long blocks = static_cast<long long>(sm_count()) * per_sm / lane_tiles;

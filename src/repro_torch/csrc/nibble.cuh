@@ -1,8 +1,9 @@
 // Device helpers shared by the port's kernels: the MSB-nibble (INT4)
-// plane, rows and gather scans (stage1_int4.cu) and fused score + per-block
-// top-k (fused_topk.cu) use all of them; the exact rescore (stage2_int8.cu)
-// and the sign scans (stage0_sign.cu) read rows that are not whole words
-// with byte_word and opt into shared memory with allow_smem.
+// plane, rows and gather scans (stage1_plane.cuh, stage1_rows.cu) and the
+// fused score + per-block top-k (fused_topk.cu) use all of them; the exact
+// rescore (stage2_int8.cu) and the sign scans (stage0_sign.cu) read rows
+// that are not whole words with byte_word and opt into shared memory with
+// allow_smem.
 //
 // Packed rows hold D/2 bytes (byte j: dim 2j in the low nibble, dim 2j+1
 // in the high nibble, raw two's complement). No nibble is unpacked: for a

@@ -7,7 +7,7 @@
 // wrapper in `kernels/stage1_gather.py` asks it): D/2 % 16 == 0 (the
 // 16-byte row stride TMA needs), block_rows a multiple of 64, and
 // 0 < N < 2^31 (the tensor map's int32 row coordinate). Every other shape
-// stays on the dp4a `gather_kernel` of stage1_int4.cu. Both give the same
+// stays on the dp4a `gather_kernel` of stage1_rows.cu. Both give the same
 // bits:
 //
 //   out[b, r] = sum_j q_even[b, j] * sext4(lo(plane[row, j]))
@@ -39,16 +39,29 @@
 //   on a barrier skips a phase. The producer warp reads the block ids of
 //   its next 32 items with one load per lane while it requests the
 //   current 32 items' boxes, so no id load stands between two boxes.
+//   Where a block's items all fit in the ring's first fill (8 items at D
+//   = 512, as in a resident launch), one lane per box requests them all
+//   at once; elsewhere lane 0 requests every box in turn.
 // - A consumer warp takes every kGatherWarps-th item of its block: per
 //   box, two mma.sync m16n8k32 s8 per 32-byte chunk on the nibble masks of
 //   each fragment register (mma_ring.cuh's `mma_kstep`), against its
-//   lane's [even; odd] panel words read from device memory (L1) straight
+//   lane's even and odd query words, read from device memory (L1) straight
 //   into B-fragment registers. Every column of the n-tile holds the same
 //   lane, so no panel sits in shared memory: any B and any D/2 % 16 == 0
 //   take the kernel, and the first box is requested before any panel is
 //   read. The sums leave
 //   as `acc >> 4`, each of a quad's four threads storing one m-tile's
 //   rows: two stores of four full 32-byte sectors per item.
+// - The kernel reads the (B, D) int8 nibble query as the engine holds
+//   it: the 8 bytes of dims 8w ... 8w + 7 are one 8-byte load, and
+//   `__byte_perm` turns them into even word w (selector 0x6420) and odd
+//   word w (0x7531). So no kernel packs the query per call; a call was
+//   61-115 us of host work around a 6.9 us kernel, and the pack was one
+//   launch of it (PERF.md).
+// - The launcher takes its plane map from mma_ring.cuh's table of recent
+//   maps and its grid from the kept occupancy: the serving cache's
+//   combined plane is one allocation for the cache's life, so its map is
+//   encoded once.
 //
 // Limits: B and J reach the launcher as int (B, J < 2^31); the tensor
 // map's row coordinate is an int32 (N < 2^31).
@@ -85,11 +98,11 @@ __device__ __forceinline__ void decode_item(long long item, int B,
   j = static_cast<int>(rest / B);
 }
 
-// q_eo (B, 2, D2) int8; the map covers the (N, D2) uint8 plane in boxes of
-// 64 rows; ids (B, J) int32; out (B, J * BR) int32.
+// q (B, 2 * D2) int8 nibble query; the map covers the (N, D2) uint8 plane
+// in boxes of 64 rows; ids (B, J) int32; out (B, J * BR) int32.
 __global__ void __launch_bounds__((kGatherWarps + 1) * 32, 1)
 gather_tma_kernel(const __grid_constant__ CUtensorMap plane_map,
-                  const int8_t* __restrict__ q_eo,
+                  const int8_t* __restrict__ q,
                   const int32_t* __restrict__ ids,
                   int32_t* __restrict__ out, int B, long long N, int J,
                   int BR, int D2) {
@@ -103,6 +116,23 @@ gather_tma_kernel(const __grid_constant__ CUtensorMap plane_map,
   const int pieces = BR / kItemRows;
   const long long items = static_cast<long long>(B) * J * pieces;
 
+  // The producer's box row of its local item i (item blockIdx.x + i *
+  // gridDim.x, for consumer warp i % kGatherWarps), clamped to [-64, N]:
+  // a box there reads no plane row. Lane l of the producer warp holds
+  // the row of local item i0 + l; the first 32 rows are read before the
+  // barriers are ready.
+  auto box_row = [&](long long i) {
+    const long long item = blockIdx.x + i * gridDim.x;
+    if (item >= items) return 0;
+    int b, j, h;
+    decode_item(item, B, pieces, b, j, h);
+    const long long row =
+        static_cast<long long>(ids[static_cast<size_t>(b) * J + j]) * BR
+        + static_cast<long long>(h) * kItemRows;
+    return static_cast<int>(row < -kItemRows ? -kItemRows
+                            : (row > N ? N : row));
+  };
+  int y = warp == kGatherWarps ? box_row(lane) : 0;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kGatherStages; ++s) {
       mbar_init(&full[s], 1);
@@ -113,39 +143,42 @@ gather_tma_kernel(const __grid_constant__ CUtensorMap plane_map,
   __syncthreads();
 
   if (warp == kGatherWarps) {
-    // The producer: local item i is item blockIdx.x + i * gridDim.x, for
-    // consumer warp i % kGatherWarps. Lane l holds the box row of local
-    // item i0 + l (clamped to [-64, N]: a box there reads no plane row).
-    auto box_row = [&](long long i) {
-      const long long item = blockIdx.x + i * gridDim.x;
-      if (item >= items) return 0;
-      int b, j, h;
-      decode_item(item, B, pieces, b, j, h);
-      const long long row =
-          static_cast<long long>(ids[static_cast<size_t>(b) * J + j]) * BR
-          + static_cast<long long>(h) * kItemRows;
-      return static_cast<int>(row < -kItemRows ? -kItemRows
-                              : (row > N ? N : row));
+    // Box s of local item i: once its stage is released, expect its bytes
+    // and request it (`row`: the item's box row).
+    auto request = [&](long long i, int s, int row) {
+      const int w = static_cast<int>(i % kGatherWarps);
+      const long long k = i / kGatherWarps * slabs + s;
+      const int st = w * kRingPerWarp + static_cast<int>(k % kRingPerWarp);
+      mbar_wait(&empty[st],
+                static_cast<uint32_t>((k / kRingPerWarp) & 1) ^ 1u);
+      mbar_expect_tx(&full[st], kBoxBytes);
+      tma_load(ring + st * kBoxBytes, &plane_map, &full[st], s * kSlab, row);
     };
-    int y = box_row(lane);
+    // Lane 0 requests each item's boxes in turn, as stages are released.
+    // Where the ring's first fill (at most kRingPerWarp boxes of each
+    // consumer warp, so none waits on a barrier) holds every item of the
+    // block, as in a resident launch, lane t requests box t % slabs of
+    // item t / slabs instead, all at once. Where more items follow, the
+    // parallel fill measured slower (PERF.md, the cluster shape), and
+    // lane 0 requests them all.
+    const int fill = slabs > kRingPerWarp
+                     ? 0 : kGatherWarps * (kRingPerWarp / slabs);
+    const int first = (items - blockIdx.x + gridDim.x - 1) / gridDim.x <= fill
+                      ? fill : 0;
+    const int mine = lane / slabs;
+    const int row0 = __shfl_sync(0xFFFFFFFFu, y, mine);
+    if (mine < first && blockIdx.x + mine * gridDim.x < items) {
+      request(mine, lane % slabs, row0);
+    }
+    __syncwarp();
     for (long long i0 = 0;; i0 += 32) {
       const int y_next = box_row(i0 + 32 + lane);
-      for (int l = 0; l < 32; ++l) {
+      for (int l = i0 == 0 ? first : 0; l < 32; ++l) {
         const long long i = i0 + l;
         if (blockIdx.x + i * gridDim.x >= items) return;
         const int row = __shfl_sync(0xFFFFFFFFu, y, l);
         if (lane == 0) {
-          const int w = static_cast<int>(i % kGatherWarps);
-          for (int s = 0; s < slabs; ++s) {
-            const long long k = i / kGatherWarps * slabs + s;
-            const int st = w * kRingPerWarp
-                           + static_cast<int>(k % kRingPerWarp);
-            mbar_wait(&empty[st],
-                      static_cast<uint32_t>((k / kRingPerWarp) & 1) ^ 1u);
-            mbar_expect_tx(&full[st], kBoxBytes);
-            tma_load(ring + st * kBoxBytes, &plane_map, &full[st],
-                     s * kSlab, row);
-          }
+          for (int s = 0; s < slabs; ++s) request(i, s, row);
         }
         __syncwarp();
       }
@@ -156,15 +189,15 @@ gather_tma_kernel(const __grid_constant__ CUtensorMap plane_map,
   const int words = D2 / 4;
   const int g = lane >> 2, t = lane & 3;
   const uint32_t ring_s = smem_u32(ring);
-  const uint32_t* q_w = reinterpret_cast<const uint32_t*>(q_eo);
   const long long R = static_cast<long long>(J) * BR;
   for (long long i = warp;; i += kGatherWarps) {
     const long long item = blockIdx.x + i * gridDim.x;
     if (item >= items) break;
     int b, j, h;
     decode_item(item, B, pieces, b, j, h);
-    const uint32_t* qe = q_w + static_cast<size_t>(b) * 2 * words;
-    const uint32_t* qo = qe + words;
+    // Lane b's query row as 8-byte units, unit w holding dims 8w ... 8w + 7.
+    const uint2* q2 = reinterpret_cast<const uint2*>(q)
+                      + static_cast<size_t>(b) * words;
     int acc[4][1][4];
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt)
@@ -177,10 +210,13 @@ gather_tma_kernel(const __grid_constant__ CUtensorMap plane_map,
 #pragma unroll
       for (int kk = 0; kk < kSlab / 32; ++kk) {
         const int w0 = s * (kSlab / 4) + kk * 8 + t;   // words w0, w0 + 4
-        be[kk][0].x = w0 < words ? __ldg(qe + w0) : 0u;
-        be[kk][0].y = w0 + 4 < words ? __ldg(qe + w0 + 4) : 0u;
-        bo[kk][0].x = w0 < words ? __ldg(qo + w0) : 0u;
-        bo[kk][0].y = w0 + 4 < words ? __ldg(qo + w0 + 4) : 0u;
+        const uint2 zero = make_uint2(0u, 0u);
+        const uint2 x = w0 < words ? __ldg(q2 + w0) : zero;
+        const uint2 y = w0 + 4 < words ? __ldg(q2 + w0 + 4) : zero;
+        be[kk][0].x = __byte_perm(x.x, x.y, 0x6420);
+        bo[kk][0].x = __byte_perm(x.x, x.y, 0x7531);
+        be[kk][0].y = __byte_perm(y.x, y.y, 0x6420);
+        bo[kk][0].y = __byte_perm(y.x, y.y, 0x7531);
       }
       const int ksteps = min(kSlab, D2 - s * kSlab + 31) / 32;
       mbar_wait(&full[st], static_cast<uint32_t>((k / kRingPerWarp) & 1));
@@ -214,15 +250,15 @@ gather_tma_kernel(const __grid_constant__ CUtensorMap plane_map,
 }  // namespace
 
 // 1 when stage1_gather_tma_launch takes this shape, else 0 (the dp4a
-// gather_kernel of stage1_int4.cu takes it).
+// gather_kernel of stage1_rows.cu takes it).
 extern "C" int stage1_gather_tma_takes(long long N, int D2, int BR) {
   return tma_takes(N, D2, BR) ? 1 : 0;
 }
 
-// q_eo (B, 2, D2) int8, plane (N, D2) uint8 (16-byte aligned), block_ids
-// (B, J) int32, out (B, J * BR) int32. Refuses (cudaErrorInvalidValue) a
-// shape stage1_gather_tma_takes gives 0.
-extern "C" int stage1_gather_tma_launch(const void* q_eo, const void* plane,
+// q (B, 2 * D2) int8 MSB nibbles and plane (N, D2) uint8, both 16-byte
+// aligned; block_ids (B, J) int32, out (B, J * BR) int32. Refuses
+// (cudaErrorInvalidValue) a shape stage1_gather_tma_takes gives 0.
+extern "C" int stage1_gather_tma_launch(const void* q, const void* plane,
                                         const void* block_ids, void* out,
                                         int B, long long N, int J, int BR,
                                         int D2, void* stream) {
@@ -230,7 +266,7 @@ extern "C" int stage1_gather_tma_launch(const void* q_eo, const void* plane,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap map;
-  cudaError_t err = encode_plane_map(&map, plane, N, D2, kItemRows);
+  cudaError_t err = cached_plane_map(&map, plane, N, D2, kItemRows);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto kernel = gather_tma_kernel;
   const int threads = (kGatherWarps + 1) * 32;
@@ -240,7 +276,7 @@ extern "C" int stage1_gather_tma_launch(const void* q_eo, const void* plane,
   err = grid_blocks(kernel, threads, smem, items, 1, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      map, static_cast<const int8_t*>(q_eo),
+      map, static_cast<const int8_t*>(q),
       static_cast<const int32_t*>(block_ids), static_cast<int32_t*>(out), B, N,
       J, BR, D2);
   return static_cast<int>(cudaGetLastError());

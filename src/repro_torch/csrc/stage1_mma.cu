@@ -8,7 +8,7 @@
 // row stride TMA needs), at least kMinBatch = 2 query lanes, and a lane
 // tile whose query panels fit in shared memory beside the ring. Every
 // other shape, and the single-query form, stays on the dp4a `plane_kernel`
-// of stage1_int4.cu. Both return the same bits.
+// of stage1_plane.cuh. Both return the same bits.
 //
 //   out[b, n] = sum_j q_even[b, j] * sext4(lo(plane[n, j]))
 //             + q_odd[b, j]  * sext4(hi(plane[n, j]))
@@ -24,6 +24,13 @@
 // boxes per block, one producer warp and ROWS / 64 consumer warps, two
 // mma.sync m16n8k32 s8 per 32-byte chunk on the nibble masks of each
 // fragment register, a persistent grid over row tiles), and:
+// - Prologue: the producer asks for its first boxes as soon as the
+//   barriers are set, while the consumer warps stage the panels
+//   (`stage_panels`: 16-byte loads, several in flight per thread). Staged
+//   word by word before the first box was asked for (mma_ring.cuh's
+//   `fill_panels`, 16-48 load-and-store rounds a thread), they cost a
+//   fixed 8-21 us a launch: half of the time at one shard's 131,072 rows
+//   (PERF.md, #1 at shard rows).
 // - Epilogue: each warp stages an (8 lanes x 64 rows) int32 tile in shared
 //   memory and writes each lane's run of rows with 16-byte stores (scalar
 //   stores when N % 4 != 0 or at the ragged row edge; lanes past B are not
@@ -56,6 +63,55 @@ int mma_lanes(int B, long long d2, int rows) {
   });
 }
 
+// The lane tile's [even; odd] panels in fill_panels' layout (mma_ring.cuh:
+// [half][lane][pitch] bytes, each 32-byte chunk's words ordered 0 4 1 5 2
+// 6 3 7, zeros past D2 and past B), staged by the `consumers` consumer
+// warps alone while the producer warp already streams the first boxes.
+// Each thread moves whole 32-byte chunks, two 16-byte loads and two
+// 16-byte stores each, with kStageBatch chunks' loads in flight before
+// their stores, so the panels cost a few load latencies and not one per
+// word. Ends with a barrier of the consumer warps only (named barrier 1).
+constexpr int kStageBatch = 4;
+
+template <int LANES>
+__device__ __forceinline__ void stage_panels(uint8_t* panel, int pitch,
+                                             const int8_t* __restrict__ q,
+                                             int B, int D2, int b0,
+                                             int consumers) {
+  const int row_chunks = pitch / 32;
+  const int total = 2 * LANES * row_chunks;
+  const int threads = consumers * 32;
+  for (int base = threadIdx.x; base < total;
+       base += kStageBatch * threads) {
+    uint4 lo[kStageBatch], hi[kStageBatch];
+#pragma unroll
+    for (int k = 0; k < kStageBatch; ++k) {
+      const int c = base + k * threads;
+      lo[k] = hi[k] = make_uint4(0u, 0u, 0u, 0u);
+      const int row = c / row_chunks;            // half * LANES + lane
+      const int byte = (c - row * row_chunks) * 32;
+      const int l = row % LANES;
+      if (c < total && b0 + l < B) {
+        const uint4* src = reinterpret_cast<const uint4*>(
+            q + (static_cast<size_t>(row / LANES) * B + b0 + l) * D2 + byte);
+        if (byte < D2) lo[k] = __ldg(src);
+        if (byte + 16 < D2) hi[k] = __ldg(src + 1);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kStageBatch; ++k) {
+      const int c = base + k * threads;
+      if (c < total) {
+        uint4* dst = reinterpret_cast<uint4*>(panel + static_cast<size_t>(c)
+                                              * 32);
+        dst[0] = make_uint4(lo[k].x, hi[k].x, lo[k].y, hi[k].y);
+        dst[1] = make_uint4(lo[k].z, hi[k].z, lo[k].w, hi[k].w);
+      }
+    }
+  }
+  asm volatile("bar.sync 1, %0;\n" :: "r"(threads) : "memory");
+}
+
 // q_panel (2, B, D2) int8; the map covers the (N, D2) uint8 plane; out
 // (B, N) int32. blockIdx.y is the lane tile (NT * 8 lanes).
 template <int ROWS, int NT>
@@ -78,14 +134,21 @@ plane_mma_kernel(const __grid_constant__ CUtensorMap plane_map,
   const int b0 = blockIdx.y * kLanes;
   const long long tiles = (N + ROWS - 1) / ROWS;
 
-  fill_panels<kLanes>(panel, pitch, full, empty, R::kBoxWarps, q_panel, B, 1,
-                      B, D2, b0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], R::kBoxWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
   if (warp == R::kConsumers) {
     if (lane == 0) {
       produce_tiles<ROWS>(ring, full, empty, &plane_map, N, slabs);
     }
     return;
   }
+  stage_panels<kLanes>(panel, pitch, q_panel, B, D2, b0, R::kConsumers);
 
   const int chunk = warp / R::kBoxWarps;
   const int row0 = (warp % R::kBoxWarps) * kWarpRows;   // within the box
@@ -205,7 +268,7 @@ extern "C" int stage1_mma_launch(const void* q_panel, const void* plane,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap map;
-  cudaError_t err = encode_plane_map(&map, plane, N, D2, rows);
+  cudaError_t err = cached_plane_map(&map, plane, N, D2, rows);
   if (err != cudaSuccess) return static_cast<int>(err);
   const MmaArgs a{&map, static_cast<const int8_t*>(q_panel),
                   static_cast<int32_t*>(out), B, N, D2,

@@ -30,9 +30,9 @@ import torch
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[1] / "build"
-SOURCES = ("stage1_int4", "stage1_mma", "stage1_gather", "stage2_int8",
-           "stage0_sign", "stage0_sign_mma", "stage0_sign_gather",
-           "fused_topk")
+SOURCES = ("stage1_int4", "stage1_int4_tall", "stage1_rows", "stage1_mma",
+           "stage1_gather", "stage2_int8", "stage0_sign", "stage0_sign_mma",
+           "stage0_sign_gather", "fused_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -26,8 +26,9 @@ from repro_torch.kernels.ref import INT32_MIN
 from repro_torch.kernels.stage0_sign import (stage0_sign_batched,
                                              stage0_sign_gather)
 from repro_torch.kernels.stage1_gather import (DEFAULT_BLOCK_ROWS,
-                                               stage1_int4_gather)
+                                               stage1_nibble_gather)
 from repro_torch.kernels.stage1_int4 import (DEFAULT_ROWS,
+                                             pack_queries_even_odd,
                                              stage1_int4_batched,
                                              stage1_int4_rows,
                                              stage1_int4_single)
@@ -50,12 +51,6 @@ def pack_query_even_odd(q: torch.Tensor) -> torch.Tensor:
 def pack_query_panel(q: torch.Tensor) -> torch.Tensor:
     """(B, D) int8 -> (2, B, D//2) int8 batch panels [even; odd dims]."""
     return torch.stack([q[:, 0::2], q[:, 1::2]]).to(torch.int8).contiguous()
-
-
-def pack_queries_even_odd(q: torch.Tensor) -> torch.Tensor:
-    """(B, D) int8 -> (B, 2, D//2) int8 per-lane [even; odd] panels."""
-    return torch.stack([q[:, 0::2], q[:, 1::2]], dim=1).to(
-        torch.int8).contiguous()
 
 
 def pack_query_signs(q: torch.Tensor) -> torch.Tensor:
@@ -118,8 +113,8 @@ def stage1_scores_gather(q_msb: torch.Tensor, msb_plane: torch.Tensor,
     blocks -> (B, J * block_rows) int32. Only the selected blocks are read;
     rows past N score 0, and a ragged plane is not padded (the reference
     pads it every launch)."""
-    return stage1_int4_gather(pack_queries_even_odd(q_msb), msb_plane,
-                              block_ids, block_rows=block_rows)
+    return stage1_nibble_gather(q_msb, msb_plane, block_ids,
+                                block_rows=block_rows)
 
 
 def stage1_scores_gather_resident(q_msb: torch.Tensor, plane: torch.Tensor,
@@ -130,9 +125,9 @@ def stage1_scores_gather_resident(q_msb: torch.Tensor, plane: torch.Tensor,
     blocks and whose every id addresses a live block; raises on a partial
     plane. Its TMA launches count under `stage1_gather_resident`."""
     _check_resident(plane, block_rows, "plane")
-    return stage1_int4_gather(pack_queries_even_odd(q_msb), plane,
-                              block_ids, block_rows=block_rows,
-                              counter="stage1_gather_resident")
+    return stage1_nibble_gather(q_msb, plane, block_ids,
+                                block_rows=block_rows,
+                                counter="stage1_gather_resident")
 
 
 def stage0_sign_scores_batched(q_sign: torch.Tensor, sign_plane: torch.Tensor,

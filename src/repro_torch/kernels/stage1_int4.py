@@ -1,5 +1,7 @@
 """Stage-1 MSB-nibble (INT4) scoring: wrappers of the CUDA kernels in
-`csrc/stage1_int4.cu` and `csrc/stage1_mma.cu`.
+`csrc/stage1_plane.cuh` (built as `stage1_int4.cu` for 128- and 256-row
+tiles and `stage1_int4_tall.cu` for 512 and 1024), `csrc/stage1_rows.cu`
+and `csrc/stage1_mma.cu`.
 
 `stage1_int4_batched` replaces the reference's
 `stage1_int4_batched_pallas` (one scan of a shared plane for the whole
@@ -45,19 +47,41 @@ SMEM_BYTES = 232448
 MAX_GRID_Y = 65535
 ROWS_CHOICES = (128, 256, 512, 1024)
 DEFAULT_ROWS = 256
+# The dp4a plane scan's library per tile: two sources, built in parallel.
+_PLANE_LIBRARY = {128: "stage1_int4", 256: "stage1_int4",
+                  512: "stage1_int4_tall", 1024: "stage1_int4_tall"}
 _ROUTES = ("auto", "mma", "dp4a")
+
+
+# The tensor-core launcher's lane tile per (B, D/2, rows), asked once.
+_LANES: dict[tuple[int, int, int], int] = {}
 
 
 def _mma_lanes(b: int, d2: int, rows: int) -> int:
     """The tensor-core plane kernel's lane tile for B lanes of D/2 bytes at
-    `rows` rows per tile, as its launcher decides it; 0 when that kernel
-    does not take the shape."""
-    return _build.function("stage1_mma", "stage1_mma_lanes",
-                           _LANES_ARGS)(b, d2, rows)
+    `rows` rows per tile, as its launcher decides it (once per shape); 0
+    when that kernel does not take the shape."""
+    key = (b, d2, rows)
+    lanes = _LANES.get(key)
+    if lanes is None:
+        lanes = _LANES[key] = _build.function(
+            "stage1_mma", "stage1_mma_lanes", _LANES_ARGS)(b, d2, rows)
+    return lanes
+
+
+def pack_queries_even_odd(q: torch.Tensor) -> torch.Tensor:
+    """(B, D) int8 -> (B, 2, D//2) int8 per-lane [even; odd] panels."""
+    return torch.stack([q[:, 0::2], q[:, 1::2]], dim=1).to(
+        torch.int8).contiguous()
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
-           device: torch.device) -> None:
+           device: torch.device, aligned: bool = True) -> None:
+    """Raises unless `t` is a contiguous `ndim`-D `dtype` tensor on
+    `device`, 16-byte aligned where `aligned`."""
+    if (t.dtype == dtype and t.ndim == ndim and t.device == device
+            and t.is_contiguous() and not (aligned and t.data_ptr() % 16)):
+        return              # the launch path's common case, in one test
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -67,11 +91,13 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
+    if aligned and t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
+    if t.is_cuda:
+        return False
     if t.device.type == "cpu":
         return True
     if t.device.type != "cuda":
@@ -121,7 +147,7 @@ def _plane(q_panel: torch.Tensor, msb_plane: torch.Tensor, rows: int, *,
                              f"B = {b}, D/2 = {d2} at {rows} rows per tile "
                              "(stage1_mma_lanes in csrc/stage1_mma.cu)")
         route = "mma" if takes else "dp4a"
-    out = torch.empty((b, n), dtype=torch.int32, device=dev)
+    out = msb_plane.new_empty((b, n), dtype=torch.int32)
     if not out.numel():
         return out
     if route == "mma":
@@ -131,7 +157,7 @@ def _plane(q_panel: torch.Tensor, msb_plane: torch.Tensor, rows: int, *,
         fn = _build.function("stage1_mma", "stage1_mma_launch", _PLANE_ARGS)
         counter = "stage1_plane_mma"
     else:
-        fn = _build.function("stage1_int4", "stage1_plane_launch",
+        fn = _build.function(_PLANE_LIBRARY[rows], "stage1_plane_launch",
                              _PLANE_ARGS)
     _build.launch(counter, fn, q_panel.data_ptr(), msb_plane.data_ptr(),
                   out.data_ptr(), b, n, d2, rows, device=dev)
@@ -183,7 +209,7 @@ def stage1_int4_rows(q_eo: torch.Tensor, msb_rows: torch.Tensor, *,
         raise ValueError(f"batch {b} exceeds the kernel's grid")
     out = torch.empty((b, w), dtype=torch.int32, device=dev)
     if out.numel():
-        fn = _build.function("stage1_int4", "stage1_rows_launch", _ROWS_ARGS)
+        fn = _build.function("stage1_rows", "stage1_rows_launch", _ROWS_ARGS)
         _build.launch("stage1_rows", fn, q_eo.data_ptr(),
                       msb_rows.data_ptr(), out.data_ptr(), b, w, d2, rows,
                       device=dev)

@@ -431,6 +431,116 @@ def test_gather_tma_kernel_at_the_cluster_shape(cuda_device):
                                                  route="tma"), want)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 256, 512, 768, 1024, 1280, 2048])
+@pytest.mark.parametrize("b,j", [(3, 150), (32, 64)])
+def test_gather_tma_first_fill_at_every_slab_count(cuda_device, d, b, j):
+    """The TMA gather's producer requests the ring's first fill one lane
+    per box (16 items of one 128-byte slab, 8 of two, 4 of three or four)
+    and every later item from one lane; rows of five or more slabs skip
+    the first fill. At 1 to 8 slabs a row, with few items a block (3
+    lanes x 150 blocks: the first fill and a few more) and many (32 x
+    64), the kernel equals the plain version on the (B, D) query and on
+    the [even; odd] panels, which the wrapper interleaves back."""
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(d + b),
+                 cuda_device)
+    n = 64 * 300 + 40
+    plane = rand((n, d // 2), 0, 256, torch.uint8)
+    q = rand((b, d), -128, 128, torch.int8) >> 4
+    ids = rand((b, j), 0, -(-n // 64), torch.int32)
+    q_eo = ops.pack_queries_even_odd(q)
+    want = ref.stage1_gather_batched_ref(q_eo, plane, ids, 64)
+    assert torch.equal(stage1_gather._gather(q, plane, ids, 64,
+                                             route="tma"), want)
+    assert torch.equal(stage1_gather._gather(q_eo, plane, ids, 64,
+                                             route="tma"), want)
+
+
+@pytest.mark.gpu
+def test_resident_gather_at_the_serving_shape(cuda_device):
+    """#6 at the warm serving run's resident shape: a combined plane of
+    2^20 arena rows and 2010 slab blocks of 64 rows (D = 512), B = 32
+    lanes of 32 block ids, half in each region. The TMA kernel (through
+    the resident and the plane-gather wrappers on the (B, D) query, and
+    through `stage1_int4_gather` on the [even; odd] panels) and the dp4a
+    kernel equal the plain version bit for bit, each counted under its
+    key."""
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(2010),
+                 cuda_device)
+    br, nb, slots = 64, (1 << 20) // 64, 2010
+    comb = rand(((nb + slots) * br, 256), 0, 256, torch.uint8)
+    ids = torch.cat([rand((32, 16), 0, nb, torch.int32),
+                     rand((32, 16), nb, nb + slots, torch.int32)], dim=1)
+    q = rand((32, 512), -128, 128, torch.int8) >> 4
+    q_eo = ops.pack_queries_even_odd(q)
+    want = ref.stage1_gather_resident_ref(q_eo, comb, ids, br)
+    ops.reset_launch_counts()
+    for got in (ops.stage1_scores_gather_resident(q, comb, ids,
+                                                  block_rows=br),
+                ops.stage1_scores_gather(q, comb, ids, block_rows=br),
+                stage1_int4_gather(q_eo, comb, ids, block_rows=br),
+                stage1_gather._gather(q, comb, ids, br, route="dp4a")):
+        assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict(ZERO_COUNTS, stage1_gather_resident=1,
+                                       stage1_gather=2, stage1_gather_dp4a=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [131072, (1 << 17) + 64, 349526])
+def test_mma_plane_kernel_at_shard_rows(cuda_device, n):
+    """#1 on the tensor-core kernel at one shard's rows (2^20 over 8 and
+    over 3 slots, and 2^17 + 64, whose last tile is partial at every
+    tile), B = 32, at every tile the kernel takes: equal to the plain
+    version bit for bit, one launch counted each."""
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(n),
+                 cuda_device)
+    panel = rand((2, 32, 256), -8, 8, torch.int8)
+    plane = rand((n, 256), 0, 256, torch.uint8)
+    want = ref.stage1_scores_batched_ref(panel, plane)
+    for rows in ROWS_CHOICES:
+        ops.reset_launch_counts()
+        assert torch.equal(stage1_int4._plane(panel, plane, rows,
+                                              route="mma"), want), rows
+        assert ops.launch_counts()["stage1_plane_mma"] == 1
+
+
+@pytest.mark.gpu
+def test_plane_maps_follow_the_plane(cuda_device):
+    """The launchers keep tensor maps by (plane address, N, D/2, box
+    rows). A plane is freed and one of another N allocated (the allocator
+    hands the same address back where it can), one of the first N again,
+    then two shard planes in turns: every plane scan and TMA gather equals
+    the plain version, so no launch reads through a stale map."""
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(64),
+                 cuda_device)
+    q = rand((32, 512), -8, 8, torch.int8)
+    panel, q_eo = ops.pack_query_panel(q), ops.pack_queries_even_odd(q)
+
+    def check(plane):
+        n = plane.shape[0]
+        assert torch.equal(stage1_int4_batched(panel, plane),
+                           ref.stage1_scores_batched_ref(panel, plane)), n
+        ids = rand((32, 8), 0, -(-n // 64), torch.int32)
+        assert torch.equal(ops.stage1_scores_gather(q, plane, ids,
+                                                    block_rows=64),
+                           ref.stage1_gather_batched_ref(q_eo, plane, ids,
+                                                         64)), n
+    addresses = []
+    for n in (64 * 700, 64 * 500 + 17, 64 * 700):
+        plane = rand((n, 256), 0, 256, torch.uint8)
+        addresses.append(plane.data_ptr())
+        check(plane)
+        del plane
+    a = rand((131072, 256), 0, 256, torch.uint8)
+    b = rand((131072, 256), 0, 256, torch.uint8)
+    for _ in range(3):
+        check(a)
+        check(b)
+    print(f"plane addresses {addresses}: "
+          f"{len(set(addresses))} distinct")
+
+
 def _sign_case(rand, b, group, n, d, br, j):
     """q_sign (b, d) +-1, an (n, d/8) sign plane and a (b / group, j) table
     over its blocks in which the last slot of every row is the final

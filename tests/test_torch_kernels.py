@@ -3,6 +3,7 @@
 bit-exact at small ragged shapes; the wrappers' output contract and width
 limits; and the build helper. The kernels themselves run in
 test_torch_cuda.py."""
+import ctypes
 from pathlib import Path
 
 import pytest
@@ -743,6 +744,181 @@ def test_sign_gather_routes_on_the_launchers_answer(monkeypatch):
     with pytest.raises(ValueError, match="route must be one of"):
         stage0_sign_gather(q, plane, ids, block_rows=16, route="tma")
     assert len(calls) == 6
+
+
+def test_gather_wrappers_hand_the_tma_launcher_the_raw_query(monkeypatch):
+    """`ops.stage1_scores_gather` and `ops.stage1_scores_gather_resident`
+    hand the TMA launcher the (B, D) nibble query itself, packing nothing;
+    on the dp4a route (a shape the TMA launcher refuses) they hand the dp4a
+    launcher the packed (B, 2, D/2) panels, packed once per call.
+    `stage1_int4_gather(q_eo, ...)` hands the dp4a launcher its panels as
+    they are and the TMA launcher a (B, D) copy with the dims interleaved
+    back, equal to the query they were packed from."""
+    calls = _capture_launches(monkeypatch)
+    symbols = []
+    monkeypatch.setattr(_build, "function",
+                        lambda name, symbol, args: symbols.append(
+                            (name, symbol)))
+    packed = []
+
+    def pack(q):
+        packed.append(ops.pack_queries_even_odd(q))
+        return packed[-1]
+    monkeypatch.setattr(stage1_gather, "pack_queries_even_odd", pack)
+    q = torch.from_numpy(_rand((3, 64), -8, 8, np.int8, 7))
+    plane = torch.zeros((128, 32), dtype=torch.uint8)
+    ids = torch.zeros((3, 2), dtype=torch.int32)
+    for br in (64, 16):
+        assert ops.stage1_scores_gather(q, plane, ids,
+                                        block_rows=br).shape == (3, 2 * br)
+        assert ops.stage1_scores_gather_resident(
+            q, plane, ids, block_rows=br).shape == (3, 2 * br)
+    q_eo = ops.pack_queries_even_odd(q)
+    for br in (64, 16):
+        assert stage1_int4_gather(q_eo, plane, ids,
+                                  block_rows=br).shape == (3, 2 * br)
+    tma = ("stage1_gather", "stage1_gather_tma_launch")
+    dp4a = ("stage1_rows", "stage1_gather_launch")
+    assert symbols == [tma] * 2 + [dp4a] * 2 + [tma, dp4a]
+    assert [c for c, _ in calls] == [
+        "stage1_gather", "stage1_gather_resident", "stage1_gather_dp4a",
+        "stage1_gather_dp4a", "stage1_gather", "stage1_gather_dp4a"]
+    assert len(packed) == 2
+    for p in packed:
+        assert torch.equal(p, q_eo)
+    handed = calls[4][1][0]
+    assert handed not in (q.data_ptr(), q_eo.data_ptr())
+    assert [args[0] for _, args in calls] == [
+        q.data_ptr(), q.data_ptr(), packed[0].data_ptr(),
+        packed[1].data_ptr(), handed, q_eo.data_ptr()]
+    assert all(args[-5:] == (3, 128, 2, br, 32)
+               for (_, args), br in zip(calls, (64, 64, 16, 16, 64, 16)))
+
+
+@pytest.mark.parametrize("route", ["tma", "dp4a"])
+@pytest.mark.parametrize("d", [64, 40])
+def test_gather_takes_a_query_at_any_alignment(monkeypatch, route, d):
+    """A row-offset view of the (B, D) query (`q[1:]`: D bytes past a
+    16-byte boundary, so unaligned at D = 40) and a panel view off the
+    16-byte grid go through every gather wrapper on both routes, as they
+    did when every call packed a fresh query: the launcher gets a 16-byte
+    aligned copy holding the same values (the (B, D) query on TMA, the
+    panels on dp4a), and no check raises."""
+    calls = _capture_launches(monkeypatch,
+                              gather_tma=lambda n, d2, br: route == "tma")
+    whole = torch.from_numpy(_rand((4, d), -8, 8, np.int8, d))
+    q = whole[1:]
+    plane = torch.zeros((128, d // 2), dtype=torch.uint8)
+    ids = torch.zeros((3, 2), dtype=torch.int32)
+    flat = torch.zeros(3 * d + 4, dtype=torch.int8)
+    q_eo = flat[4:].view(3, 2, d // 2)
+    q_eo.copy_(ops.pack_queries_even_odd(q))
+    assert q_eo.data_ptr() % 16
+    handed = []
+
+    def launch(counter, fn, *args, device):
+        ptr = args[0]
+        assert not ptr % 16, counter
+        form = (3, d) if route == "tma" else (3, 2, d // 2)
+        handed.append(torch.frombuffer(
+            (ctypes.c_int8 * (3 * d)).from_address(ptr),
+            dtype=torch.int8).reshape(form).clone())
+    monkeypatch.setattr(_build, "launch", launch)
+    want = q if route == "tma" else q_eo
+    for call in (lambda: ops.stage1_scores_gather(q, plane, ids,
+                                                  block_rows=64),
+                 lambda: ops.stage1_scores_gather_resident(
+                     q, plane, ids, block_rows=64),
+                 lambda: stage1_int4_gather(q_eo, plane, ids,
+                                            block_rows=64)):
+        assert call().shape == (3, 128)
+        assert torch.equal(handed[-1], want)
+    assert len(handed) == 3 and calls == []
+
+
+def test_routes_are_asked_once_per_shape(monkeypatch):
+    """The TMA gather's route (`stage1_gather_tma_takes`) and the plane
+    scan's lane tile (`stage1_mma_lanes`) are asked of their launchers
+    once per shape, (N, D/2, block_rows) and (B, D/2, rows): repeated
+    launches make no ctypes call to decide their kernel, and a new shape
+    asks again."""
+    for mod in (stage1_int4, stage1_gather):
+        monkeypatch.setattr(mod, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(stage1_gather, "_TAKES", {})
+    monkeypatch.setattr(stage1_int4, "_LANES", {})
+    asked = []
+
+    def function(name, symbol, args):
+        if symbol == "stage1_gather_tma_takes":
+            return lambda n, d2, br: asked.append((symbol, n, d2, br)) or 1
+        if symbol == "stage1_mma_lanes":
+            return lambda b, d2, rows: asked.append((symbol, b, d2,
+                                                     rows)) or 8
+        return None
+    monkeypatch.setattr(_build, "function", function)
+    launched = []
+    monkeypatch.setattr(_build, "launch",
+                        lambda counter, fn, *args, device: launched.append(
+                            counter))
+    q = torch.zeros((3, 64), dtype=torch.int8)
+    plane = torch.zeros((128, 32), dtype=torch.uint8)
+    ids = torch.zeros((3, 2), dtype=torch.int32)
+    for _ in range(3):
+        ops.stage1_scores_gather_resident(q, plane, ids, block_rows=64)
+        ops.stage1_scores_gather(q, plane[:100], ids, block_rows=64)
+        ops.stage1_scores_batched(q, plane, block_n=256)
+        stage1_int4_batched(ops.pack_query_panel(q), plane, rows=512)
+    assert asked == [("stage1_gather_tma_takes", 128, 32, 64),
+                     ("stage1_gather_tma_takes", 100, 32, 64),
+                     ("stage1_mma_lanes", 3, 32, 256),
+                     ("stage1_mma_lanes", 3, 32, 512)]
+    assert launched == ["stage1_gather_resident", "stage1_gather",
+                        "stage1_plane_mma", "stage1_plane_mma"] * 3
+
+
+def _byte_perm(x: np.ndarray, y: np.ndarray, selector: int) -> np.ndarray:
+    """CUDA's __byte_perm(x, y, selector) on uint32 words: byte i of the
+    result is byte (selector >> 4 i) & 7 of the eight bytes of x then y,
+    each word little-endian."""
+    both = [(x >> np.uint32(8 * i)) & np.uint32(0xFF) for i in range(4)] + [
+        (y >> np.uint32(8 * i)) & np.uint32(0xFF) for i in range(4)]
+    out = np.zeros_like(x)
+    for i in range(4):
+        out |= both[(selector >> (4 * i)) & 7] << np.uint32(8 * i)
+    return out
+
+
+@pytest.mark.parametrize("d", range(32, 1025, 32))
+def test_raw_query_split_equals_the_packed_panels(d):
+    """The TMA gather kernel reads lane b's dims 8w ... 8w + 7 of the
+    (B, D) query as one 8-byte unit {x, y} and makes even word w as
+    __byte_perm(x, y, 0x6420) and odd word w as __byte_perm(x, y, 0x7531).
+    Emulated on int8 queries at every D up to 1024 with D/2 % 16 == 0, the
+    words equal `pack_queries_even_odd`'s (B, 2, D/2) panels read as 32-bit
+    words, and so do the B-fragment registers a consumer thread t loads at k-step kk
+    of slab s (words w0 = 32 s + 8 kk + t and w0 + 4, zero past D/2)."""
+    b = 5
+    q = _rand((b, d), -128, 128, np.int8, d)
+    units = np.ascontiguousarray(q).view(np.uint32).reshape(b, -1, 2)
+    x, y = units[..., 0], units[..., 1]
+    even, odd = _byte_perm(x, y, 0x6420), _byte_perm(x, y, 0x7531)
+    panels = ops.pack_queries_even_odd(torch.from_numpy(q)).numpy()
+    words = np.ascontiguousarray(panels).view(np.uint32)   # (B, 2, D/8)
+    np.testing.assert_array_equal(even, words[:, 0])
+    np.testing.assert_array_equal(odd, words[:, 1])
+    n_words = d // 8
+
+    def fragment(w_even, w_odd, w0):
+        get = (lambda a, w: a[:, w] if w < n_words else np.zeros(b, np.uint32))
+        return [get(w_even, w0), get(w_even, w0 + 4), get(w_odd, w0),
+                get(w_odd, w0 + 4)]
+    for s in range(-(-n_words // 32)):
+        for kk in range(4):
+            for t in range(4):
+                w0 = 32 * s + 8 * kk + t
+                for got, want in zip(fragment(even, odd, w0),
+                                     fragment(words[:, 0], words[:, 1], w0)):
+                    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("n,d,b,j,br", [(256, 256, 4, 6, 32),
