@@ -25,14 +25,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
                takes at D = 512, and bulk-copy, held to each other, with
                the bulk kernel's one-block floor), the exact rescore in
                both forms
-               (gathered rows and by id, held to each other).
+               (gathered rows and by id, held to each other), and the
+               exact stage in one launch (`stage2_rerank_by_id`: by-id
+               rescore, norms, pins and rerank; cosine and MIPS, masked
+               and not, at the main shape and ragged ones) and its
+               ranking half (`stage2_rerank`, any int32), each against
+               its plain version, timed beside the parent's stage (the
+               by-id kernel, then the plain rerank) with its launches by
+               kernel, and at one block (the floor).
   5. main    — B = 32 query batches through `RetrievalEngine.retrieve`
                with the Plain (cosine, MIPS), Masked (512 tenants) and
                Windowed (window 2048) policies on the kernel backend; the
                launch counter of each kernel of the path must grow (the
-               dp4a plane kernel and the gathered-rows exact form must not:
-               the path takes the tensor-core plane kernel and reads
-               candidates by id), every result must equal the plain
+               dp4a plane kernel, the gathered-rows exact form and the
+               separate by-id rescore must not: the path takes the
+               tensor-core plane kernel and one exact-stage launch that
+               reads candidates by id and ranks them), every result must
+               equal the plain
                backend's bit for bit, the exact scores must equal the INT8
                dot products, and recall@5 against the planted gold is
                checked.
@@ -42,7 +51,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
                (2 pad rows) and 8 slots, cosine and MIPS, B = 32 batches:
                bit-identical to the plain backend and to the unsharded
                engine, no pad id, recall@5 >= 0.95, #1 and #3-by-id
-               launched exactly S times per batch (never dp4a or the
+               launched exactly S times per batch and the final rerank
+               kernel once (never dp4a or the
                gathered rows); #1 at each shard's shape against its bound
                and `torch._int_mm`; the all-negative MIPS corpus padded to
                4. (b) `ShardedServingRuntime`: the 512 users as tenants
@@ -205,7 +215,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
                saved, bit for bit. (d) The step-10 weights restored and
                served through `RAGPipeline` with the full-width MiniLM over
                2048 docs of 64 tokens: top-1 8/8, #1 (`stage1_plane_mma`)
-               and #3 by id launched (counts set to 0 before). (c) The p50
+               and the exact stage (`stage2_rerank_by_id`) launched
+               (counts set to 0 before). (c) The p50
                of 20 steps and tokens/s, one profiled step (busy, idle
                share, launches, busiest kernels), the AdamW update's share,
                peak device memory, a synchronous save and restore of the
@@ -222,7 +233,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
                (one superblock, bf16), minitron-4b, internvl2-26b (8
                layers), deepseek-coder-33b and deepseek-67b (4 layers)
                one at a time behind `RAGPipeline.answer` (top-1 8/8, #1
-               and #3 by id counted, prefill and decode p50, one
+               and the exact stage counted, prefill and decode p50, one
                profiled step, peak memory; decode against `forward` at
                f32 for the dense and vlm ones); llama4-scout (1 layer)
                trained through `ElasticTrainer` with Adafactor, its
@@ -234,7 +245,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
                f32 on the card against the port's CPU path, and the
                chunked SSD scan at the full head shape against the f64
                recurrence; both at full depth behind `RAGPipeline.answer`
-               (top-1 8/8, #1 and #3 by id counted, decode against
+               (top-1 8/8, #1 and the exact stage counted, decode against
                `forward` at f32); mamba2 (16 layers) and zamba2 (12
                layers) trained with AdamW through `ElasticTrainer`, the
                state restored bit for bit; four launchers with the new
@@ -278,9 +289,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
                serve_rag_agent must print the CPU's lines (wall times
                masked; the agents' bf16 tokens equal but for near-tie
                rows, counted), the train_100m smoke run's losses within
-               EX_LOSS_RTOL; #1 on the tensor cores, #3 by id and #6 on
-               TMA counted. Then train_100m --full (~126M parameters, B =
-               8 x 128): p50 step, tokens/s, first and last loss, the
+               EX_LOSS_RTOL; #1 on the tensor cores, the exact stage, #3
+               by id and the final rerank (pod) and #6 on TMA counted.
+               Then train_100m --full (~126M parameters, B = 8 x 128):
+               p50 step, tokens/s, first and last loss, the
                saves; it fails unless the loss is finite and falls.
 
 Then the exact wrappers' and the block gather's host microseconds per
@@ -391,12 +403,14 @@ NOISE = 0.1
 # noise 0.1: the golden protocol's ratios), 64-row blocks, 8 probes.
 CLUSTERS, CLUSTER_ROWS, SPREAD = 1024, 1024, 0.2
 BLOCK_ROWS, NPROBE, PRESCREEN_C0 = 64, 8, 2048
-MAIN_KERNELS = ("stage1_plane_mma", "stage1_rows", "stage2_by_id")
+MAIN_KERNELS = ("stage1_plane_mma", "stage1_rows", "stage2_rerank_by_id")
 # Kernels the main and cluster paths must not launch: at B = 32, D = 512
 # the plane scan takes the tensor-core kernel, the block gather the TMA
-# kernel, and the exact stage reads candidates by id (no gathered-rows
-# form, so no index gathers before it).
-OFF_PATH_KERNELS = ("stage1_plane", "stage2_exact", "stage1_gather_dp4a")
+# kernel, and the exact stage is one launch that reads candidates by id
+# and ranks them (no gathered-rows form, so no index gathers before it;
+# no by-id rescore apart from its rerank; no sharded rerank).
+OFF_PATH_KERNELS = ("stage1_plane", "stage2_exact", "stage1_gather_dp4a",
+                    "stage2_by_id", "stage2_rerank")
 # The autotune path: the autotuner and the single-query entry points.
 TUNE_KERNELS = ("stage1_plane", "stage1_plane_mma", "stage1_rows",
                 "stage1_single", "stage2_single", "stage0_sign_plane",
@@ -405,13 +419,15 @@ TUNE_KERNELS = ("stage1_plane", "stage1_plane_mma", "stage1_rows",
 # The batches at which the tensor-core and dp4a plane kernels are compared.
 CROSSOVER_BATCHES = (2, 4, 8)
 HOST_CALLS = 1000
+STAGE_CALLS = 50            # the parent's exact stage: ~10 ms a call
 FUSED_BLOCK, FUSED_K = 512, 8
 SINGLE_QUERIES = 12
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CLUSTER_KERNELS = ("stage1_plane_mma", "stage1_rows", "stage2_by_id",
+CLUSTER_KERNELS = ("stage1_plane_mma", "stage1_rows", "stage2_rerank_by_id",
                    "stage1_gather", "stage0_sign_gather")
 # Published H100 SXM peaks (NVIDIA data sheet): device memory and dense
 # int8 tensor-core rate. Used only for the least-time bound of each kernel.
+INT32_MIN = -(2 ** 31)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 L2_BYTES = 50 << 20         # a launch that moves less may beat the HBM rate
@@ -566,7 +582,9 @@ MAIN_INSTANCES = tuple(
     "plane_kernelILi32ELi256ELi0ELb0EE", "plane_kernelILi1ELi256ELi0ELb0EE",
     "rows_kernelILi256ELi0ELb0EE", "gather_tma_kernelE",
     "gather_kernelILi0ELb0EE",
-    "exact_kernelILi1EE", "sign_gather_kernelILi16EE",
+    "exact_kernelILi1EE", "rerank_kernelILb1ELi1ELi0EE",
+    "rerank_kernelILb1ELi1ELi1EE", "rerank_kernelILb0ELi1ELi0EE",
+    "sign_gather_kernelILi16EE",
     "sign_bulk_kernelILi64EE", "sign_bulk_kernelILi8EE",
     "sign_bulk_kernelILi16EE",
     "sign_plane_kernelILi32ELi256ELi16EE", "fused_kernelILi32ELi0ELb0EE",
@@ -584,7 +602,7 @@ def phase_build() -> None:
             entry = re.search(r"((?:plane_wide|sign_plane|sign_mma|"
                               r"plane_mma|plane|"
                               r"rows|sign_gather|sign_bulk|gather_tma|"
-                              r"gather|exact|"
+                              r"gather|exact|rerank|"
                               r"fused_mma|fused)"
                               r"_kernel(?:I.*?EE|E))", line)
             if "Compiling entry function" in line and entry:
@@ -873,6 +891,7 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
         plain_ms=time_ms(lambda: ref.stage2_scores_by_id_ref(*by_id_args)),
         bound_ms=t_bound, bound_by=by, library_ms=lib_ms))
 
+    rows += _exact_stage_rows(db, q, cand.to(torch.int32), gen, dev)
     _check_widths(gen, dev)
 
     # -- gather: stage 1 over the cluster path's per-lane block tables, on --
@@ -1080,6 +1099,8 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
                         "candidate rows, then torch.bmm on their pre-rebuilt "
                         "INT8 rows)"}
     for r in rows:
+        if r["name"] not in device_only:
+            continue            # the exact stage's rows: their own lines
         note = (" (library yardstick: one torch.bmm on the pre-gathered, "
                 "pre-unpacked operand; it leaves out the gather)"
                 if r["name"] in ("stage1_gather", "stage0_sign_gather")
@@ -1092,6 +1113,170 @@ def phase_kernels(db, q_codes, dev) -> list[dict]:
     log(f"kernel gathers: {uniq_rows} distinct plane rows of the "
         f"{B * r_view} gathered at B={B} J={j} BR={BLOCK_ROWS}")
     return rows
+
+
+def _parent_stage(q, db, ids, member, k, metric):
+    """The parent's exact stage, the yardstick of the one-launch kernel:
+    the by-id kernel (#3 by id), then the norms gather, the pins, the
+    rerank and the result's masking in plain PyTorch, as
+    `ExactRescore.run` composed them."""
+    exact = ops.stage2_scores_by_id(q, db.msb_plane, db.lsb_plane, ids)
+    return ref.pin_and_rerank_ref(exact, ids, db.norms_sq, member, k=k,
+                                  metric=metric)
+
+
+def _stage_split(label: str, fn) -> None:
+    """Launches and device microseconds of one call of `fn`, by kernel."""
+    prof = device_profile(fn, reps=5)
+    top = ", ".join(f"{n[:56]} x{c:.0f} {t:.1f}us" for n, t, c in prof[:6])
+    log(f"kernel {label} split: {sum(c for _, _, c in prof):.0f} launches "
+        f"of {len(prof)} kinds, device_us {sum(t for _, t, _ in prof):.1f} "
+        f"per call; busiest: {top}")
+
+
+RERANK_BY_ID, RERANK = "rerank_kernel<true", "rerank_kernel<false"
+
+
+def _exact_stage_rows(db, q, cand, gen, dev) -> list[dict]:
+    """The exact stage in one launch (`stage2_rerank_by_id`) and its
+    ranking half (`stage2_rerank`): bit-exact against the plain versions at
+    the main shape (B = 32, C = 50, D = 512, k = 5; cosine and MIPS,
+    masked and not) and at ragged shapes (ids at -1 and past N, a lane
+    with no member, k = C), then timed beside the parent's stage, with
+    both splits by kernel and the one-block floor. library_ms is null: no
+    single PyTorch call ranks by the non-division comparator."""
+    d2 = D // 2
+    member = torch.rand((B, C), generator=gen, device=dev) < 0.8
+    member[0] = False
+    errs = {}
+    for metric in ("cosine", "mips"):
+        for mask in (None, member):
+            args = (q, db.msb_plane, db.lsb_plane, cand, db.norms_sq, mask)
+            errs[metric, mask is None] = _check_kernel(
+                "stage2_rerank_by_id",
+                lambda *a: ops.exact_rerank_by_id(*a, k=K, metric=metric),
+                lambda *a: ref.exact_rerank_by_id_ref(*a, k=K, metric=metric),
+                args, f"B={B} C={C} D={D} k={K} {metric}, "
+                f"{'un' if mask is None else ''}masked")
+            want = _parent_stage(q, db, cand, mask, K, metric)
+            got = ops.exact_rerank_by_id(*args, k=K, metric=metric)
+            if any(not torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"stage2_rerank_by_id differs from the "
+                                     f"parent's stage ({metric})")
+    for bb, cc, nn, dd, kk in ((1, 1, 1000, 512, 1), (3, 50, 4099, 512, 50),
+                               (7, 13, 777, 250, 5), (2, 64, 300, 8, 7),
+                               (5, 257, 3000, 36, 5)):
+        m = torch.randint(0, 256, (nn, dd // 2), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        lo = torch.randint(0, 256, (nn, dd // 2), generator=gen, device=dev,
+                           dtype=torch.uint8)
+        qq = torch.randint(-128, 128, (bb, dd), generator=gen, device=dev,
+                           dtype=torch.int8)
+        ii = torch.randint(-2, nn + 2, (bb, cc), generator=gen, device=dev,
+                           dtype=torch.int32)
+        ii[:, 0] = -1
+        ii[:, -1] = nn
+        nrm = torch.randint(0, 1 << 20, (nn,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        nrm[: nn // 4] = 0
+        mm = torch.rand((bb, cc), generator=gen, device=dev) < 0.6
+        mm[0] = False
+        for metric in ("cosine", "mips"):
+            for mask in (None, mm):
+                _check_kernel(
+                    "stage2_rerank_by_id",
+                    lambda *a: ops.exact_rerank_by_id(*a, k=kk,
+                                                      metric=metric),
+                    lambda *a: ref.exact_rerank_by_id_ref(*a, k=kk,
+                                                          metric=metric),
+                    (qq, m, lo, ii, nrm, mask),
+                    f"B={bb} C={cc} N={nn} D={dd} k={kk} {metric}")
+    # The ranking half on the sharded path's inputs: exact scores summed
+    # over owners, pad candidates pinned to INT32_MIN with norm 1.
+    scores = ops.stage2_scores_by_id(q, db.msb_plane, db.lsb_plane, cand)
+    norms = db.norms_sq[cand.long()]
+    scores[:, -3:] = INT32_MIN
+    norms[:, -3:] = 1
+    for metric in ("cosine", "mips"):
+        errs[metric, "rerank"] = _check_kernel(
+            "stage2_rerank",
+            lambda *a: ops.rerank(*a, k=K, metric=metric),
+            lambda *a: ref.rerank_ref(*a, k=K, metric=metric),
+            (scores, norms, cand), f"B={B} C={C} k={K} {metric}")
+        wide = torch.randint(INT32_MIN, 2 ** 31 - 1, (3, 2048), generator=gen,
+                             device=dev, dtype=torch.int32)
+        wide[:, ::5] = INT32_MIN
+        wide_n = torch.randint(-2, 2 ** 31 - 1, (3, 2048), generator=gen,
+                               device=dev, dtype=torch.int32)
+        wide_n[:, ::7] = 0
+        _check_kernel("stage2_rerank",
+                      lambda *a: ops.rerank(*a, k=2048, metric=metric),
+                      lambda *a: ref.rerank_ref(*a, k=2048, metric=metric),
+                      (wide, wide_n, wide), f"B=3 C=2048 k=C {metric}")
+
+    def stage(metric, mask=None, qq=q, ids=cand):
+        return ops.exact_rerank_by_id(qq, db.msb_plane, db.lsb_plane, ids,
+                                      db.norms_sq, mask, k=K, metric=metric)
+    uniq = int(torch.unique(cand).numel())
+    # Bytes: the query, ids, the unique candidate rows of both planes, their
+    # norms, the outputs; operations: the INT8 dots (the C^2 integer
+    # comparisons have no published peak and are left out).
+    t_bound, by = bound_ms(B * D + B * C * 4 + 2 * uniq * d2 + uniq * 4
+                           + 2 * B * K * 4 + B * C * 4, 2 * B * C * D)
+    out = []
+    for metric in ("cosine", "mips"):
+        ms = time_ms(lambda: stage(metric))
+        parent_ms = time_ms(lambda: _parent_stage(q, db, cand, None, K,
+                                                  metric))
+        dev_us = kernel_device_us(lambda: stage(metric), RERANK_BY_ID)
+        masked_us = kernel_device_us(lambda: stage(metric, member),
+                                     RERANK_BY_ID)
+        floor_us = "not measured"
+        for _ in range(3):      # a short trace can miss the one kernel (C6)
+            floor_us = kernel_device_us(
+                lambda: stage(metric, None, q[:1], cand[:1]), RERANK_BY_ID)
+            if floor_us != "not measured":
+                break
+        _stage_split(f"stage2_rerank_by_id {metric} (parent's stage)",
+                     lambda: _parent_stage(q, db, cand, None, K, metric))
+        _stage_split(f"stage2_rerank_by_id {metric} (this stage)",
+                     lambda: stage(metric))
+        log(f"kernel stage2_rerank_by_id {metric}: kernel_ms {ms:.4f} "
+            f"parent_stage_ms {parent_ms:.4f} ({parent_ms / ms:.1f}x) "
+            f"device_only_us {dev_us} (masked {masked_us}; one block, B = "
+            f"1: {floor_us}) bound_us {t_bound * 1e3:.4f} ({by})"
+            f"{_share(t_bound, dev_us)}; B={B} C={C} D={D} k={K}, "
+            f"{uniq} distinct rows; bit-exact masked and not")
+        if metric == "cosine":
+            out.append(dict(
+                name="stage2_rerank_by_id", route="cuda",
+                source="src/repro_torch/csrc/stage2_rerank.cu",
+                replaces="src/repro/kernels/stage2_int8.py:62",
+                max_abs_err=max(errs[m, u] for m in ("cosine", "mips")
+                                for u in (True, False)),
+                ms=ms, plain_ms=time_ms(lambda: ref.exact_rerank_by_id_ref(
+                    q, db.msb_plane, db.lsb_plane, cand, db.norms_sq, None,
+                    k=K, metric="cosine")),
+                bound_ms=t_bound, bound_by=by, library_ms=None))
+    r_bound, r_by = bound_ms(3 * B * C * 4 + 2 * B * K * 4, 0)
+    def rerank(metric):
+        return ops.rerank(scores, norms, cand, k=K, metric=metric)
+    r_ms = time_ms(lambda: rerank("cosine"))
+    r_us = kernel_device_us(lambda: rerank("cosine"), RERANK)
+    log(f"kernel stage2_rerank cosine: kernel_ms {r_ms:.4f} device_only_us "
+        f"{r_us} bound_us {r_bound * 1e3:.4f} ({r_by}){_share(r_bound, r_us)}"
+        f"; MIPS kernel_ms {time_ms(lambda: rerank('mips')):.4f}; B={B} "
+        f"C={C} k={K}, 3 pad pins a lane; bit-exact, also at C = 2048 over "
+        "the whole int32 range")
+    out.append(dict(
+        name="stage2_rerank", route="cuda",
+        source="src/repro_torch/csrc/stage2_rerank.cu",
+        replaces="src/repro/kernels/stage2_int8.py:62",
+        max_abs_err=max(errs["cosine", "rerank"], errs["mips", "rerank"]),
+        ms=r_ms, plain_ms=time_ms(lambda: ref.rerank_ref(
+            scores, norms, cand, k=K, metric="cosine")),
+        bound_ms=r_bound, bound_by=r_by, library_ms=None))
+    return out
 
 
 WIDTHS = (8, 36, 64, 200, 250, 1536, 8192, 262144)
@@ -1874,7 +2059,8 @@ T_CLUSTERS, T_NPROBE, T_BLOCK_ROWS, T_PRESCREEN_C0 = 64, 8, 64, 256
 # Bytes per arena slot: the two nibble planes, the sign plane, norm, owner.
 SLOT_BYTES = D // 2 + D // 2 + D // 8 + 4 + 4
 TENANCY_KERNELS = ("stage1_plane_mma", "stage1_plane", "stage1_rows",
-                   "stage2_by_id", "stage1_gather", "stage0_sign_gather")
+                   "stage2_rerank_by_id", "stage1_gather",
+                   "stage0_sign_gather")
 PUBLISH_REPS = 200
 
 
@@ -2310,7 +2496,7 @@ def phase_tenancy(dev, serving):
         if run.launches.get(key, 0) <= 0:
             raise AssertionError(f"kernel {key} was not launched by the "
                                  "tenancy path")
-    for key in ("stage2_exact", "stage1_gather_dp4a"):
+    for key in ("stage2_exact", "stage1_gather_dp4a", "stage2_by_id"):
         if run.launches.get(key, 0):
             raise AssertionError(f"kernel {key} was launched by the tenancy "
                                  "path, which should not take it")
@@ -2328,9 +2514,10 @@ ZIPF_S, STICKY = 1.1, 0.8
 FACADE_FLUSHES = 12
 OPEN_WAIT, OPEN_DEPTH = 0.005, 2
 FIELDS = ("indices", "scores", "candidate_indices")
-SERVING_KERNELS = ("stage1_gather", "stage0_sign_gather", "stage2_by_id",
-                   "stage1_gather_resident", "stage0_sign_gather_resident")
-SERVING_OFF_PATH = ("stage1_gather_dp4a", "stage2_exact")
+SERVING_KERNELS = ("stage1_gather", "stage0_sign_gather",
+                   "stage2_rerank_by_id", "stage1_gather_resident",
+                   "stage0_sign_gather_resident")
+SERVING_OFF_PATH = ("stage1_gather_dp4a", "stage2_exact", "stage2_by_id")
 
 
 PLANE_GATHERS = ("stage1_gather", "stage0_sign_gather")
@@ -3516,6 +3703,10 @@ def phase_decode(dev) -> tuple[list[dict], dict[str, int]]:
 SHARD_SHAPES = ((1, 1), (3, 1), (4, 2))
 SHARD_KERNELS = ("stage1_plane_mma", "stage2_by_id")
 SHARD_OFF_PATH = ("stage1_plane", "stage2_exact")
+# ShardedServingRuntime: a MultiTenantIndex per shard, each batch through
+# the engine's one-launch exact stage; the merge runs on the host.
+SRV_KERNELS = ("stage1_plane_mma", "stage2_rerank_by_id")
+SRV_OFF_PATH = SHARD_OFF_PATH + ("stage2_by_id", "stage2_rerank")
 SRV_SHARDS, SRV_CAPACITY, SRV_PER_TENANT, SRV_ROUNDS = 4, 1 << 19, 3, 2
 SRV_FAIL_AT = 768       # request 768 is tenant 256's second
 SRV_RUNS = (            # (label, metric, spread, fail at)
@@ -3633,6 +3824,10 @@ def phase_sharded_index(db, q_codes, gold, dev,
                     raise AssertionError(f"{label}: {key} launched "
                                          f"{counts[key]} times, not {s} per "
                                          f"batch")
+            if counts["stage2_rerank"] != BATCHES:
+                raise AssertionError(f"{label}: the final rerank launched "
+                                     f"{counts['stage2_rerank']} times, not "
+                                     "once per batch")
             for key in SHARD_OFF_PATH:
                 if counts[key]:
                     raise AssertionError(f"{label}: {key} launched")
@@ -3670,7 +3865,8 @@ def phase_sharded_index(db, q_codes, gold, dev,
                 f"p50_batch_ms {p50 * 1e3:.3f} queries_per_s "
                 f"{B / p50:.1f}; device_busy_ms {busy * 1e3:.3f} (idle "
                 f"share {1 - busy / p50:.3f}); {launched:.0f} kernel "
-                f"launches per batch, #1 and #3-by-id {s} each; equal to "
+                f"launches per batch, #1 and #3-by-id {s} each, the final "
+                f"rerank 1; equal to "
                 f"the plain backend and to the unsharded engine bit for bit")
         if s > 1:
             q_msb = quantization.msb_nibble(q_all[:B])
@@ -3704,7 +3900,7 @@ def _srv_cfg(metric, spread, shards, capacity, backend="cuda"):
 def _srv_build(cfg, codes) -> tuple[ShardedServingRuntime, float]:
     """Every user's 2048 codes ingested in SRV_ROUNDS rounds, so each
     tenant is that many runs of its shard's arena and batches take the
-    Masked policy (#1 over the arena, #3 by id)."""
+    Masked policy (#1 over the arena, the one-launch exact stage)."""
     rt = ShardedServingRuntime(cfg)
     per = DOCS_PER_USER // SRV_ROUNDS
     torch.cuda.synchronize()
@@ -3811,11 +4007,11 @@ def phase_sharded_serving(qdb, dev, card) -> dict[str, int]:
         handles, turns, wall, report, fail_ms = _srv_drive(rt, trace, fail_at)
         counts = ops.launch_counts()
         _add_counts(total, counts)
-        for key in SHARD_KERNELS:
+        for key in SRV_KERNELS:
             if counts[key] <= 0:
                 raise AssertionError(f"sharded serving {label}: {key} was "
                                      "not launched")
-        for key in SHARD_OFF_PATH:
+        for key in SRV_OFF_PATH:
             if counts[key]:
                 raise AssertionError(f"sharded serving {label}: {key} was "
                                      "launched")
@@ -3885,6 +4081,9 @@ def _rag_sharded(card, pipe, q, ecfg, eparams, gen_api, gparams
         if counts[key] != 8:
             raise AssertionError(f"rag sharded: {key} launched {counts[key]} "
                                  "times, not once per slot")
+    if counts["stage2_rerank"] != 1:
+        raise AssertionError(f"rag sharded: the final rerank launched "
+                             f"{counts['stage2_rerank']} times, not once")
     if not (torch.equal(res.indices, want.indices)
             and torch.equal(res.scores, want.scores)
             and ledger.total_uj == want_ledger.total_uj):
@@ -3956,7 +4155,7 @@ RAG_AGENT = dict(top_k=32, npages=8, prescreen_c0=64, page_rows=16)
 # against `forward` on 384, within the reference's own 1e-4.
 RAG_TF_PROMPT, RAG_TF_STEPS, RAG_TF_ATOL = 376, 8, 1e-4
 RAG_QUANT_ATOL = 0.1        # decode_step_quant at top_k >= T vs decode_step
-RAG_KERNELS = ("stage1_plane_mma", "stage1_rows", "stage2_by_id",
+RAG_KERNELS = ("stage1_plane_mma", "stage1_rows", "stage2_rerank_by_id",
                "stage0_sign_gather")
 
 
@@ -4098,7 +4297,7 @@ def _check_turns(reps, gold, slots, rt, reg, counts, layers) -> None:
     # per layer; each retrieval launch #2 (windowed scan) and #3 once.
     if (counts["stage0_sign_gather"] != steps
             or counts["stage1_rows"] != steps + rt.launches
-            or counts["stage2_by_id"] < rt.launches
+            or counts["stage2_rerank_by_id"] < rt.launches
             or counts["stage1_plane_mma"] < 1):
         problems.append(f"launches {counts}, expected #8 {steps}, #2 "
                         f"{steps} + {rt.launches} retrieval launches")
@@ -4353,7 +4552,7 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_OPT_ATOL = 1e-5, 1e-4, 1e-6
 # (b) the first loss within 0.5 of ln V (random logits); the last at least
 # 0.5 below the first (the batch repeats, so its own tokens are learned).
 TRAIN_LN_V_TOL, TRAIN_MIN_DROP = 0.5, 0.5
-TRAIN_KERNELS = ("stage1_plane_mma", "stage2_by_id")
+TRAIN_KERNELS = ("stage1_plane_mma", "stage2_rerank_by_id")
 
 
 def _leaf_rel_err(got, want) -> float:
@@ -4735,7 +4934,7 @@ MD_SERVE = (("llama4-scout-17b-a16e", 4),
             ("deepseek-coder-33b", 4),
             ("deepseek-67b", 4))
 MD_TRAIN_B, MD_TRAIN_S, MD_TRAIN_STEPS = 8, 64, 6
-MD_KERNELS = ("stage1_plane_mma", "stage2_by_id")
+MD_KERNELS = ("stage1_plane_mma", "stage2_rerank_by_id")
 
 
 class _RouteLog:
@@ -5184,7 +5383,7 @@ def phase_models(dev, card: str) -> dict[str, int]:
 #       weights; zamba2 54 layers, 9 applications of the shared block, 9.7
 #       GB) behind RAGPipeline.answer one at a time (the models phase's
 #       serving code: B = 8 requests, 384-token prompts, 16 new tokens;
-#       top-1 8/8, #1 and #3 by id counted, prefill and decode p50, one
+#       top-1 8/8, #1 and the exact stage counted, prefill and decode p50, one
 #       profiled step, peak memory), and decode against `forward` at f32
 #       (MD_TF_PROMPT tokens then MD_TF_STEPS steps, within MD_TF_ATOL).
 #   (c) mamba2-2.7b at full width, 16 of 64 layers, and zamba2-2.7b, 12 of
@@ -6218,7 +6417,9 @@ EX_LOSS_RTOL = 2.0 ** -8
 EX_STATE_RTOL = 2.0 ** -2
 EX_SMOKE = dict(steps=7, batch=2, seq=32)
 EX_FULL_STEPS = 12
-EX_KERNELS = ("stage1_plane_mma", "stage2_by_id", "stage1_gather")
+# quickstart and the agents through the engine, pod through ShardedIndex.
+EX_KERNELS = ("stage1_plane_mma", "stage2_rerank_by_id", "stage2_by_id",
+              "stage2_rerank", "stage1_gather")
 
 
 def _ex_lines(fn, *args, **kw):
@@ -6697,7 +6898,26 @@ def phase_host_us(dev) -> None:
            "torch.mv": lambda: torch.mv(docs1, col1)}
     us = {name: _host_us(fn) for name, fn in fns.items()}
     log(f"host_us_per_call ({HOST_CALLS} calls, median of 3 rounds): {us}")
-    del msb, lsb, mr, lr, docs
+    # The exact stage in one launch beside the parent's stage (the by-id
+    # kernel, then the plain rerank), whose cosine form runs ~10 ms a call:
+    # it is timed over STAGE_CALLS calls.
+    q = rand((B, D), -128, 128, torch.int8)
+    norms = rand((N,), 0, 1 << 20, torch.int32)
+    db = bitplanar.BitPlanarDB(msb_plane=msb, lsb_plane=lsb, norms_sq=norms,
+                               scale=torch.ones((), device=dev))
+    stage = {}
+    for metric in ("cosine", "mips"):
+        stage[f"ops.exact_rerank_by_id ({metric})"] = _host_us(
+            lambda: ops.exact_rerank_by_id(q, msb, lsb, ids, norms, k=K,
+                                           metric=metric))
+        stage[f"parent's stage ({metric})"] = _host_us(
+            lambda: _parent_stage(q, db, ids, None, K, metric),
+            calls=STAGE_CALLS)
+    stage["ops.rerank (cosine)"] = _host_us(
+        lambda: ops.rerank(ids, ids, ids, k=K, metric="cosine"))
+    log(f"host_us_per_call, the exact stage ({HOST_CALLS} calls; the "
+        f"parent's {STAGE_CALLS}; median of 3 rounds): {stage}")
+    del msb, lsb, mr, lr, docs, db
     torch.cuda.empty_cache()
 
 

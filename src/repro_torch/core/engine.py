@@ -198,6 +198,13 @@ class StageFns:
               planes + (B, C) int32 ids -> (B, C); ids clamp to [0, N - 1]
               as JAX's indexing clamps (the reference's `jnp.take` fills;
               the engine never passes an id >= N)
+    exact_rerank: the whole exact stage, (B, D) queries x 2 (N, D/2)
+              planes + (B, C) int32 ids + (N,) norms + (B, C) member mask
+              or None, k and metric -> (indices, scores, candidate_indices)
+              int32: the exact scores, norms, MASKED_SCORE pins, rerank
+              and the result's -1 / 0 masking
+    rerank:   the exact stage's ranking half, (B, C) int32 scores, norms
+              and ids, k and metric -> (ids at the top k, their scores)
     sign_gather / sign_gather_resident: the sign prescreen's block gathers
               over the packed (N, D/8) sign plane (zero bytes score
               sum(q_sign)) and over the slab policy's combined sign plane;
@@ -210,6 +217,8 @@ class StageFns:
     gather_resident: Callable
     centroid: Callable
     exact: Callable
+    exact_rerank: Callable
+    rerank: Callable
     sign_gather: Callable
     sign_gather_resident: Callable
 
@@ -227,6 +236,8 @@ def stage_fns(backend: str) -> StageFns:
             gather_resident=kops.stage1_scores_gather_resident,
             centroid=kops.centroid_scores_batched,
             exact=kops.stage2_scores_by_id,
+            exact_rerank=kops.exact_rerank_by_id,
+            rerank=kops.rerank,
             sign_gather=kops.stage0_sign_scores_gather,
             sign_gather_resident=kops.stage0_sign_scores_gather_resident)
     if backend == "torch":
@@ -251,6 +262,8 @@ def stage_fns(backend: str) -> StageFns:
             centroid=plane,
             exact=lambda q, msb, lsb, ids: ref.stage2_scores_by_id_ref(
                 kops.pack_queries_even_odd(q), msb, lsb, ids),
+            exact_rerank=ref.exact_rerank_by_id_ref,
+            rerank=ref.rerank_ref,
             sign_gather=sign_gather,
             sign_gather_resident=lambda q_sign, plane, ids, *, block_rows: (
                 ref.stage0_sign_gather_resident_ref(q_sign, plane, ids,
@@ -620,40 +633,17 @@ class ApproxScan:
 class ExactRescore:
     """Terminal stage: rescore the candidates' full INT8 codes exactly, read
     from the full planes at their ids, then rerank (non-division comparator
-    for cosine, top-k for MIPS)."""
+    for cosine, top-k for MIPS): one call of the backend's `exact_rerank`
+    (on "cuda" one kernel launch). Holes (-1) clamp to row 0 and are pinned
+    below every real candidate by the membership mask."""
 
     def run(self, state: _CascadeState, ctx: _CascadeCtx) -> _CascadeState:
         db, cfg = ctx.db, ctx.cfg
-        cand, cand_member = state.rows, state.member
-        # The exact stage reads each candidate's row by global id (the
-        # reference gathers (B, C, D//2) copies first); holes clamp to row
-        # 0 and are pinned below every real candidate by the membership
-        # mask.
-        exact = ctx.fns.exact(ctx.query_codes, db.msb_plane, db.lsb_plane,
-                              cand)
-        safe = torch.clamp(cand, min=0).long()
-        cand_norms = db.norms_sq[safe]
-        if cand_member is not None:
-            exact = exact.masked_fill(~cand_member, MASKED_SCORE)
-            cand_norms = cand_norms.masked_fill(~cand_member, 1)
-
-        if cfg.metric == "cosine":
-            local, top_scores = similarity.rerank_dense_comparator(
-                exact, cand_norms, cfg.k)
-        else:
-            top_scores, local = similarity.stable_topk(exact, cfg.k)
-
-        indices = torch.gather(cand, 1, local)
-        if cand_member is None:
-            result = RetrievalResult(indices=indices, scores=top_scores,
-                                     candidate_indices=cand)
-        else:
-            valid = torch.gather(cand_member, 1, local)
-            result = RetrievalResult(
-                indices=indices.masked_fill(~valid, -1),
-                scores=top_scores.masked_fill(~valid, 0),
-                candidate_indices=cand.masked_fill(~cand_member, -1))
-        return dataclasses.replace(state, result=result)
+        indices, scores, cand = ctx.fns.exact_rerank(
+            ctx.query_codes, db.msb_plane, db.lsb_plane, state.rows,
+            db.norms_sq, state.member, k=cfg.k, metric=cfg.metric)
+        return dataclasses.replace(state, result=RetrievalResult(
+            indices=indices, scores=scores, candidate_indices=cand))
 
 
 _PLAN_KINDS = {PlainPolicy: "plain", MaskedPolicy: "masked",

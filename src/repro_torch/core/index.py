@@ -16,7 +16,7 @@ slot of a mesh (the flattened mesh axes, row-major). One retrieval runs:
      owns it only (one by-id rescore per shard), summed on the lead
      device (each row is owned once; the reference's psum),
   6. the final top-k per lane via the non-division comparator (cosine) or
-     a plain top-k (MIPS).
+     a plain top-k (MIPS), one call of the backend's `rerank`.
 
 The shards run one after another in this process; their slots may share
 a device. `cfg.backend` routes both scoring stages through the same
@@ -156,14 +156,11 @@ def _tournament_retrieve(q: torch.Tensor,
     exact = exact.masked_fill(pad_cand, INT32_MIN)
     cand_norms = cand_norms.masked_fill(pad_cand, 1)
 
-    # ---- Final rerank per lane.
-    if cfg.metric == "cosine":
-        local, scores = similarity.rerank_dense_comparator(exact, cand_norms,
-                                                           cfg.k)
-    else:
-        scores, local = similarity.stable_topk(exact, cfg.k)
-    return RetrievalResult(indices=torch.gather(cand_gid, 1, local),
-                           scores=scores, candidate_indices=cand_gid)
+    # ---- Final rerank per lane (on "cuda" one kernel launch).
+    indices, scores = fns.rerank(exact, cand_norms, cand_gid, k=cfg.k,
+                                 metric=cfg.metric)
+    return RetrievalResult(indices=indices, scores=scores,
+                           candidate_indices=cand_gid)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -7,7 +7,10 @@
                   whole blocks by TMA onto the int8 tensor cores in
                   `stage1_gather.cu` where its shape allows)
   stage2_int8   — the exact INT8 rescore: by candidate id, and on
-                  gathered rows (batched and single-query)
+                  gathered rows (batched and single-query); the engine's
+                  whole exact stage in one launch (rescore by id, norms,
+                  pins and the comparator or MIPS rerank, `stage2_rerank.cu`)
+                  and its ranking half
   stage0_sign   — the 1-bit sign scans: dense plane and block gather
   fused_topk    — stage-1 scoring fused with a per-block top-k
 
@@ -27,4 +30,6 @@ from repro_torch.kernels.stage1_int4 import (stage1_int4_batched,
                                              stage1_int4_single)
 from repro_torch.kernels.stage2_int8 import (stage2_int8_batched,
                                              stage2_int8_by_id,
-                                             stage2_int8_single)
+                                             stage2_int8_rerank_by_id,
+                                             stage2_int8_single,
+                                             stage2_rerank)

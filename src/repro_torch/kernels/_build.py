@@ -32,7 +32,7 @@ _SRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[1] / "build"
 SOURCES = ("stage1_int4", "stage1_int4_tall", "stage1_rows", "stage1_mma",
            "stage1_gather", "stage2_int8", "stage0_sign", "stage0_sign_mma",
-           "stage0_sign_gather", "fused_topk")
+           "stage0_sign_gather", "fused_topk", "stage2_rerank")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,7 +45,8 @@ LAUNCHES: dict[str, int] = {"stage1_plane": 0, "stage1_rows": 0,
                             "fused_topk_mma": 0, "stage1_gather_dp4a": 0,
                             "stage0_sign_plane_mma": 0,
                             "stage1_gather_resident": 0,
-                            "stage0_sign_gather_resident": 0}
+                            "stage0_sign_gather_resident": 0,
+                            "stage2_rerank_by_id": 0, "stage2_rerank": 0}
 
 # Callables told the counter name of every launch asked for on meta.
 ABSTRACT: list[Callable[[str], None]] = []

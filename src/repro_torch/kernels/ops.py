@@ -34,7 +34,9 @@ from repro_torch.kernels.stage1_int4 import (DEFAULT_ROWS,
                                              stage1_int4_single)
 from repro_torch.kernels.stage2_int8 import (stage2_int8_batched,
                                              stage2_int8_by_id,
-                                             stage2_int8_single)
+                                             stage2_int8_rerank_by_id,
+                                             stage2_int8_single,
+                                             stage2_rerank)
 
 
 def _block(kernel: str, batch: int, block: int | None) -> int:
@@ -201,6 +203,12 @@ def stage2_scores_by_id(q: torch.Tensor, msb_plane: torch.Tensor,
     the rows are read in place, not gathered."""
     return stage2_int8_by_id(pack_queries_even_odd(q), msb_plane, lsb_plane,
                              ids)
+
+
+# The engine's whole exact stage in one launch, from the (B, D) query, and
+# its ranking half (`ShardedIndex`'s final rerank): see `stage2_int8`.
+exact_rerank_by_id = stage2_int8_rerank_by_id
+rerank = stage2_rerank
 
 
 def _merge_blocks(scores: torch.Tensor, ids: torch.Tensor, n: int,

@@ -11,7 +11,8 @@ import torch
 
 from repro_torch.core.bitplanar import (expand_block_rows, gather_blocks,
                                         unpack_sign_pm1)
-from repro_torch.core.similarity import stable_topk
+from repro_torch.core.engine import MASKED_SCORE
+from repro_torch.core.similarity import rerank_dense_comparator, stable_topk
 
 INT32_MIN = -(2 ** 31)
 
@@ -161,6 +162,66 @@ def stage2_scores_by_id_ref(q_eo8: torch.Tensor, msb_plane: torch.Tensor,
     gathered and scored."""
     safe = ids.clamp(0, msb_plane.shape[0] - 1).long()
     return stage2_scores_batched_ref(q_eo8, msb_plane[safe], lsb_plane[safe])
+
+
+def _rank(scores: torch.Tensor, norms: torch.Tensor, k: int,
+          metric: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, C) scores and norms -> (top-k candidate positions (B, k) int64,
+    their scores (B, k) int32): the non-division cosine rerank or the
+    MIPS top-k, ties toward the lower position."""
+    if metric == "cosine":
+        return rerank_dense_comparator(scores, norms, k)
+    if metric == "mips":
+        top, local = stable_topk(scores, k)
+        return local, top
+    raise ValueError(f"metric must be one of ('cosine', 'mips'), got "
+                     f"{metric!r}")
+
+
+def exact_rerank_by_id_ref(q: torch.Tensor, msb_plane: torch.Tensor,
+                           lsb_plane: torch.Tensor, ids: torch.Tensor,
+                           norms_sq: torch.Tensor,
+                           member: torch.Tensor | None, *, k: int,
+                           metric: str
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """The exact-stage kernel: q (B, D) int8, msb/lsb_plane (N, D//2),
+    ids (B, C) int32, norms_sq (N,) int32, member (B, C) bool or None ->
+    (indices (B, k), scores (B, k), candidate_indices (B, C)) int32: the
+    by-id exact scores, then `pin_and_rerank_ref`."""
+    q_eo8 = torch.stack([q[:, 0::2], q[:, 1::2]], dim=1).to(torch.int8)
+    exact = stage2_scores_by_id_ref(q_eo8, msb_plane, lsb_plane, ids)
+    return pin_and_rerank_ref(exact, ids, norms_sq, member, k=k,
+                              metric=metric)
+
+
+def pin_and_rerank_ref(exact: torch.Tensor, ids: torch.Tensor,
+                       norms_sq: torch.Tensor, member: torch.Tensor | None,
+                       *, k: int, metric: str
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The exact stage after the (B, C) exact scores, as the engine
+    composed it before the kernel: the norms at ids clamped to [0, N - 1],
+    non-members pinned to (MASKED_SCORE, 1), the rerank, then -1 / 0 / -1
+    at non-members."""
+    cand_norms = norms_sq[ids.clamp(0, norms_sq.shape[0] - 1).long()]
+    if member is not None:
+        exact = exact.masked_fill(~member, MASKED_SCORE)
+        cand_norms = cand_norms.masked_fill(~member, 1)
+    local, top = _rank(exact, cand_norms, k, metric)
+    indices = torch.gather(ids, 1, local)
+    if member is None:
+        return indices, top, ids
+    valid = torch.gather(member, 1, local)
+    return (indices.masked_fill(~valid, -1), top.masked_fill(~valid, 0),
+            ids.masked_fill(~member, -1))
+
+
+def rerank_ref(scores: torch.Tensor, norms: torch.Tensor, ids: torch.Tensor,
+               *, k: int, metric: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rerank kernel: (B, C) int32 scores, norms and ids -> (ids at
+    the top k (B, k) int32, their scores (B, k) int32)."""
+    local, top = _rank(scores, norms, k, metric)
+    return torch.gather(ids, 1, local), top
 
 
 def stage2_scores_ref(q_eo8: torch.Tensor, msb_rows: torch.Tensor,

@@ -32,7 +32,9 @@ from repro_torch.kernels.stage1_int4 import (DEFAULT_ROWS, ROWS_CHOICES,
                                              stage1_int4_single)
 from repro_torch.kernels.stage2_int8 import (stage2_int8_batched,
                                              stage2_int8_by_id,
-                                             stage2_int8_single)
+                                             stage2_int8_rerank_by_id,
+                                             stage2_int8_single,
+                                             stage2_rerank)
 from repro_torch.configs import get_config
 from repro_torch.models import dense, embedder, get_model
 from repro_torch.serve import (MultiTenantRAGPipeline, RAGAgent, RAGPipeline,
@@ -47,7 +49,8 @@ ZERO_COUNTS = {"stage1_plane": 0, "stage1_rows": 0, "stage2_exact": 0,
                "stage2_by_id": 0, "fused_topk_mma": 0,
                "stage1_gather_dp4a": 0, "stage0_sign_plane_mma": 0,
                "stage1_gather_resident": 0,
-               "stage0_sign_gather_resident": 0}
+               "stage0_sign_gather_resident": 0, "stage2_rerank_by_id": 0,
+               "stage2_rerank": 0}
 INT32_MIN = -(2 ** 31)
 
 
@@ -195,6 +198,83 @@ def test_exact_by_id_matches_gathered_and_plain(cuda_device, d):
                                            stage2_exact=1)
 
 
+RERANK_C = (1, 5, 50, 257, 2048)
+RERANK_D = (8, 36, 250, 512, 1024)
+MASKED_SCORE = -(2 ** 31 - 1)
+
+
+def _ks(c: int) -> list[int]:
+    return sorted({k for k in (1, 5, c) if k <= c})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", RERANK_D)
+@pytest.mark.parametrize("c", RERANK_C)
+def test_exact_rerank_kernel_matches_plain(cuda_device, c, d):
+    """The whole exact stage in one launch equals its plain version (the
+    by-id scores, norms, pins and rerank composed in plain PyTorch) bit for
+    bit: cosine and MIPS, with and without a mask (lane 0 all false), at k
+    in {1, 5, C}; ids at -1 and past N, repeated rows (ties) and zero
+    norms. One launch per call, counted `stage2_rerank_by_id`."""
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(c * d),
+                 cuda_device)
+    b, n = 3, 4 * c + 7
+    msb = rand((n, d // 2), 0, 256, torch.uint8)
+    lsb = rand((n, d // 2), 0, 256, torch.uint8)
+    q = rand((b, d), -128, 128, torch.int8)
+    ids = rand((b, c), 0, n, torch.int32)
+    ids[:, 0] = -1
+    if c > 2:
+        ids[:, 1] = n + 1
+        ids[:, 2] = ids[:, c // 2]
+    norms = rand((n,), 0, 1 << 22, torch.int32)
+    norms[: n // 5] = 0
+    member = rand((b, c), 0, 3, torch.int32) > 0
+    member[0] = False
+    for metric in ("cosine", "mips"):
+        for mask in (None, member):
+            for k in _ks(c):
+                ops.reset_launch_counts()
+                got = stage2_int8_rerank_by_id(q, msb, lsb, ids, norms, mask,
+                                               k=k, metric=metric)
+                want = ref.exact_rerank_by_id_ref(q, msb, lsb, ids, norms,
+                                                  mask, k=k, metric=metric)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want, strict=True):
+                    assert torch.equal(g, w), (metric, mask is None, k)
+                assert ops.launch_counts() == dict(ZERO_COUNTS,
+                                                   stage2_rerank_by_id=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", RERANK_C)
+def test_rerank_kernel_matches_plain(cuda_device, c):
+    """The ranking half on scores and norms already formed equals its plain
+    version for any int32: INT32_MIN (the sharded pad pin), MASKED_SCORE,
+    INT32_MAX, ties, zero and negative norms; k in {1, 5, C}."""
+    rand = _rand(torch.Generator(device=cuda_device).manual_seed(c + 11),
+                 cuda_device)
+    b = 4
+    scores = rand((b, c), INT32_MIN, 2 ** 31 - 1, torch.int32)
+    scores[0] = rand((c,), -3, 4, torch.int32)            # ties
+    scores[1, ::3] = INT32_MIN
+    scores[1, 1::3] = MASKED_SCORE
+    scores[2, ::2] = 2 ** 31 - 1
+    norms = rand((b, c), -3, 2 ** 31 - 1, torch.int32)
+    norms[:, ::4] = 0
+    norms[3] = 1
+    ids = rand((b, c), -1, 1 << 20, torch.int32)
+    for metric in ("cosine", "mips"):
+        for k in _ks(c):
+            ops.reset_launch_counts()
+            got = stage2_rerank(scores, norms, ids, k=k, metric=metric)
+            want = ref.rerank_ref(scores, norms, ids, k=k, metric=metric)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want, strict=True):
+                assert torch.equal(g, w), (metric, k)
+            assert ops.launch_counts() == dict(ZERO_COUNTS, stage2_rerank=1)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("metric", ["cosine", "mips"])
 def test_kernel_backend_equals_plain_backend(cuda_device, metric):
@@ -216,7 +296,7 @@ def test_kernel_backend_equals_plain_backend(cuda_device, metric):
         for field in ("indices", "scores", "candidate_indices"):
             assert torch.equal(getattr(got, field), getattr(want, field))
     assert ops.launch_counts() == dict(ZERO_COUNTS, stage1_plane_mma=2,
-                                       stage1_rows=1, stage2_by_id=3)
+                                       stage1_rows=1, stage2_rerank_by_id=3)
 
 
 @pytest.mark.gpu
@@ -700,8 +780,10 @@ def test_cluster_backend_equals_plain_backend(cuda_device, c0):
             assert torch.equal(getattr(runs[0], field),
                                getattr(runs[1], field))
     counts = ops.launch_counts()
-    assert counts["stage1_plane_mma"] == 2 and counts["stage2_by_id"] == 2
-    assert counts["stage1_plane"] == 0 and counts["stage2_exact"] == 0
+    assert (counts["stage1_plane_mma"] == 2
+            and counts["stage2_rerank_by_id"] == 2)
+    assert counts["stage1_plane"] == counts["stage2_exact"] == 0
+    assert counts["stage2_by_id"] == 0
     if c0 is None:
         assert counts["stage1_gather"] == 2
         assert counts["stage0_sign_gather"] == 0
@@ -1327,7 +1409,7 @@ def test_rag_pipeline_retrieve_on_the_card_matches_the_cpu(cuda_device):
     res, ledger = gpu.retrieve(q)
     counts = ops.launch_counts()
     assert counts["stage1_plane_mma"] + counts["stage1_plane"] == 1
-    assert counts["stage2_by_id"] == 1
+    assert counts["stage2_rerank_by_id"] == 1 and counts["stage2_by_id"] == 0
     want, want_ledger = cpu.retrieve(q)
     assert torch.equal(res.indices.cpu(), want.indices)
     assert res.indices[:, 0].tolist() == [5, 17, 23]
@@ -1424,7 +1506,8 @@ def test_rag_agent_turn_on_the_card_matches_the_cpu(cuda_device):
 @pytest.mark.parametrize("shape", [(3, 1), (4, 2)])
 def test_sharded_index_on_the_card_matches_the_cpu(cuda_device, shape):
     """S shard slots on the card (S row blocks of one plane) give the CPU
-    port's bits, and one batch launches #1 and #3-by-id once per slot."""
+    port's bits, and one batch launches #1 and #3-by-id once per slot and
+    the final rerank kernel once."""
     from repro_torch.core.index import (ShardedIndex, pad_database,
                                         shard_database)
     from repro_torch.launch.mesh import make_test_mesh
@@ -1447,6 +1530,7 @@ def test_sharded_index_on_the_card_matches_the_cpu(cuda_device, shape):
         counts = ops.launch_counts()
         assert counts["stage1_plane_mma"] == slots, counts
         assert counts["stage2_by_id"] == slots, counts
+        assert counts["stage2_rerank"] == 1, counts
         assert counts["stage1_plane"] == counts["stage2_exact"] == 0
         for f in ("indices", "scores", "candidate_indices"):
             assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f

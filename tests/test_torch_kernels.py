@@ -487,8 +487,12 @@ def test_launch_counters_reset_and_do_not_count_the_plain_path():
     q = torch.zeros((2, 64), dtype=torch.int8)
     plane = torch.zeros((9, 32), dtype=torch.uint8)
     ops.stage1_scores_batched(q, plane)
-    ops.stage2_scores_by_id(q, plane, plane,
-                            torch.zeros((2, 3), dtype=torch.int32))
+    ids = torch.zeros((2, 3), dtype=torch.int32)
+    ops.stage2_scores_by_id(q, plane, plane, ids)
+    ops.exact_rerank_by_id(q, plane, plane, ids,
+                           torch.zeros(9, dtype=torch.int32), k=2,
+                           metric="cosine")
+    ops.rerank(ids, ids, ids, k=2, metric="mips")
     assert ops.launch_counts() == {
         "stage1_plane": 0, "stage1_rows": 0, "stage2_exact": 0,
         "stage1_gather": 0, "stage0_sign_gather": 0, "stage1_single": 0,
@@ -496,7 +500,8 @@ def test_launch_counters_reset_and_do_not_count_the_plain_path():
         "fused_topk_single": 0, "stage1_plane_mma": 0, "stage2_by_id": 0,
         "fused_topk_mma": 0, "stage1_gather_dp4a": 0,
         "stage0_sign_plane_mma": 0, "stage1_gather_resident": 0,
-        "stage0_sign_gather_resident": 0}
+        "stage0_sign_gather_resident": 0, "stage2_rerank_by_id": 0,
+        "stage2_rerank": 0}
 
 
 # ---------------------------------------------------------------------------
